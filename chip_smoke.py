@@ -1,0 +1,544 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
+
+Phases (each prints its results; any failure exits non-zero):
+
+1. set-up: the card's name and power limit, versions, the kernel build;
+2. each CUDA kernel against its plain PyTorch version, on the card, at the
+   shapes of the full-width run (bit-equal outputs), with CUDA-event times
+   (median and spread of 7 repeats) and the byte bound of each configuration;
+3. the table4 workload: q1-q3 under ``huge`` on powerlaw_graph(4096, 8.0,
+   seed=7), fused, with the reference's match counts;
+4. verify and join: q3/rads, q1/seed, q2/seed (fused) and q3/huge through the
+   membership kernel on powerlaw_graph(512, 6.0, seed=0);
+5. full width: q3 under ``huge`` on a 875,713-vertex power-law graph shaped
+   like web-Google, fused against plain, plus a profiled window of the fused
+   run.
+
+The line before the last holds the per-kernel JSON record; the last line is
+``{"ok": true, "device": {...}}``. It imports torch, numpy and the port only.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+SECTOR = 32  # bytes: the unit in which the card fetches a scattered load
+INVALID = 2**31 - 1
+CU_SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
+REPLACES = {
+    "fused_extend": "src/repro/kernels/intersect/intersect.py:181",
+    "fused_verify": "src/repro/kernels/intersect/intersect.py:239",
+    "lex_bounds": "src/repro/kernels/intersect/intersect.py:304",
+    "multiway_membership": "src/repro/kernels/intersect/intersect.py:84",
+}
+# The configuration whose numbers stand in each kernel's entry of the JSON line
+# (every configuration is printed, and listed under "configs").
+HEADLINE = {"fused_extend": "E=3 K=4", "fused_verify": "E=3 K=4",
+            "lex_bounds": "KK=1", "multiway_membership": "E=2"}
+TABLE4 = {"q1": 110508, "q2": 67887, "q3": 1782}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def call_ms(fn, iters: int = 20, repeats: int = 7, warmup: int = 10):
+    """CUDA-event time per call of ``fn`` over ``iters`` back-to-back calls,
+    ``repeats`` times after ``warmup`` calls: what a caller waits per call,
+    host-side launch cost included. Returns (median, min, max)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    means.sort()
+    return means[len(means) // 2], means[0], means[-1]
+
+
+def device_busy_us(prof) -> float:
+    """Device time in a profile: the kernels' own durations. (A CPU event
+    carries the time of the kernels it launched as well; counting it too
+    would count each kernel twice.)"""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def device_ms(fn, iters: int = 20, repeats: int = 5):
+    """Device time per call of ``fn``: the durations of the kernels it
+    launches, with no host gaps between them, as the profiler records them;
+    the mean of ``iters`` calls in each of ``repeats`` profiled windows.
+    Returns (median, min, max) over the windows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(repeats):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        means.append(device_busy_us(prof) / 1e3 / iters)
+    means.sort()
+    assert means[-1] > 0, "the profiler recorded no device time"
+    return means[len(means) // 2], means[0], means[-1]
+
+
+def timed(fn):
+    """Both times of ``fn``: calls first (they warm it up), then device."""
+    return call_ms(fn), device_ms(fn)
+
+
+def max_abs_err(a, b) -> int:
+    assert a.shape == b.shape, (a.shape, b.shape)
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# ---------------------------------------------------------------------------
+# Byte counts of the bounds: what this run's data needs each kernel to move
+# ---------------------------------------------------------------------------
+
+def sorted_rows_bytes(rows, row_id, need):
+    """Least bytes read from sorted, INVALID-padded rows. ``rows[..., D]``
+    holds the rows as addressed, ``row_id`` names the table row behind each
+    (one read serves every address of it), ``need`` the binary searches made
+    in each (-1: the row is copied whole). A distinct row costs its valid
+    prefix through the first INVALID, or, if only searched and that is fewer,
+    ceil(log2 D) + 1 sectors for each search."""
+    d = rows.shape[-1]
+    prefix = (((rows != INVALID).sum(-1) + 1).clamp(max=d) * 4 + SECTOR - 1) // SECTOR
+    live = need != 0
+    uniq, inv = torch.unique(row_id[live], return_inverse=True)
+    searches = torch.zeros(uniq.numel(), dtype=torch.int64, device=rows.device)
+    searches.scatter_add_(0, inv, need[live].clamp(min=0).long())
+    copied = torch.zeros(uniq.numel(), dtype=torch.bool, device=rows.device)
+    copied.scatter_(0, inv, (need[live] < 0))
+    pre = torch.zeros(uniq.numel(), dtype=torch.int64, device=rows.device)
+    pre.scatter_(0, inv, prefix[live].long())
+    per_search = math.ceil(math.log2(d)) + 1
+    sectors = torch.where(copied, pre, torch.minimum(searches * per_search, pre))
+    return int(sectors.sum()) * SECTOR
+
+
+def slab_row_ids(tab0, idx, sel):
+    return torch.where(sel == 1, idx[0].long(), tab0.shape[0] + idx[1].long())
+
+
+def extend_bytes(tab0, tab1, idx, sel, ok, rows, lt, gt, ref) -> int:
+    """Slab 0 copied (its valid prefix), the other slabs searched by the
+    candidates still alive (valid, past the row filters, members of every
+    earlier slab), the addressing and rows once, cands and mask written."""
+    b, e = sel.shape
+    d = tab0.shape[1]
+    slabs = ref.gather_slabs(tab0, tab1, idx, sel, ok)
+    cands = slabs[:, 0]
+    alive = cands != INVALID
+    for col in range(rows.shape[1]):
+        alive &= cands != rows[:, col : col + 1]
+    for p in lt:
+        alive &= cands < rows[:, p : p + 1]
+    for p in gt:
+        alive &= cands > rows[:, p : p + 1]
+    need = torch.zeros((b, e), dtype=torch.int64, device=tab0.device)
+    need[:, 0] = -1
+    for j in range(1, e):
+        need[:, j] = alive.sum(1)
+        alive &= ref.multiway_membership_ref(cands, slabs[:, j : j + 1])
+    need = torch.where(ok == 1, need, 0)
+    small = (idx.numel() + sel.numel() + ok.numel() + rows.numel()) * 4
+    return sorted_rows_bytes(slabs, slab_row_ids(tab0, idx, sel), need) + small + b * d * 5
+
+
+def verify_bytes(tab0, tab1, idx, sel, ok, rows, vpos, ref) -> int:
+    """One search per slab for each target still alive, the addressing and
+    the target column once, one byte out per row."""
+    b, e = sel.shape
+    slabs = ref.gather_slabs(tab0, tab1, idx, sel, ok)
+    target = rows[:, vpos]
+    alive = target != INVALID
+    need = torch.zeros((b, e), dtype=torch.int64, device=tab0.device)
+    for j in range(e):
+        need[:, j] = (alive & (ok[:, j] == 1)).long()
+        alive &= (slabs[:, j] == target[:, None]).any(1)
+    small = (idx.numel() + sel.numel() + ok.numel() + b) * 4
+    return sorted_rows_bytes(slabs, slab_row_ids(tab0, idx, sel), need) + small + b
+
+
+def membership_bytes(cands, others) -> int:
+    """cands read and the mask written in full; each others row searched by
+    the candidates still alive."""
+    b, e, d = others.shape
+    alive = cands != INVALID
+    need = torch.zeros((b, e), dtype=torch.int64, device=cands.device)
+    for j in range(e):
+        row = others[:, j].contiguous()
+        need[:, j] = alive.sum(1)
+        pos = torch.searchsorted(row, cands).clamp_(max=d - 1)
+        alive &= row.gather(1, pos) == cands
+    ids = torch.arange(b * e, device=cands.device).view(b, e)
+    return sorted_rows_bytes(others, ids, need) + cands.numel() * 5
+
+
+def lex_bytes(keys, q, ref) -> int:
+    """The distinct sectors of the key table that the two binary searches
+    of every query touch, the queries read once and lo, hi written."""
+    cap, kk = keys.shape
+    touched = []
+    for upper in (False, True):
+        lo = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+        hi = torch.full_like(lo, cap)
+        for _ in range(max(1, cap.bit_length())):
+            mid = (lo + hi) // 2
+            row = mid.clamp(0, cap - 1)
+            touched.append(row * kk * 4 // SECTOR)
+            lt, eq = ref._lex_cmp(keys[row], q)
+            go = (lt | eq) if upper else lt
+            lo = torch.where(go, mid + 1, lo)
+            hi = torch.where(go, hi, mid)
+    return torch.unique(torch.cat(touched)).numel() * SECTOR + q.numel() * 4 + 2 * q.shape[0] * 4
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions at main-path shapes
+# ---------------------------------------------------------------------------
+
+def walk_rows(adj, deg, b, k, gen):
+    """[b, k] random walks over the graph: realistic partial matches."""
+    dev = adj.device
+    live = (deg > 0).nonzero().squeeze(1)
+    cols = [live[torch.randint(0, live.numel(), (b,), generator=gen, device=dev)]]
+    for _ in range(k - 1):
+        prev = cols[-1]
+        j = (torch.rand(b, generator=gen, device=dev) * deg[prev]).long()
+        cols.append(adj[prev, j].long())
+    return torch.stack(cols, dim=1).to(torch.int32).contiguous()
+
+
+def slab_inputs(adj, deg, b, e, k, cache_rows, gen):
+    """(tab0, tab1, idx, sel, ok, rows) as the engine builds them: tab0 is a
+    value-cache table holding the batch's slabs among ``cache_rows`` rows."""
+    dev = adj.device
+    v = adj.shape[0]
+    rows = walk_rows(adj, deg, b, k, gen)
+    rows[::4, 1:e] = rows[::4, :1]  # a quarter of the rows intersect a slab with itself,
+    vids = rows[:, :e].long()       # so that E >= 2 has members (the graph has few triangles)
+    need = torch.unique(vids)
+    fill = torch.unique(torch.randint(0, v, (2 * cache_rows,), generator=gen, device=dev))
+    fill = fill[~torch.isin(fill, need)][: cache_rows - need.numel()]
+    cache_vids = torch.unique(torch.cat([need, fill]))
+    tab0 = adj[cache_vids].contiguous()
+    pos = torch.searchsorted(cache_vids, vids).clamp(max=cache_vids.numel() - 1)
+    cached = cache_vids[pos] == vids
+    sel = (cached & (torch.rand(b, e, generator=gen, device=dev) < 0.9)).to(torch.int32)
+    ok = (torch.rand(b, e, generator=gen, device=dev) < 0.97).to(torch.int32)
+    idx = torch.stack([pos.to(torch.int32), vids.to(torch.int32)]).contiguous()
+    return tab0, adj, idx, sel.contiguous(), ok.contiguous(), rows
+
+
+def phase_kernels(graph, ik, ref):
+    adj, deg = graph.padded.adj, graph.padded.deg
+    d = adj.shape[1]
+    gen = torch.Generator(device=adj.device).manual_seed(0)
+    b, cache_rows = 1024, 1 << 14
+    rec = {name: {"max_abs_err": 0, "configs": []} for name in REPLACES}
+    # First touch of the whole adjacency, so no timing below pays for it.
+    t0 = time.perf_counter()
+    adj.amax()
+    torch.cuda.synchronize()
+    log(f"  first touch of the {adj.numel() * 4 / 1e9:.2f} GB adjacency: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    def keep(name, shape, err, kernel, plain, nbytes, library=None, note=""):
+        (call, (ms, lo, hi)), (plain_call, plain_dev) = kernel, plain
+        cfg = dict(shape=shape, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_dev[0],
+                   bound_ms=bound_ms(nbytes), bound_bytes=nbytes,
+                   library_ms=library[1][0] if library else None,
+                   call_ms=call[0], call_ms_min=call[1], call_ms_max=call[2],
+                   plain_call_ms=plain_call[0],
+                   library_call_ms=library[0][0] if library else None)
+        log(f"  {name} [{shape}{note}]: max_abs_err={err} "
+            f"kernel device={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) "
+            f"call={call[0]:.4f} ms (min {call[1]:.4f}, max {call[2]:.4f}) | "
+            f"plain device={plain_dev[0]:.4f} ms call={plain_call[0]:.4f} ms | "
+            f"bound={cfg['bound_ms']:.5f} ms ({nbytes} B)" +
+            (f" | library device={library[1][0]:.4f} ms call={library[0][0]:.4f} ms"
+             if library else ""))
+        r = rec[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["configs"].append(cfg)
+
+    for e, k in ((1, 2), (2, 3), (3, 4)):
+        tab0, tab1, idx, sel, ok, rows = slab_inputs(adj, deg, b, e, k, cache_rows, gen)
+        lt, gt = (k - 1,), (0,)
+        c_k, m_k = ik.fused_extend(tab0, tab1, idx, sel, ok, rows, lt=lt, gt=gt)
+        c_r, m_r = ref.fused_extend_ref(tab0, tab1, idx, sel, ok, rows, lt=lt, gt=gt)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(c_k, c_r), max_abs_err(m_k, m_r))
+        assert err == 0, f"fused_extend E={e} K={k} disagrees with its plain version"
+        keep("fused_extend", f"E={e} K={k}", err,
+             timed(lambda: ik.fused_extend(tab0, tab1, idx, sel, ok, rows, lt=lt, gt=gt)),
+             timed(lambda: ref.fused_extend_ref(tab0, tab1, idx, sel, ok, rows, lt=lt, gt=gt)),
+             extend_bytes(tab0, tab1, idx, sel, ok, rows, lt, gt, ref),
+             note=f" B={b} D={d}, {int(m_r.sum())} matches")
+
+        vrows = rows.clone()
+        vrows[::2, k - 1] = torch.where(  # half the targets are true members
+            (sel[::2, 0] == 1)[:, None], tab0[idx[0, ::2, 0].long()], tab1[idx[1, ::2, 0].long()]
+        )[:, 0]
+        vpos = k - 1
+        v_k = ik.fused_verify(tab0, tab1, idx, sel, ok, vrows, vpos=vpos)
+        v_r = ref.fused_verify_ref(tab0, tab1, idx, sel, ok, vrows, vpos=vpos)
+        torch.cuda.synchronize()
+        err = max_abs_err(v_k, v_r)
+        assert err == 0, f"fused_verify E={e} K={k} disagrees with its plain version"
+        keep("fused_verify", f"E={e} K={k}", err,
+             timed(lambda: ik.fused_verify(tab0, tab1, idx, sel, ok, vrows, vpos=vpos)),
+             timed(lambda: ref.fused_verify_ref(tab0, tab1, idx, sel, ok, vrows, vpos=vpos)),
+             verify_bytes(tab0, tab1, idx, sel, ok, vrows, vpos, ref),
+             note=f" B={b} D={d}, {int(v_r.sum())} kept")
+
+        if e >= 2:
+            cands = adj[rows[:, 0].long()]
+            others = torch.stack([adj[rows[:, c].long()] for c in range(1, e)], dim=1).contiguous()
+            w_k = ik.multiway_membership(cands, others)
+            w_r = ref.multiway_membership_ref(cands, others)
+            torch.cuda.synchronize()
+            err = max_abs_err(w_k, w_r)
+            assert err == 0, f"multiway_membership E={e} disagrees with its plain version"
+            keep("multiway_membership", f"E={e}", err,
+                 timed(lambda: ik.multiway_membership(cands, others)),
+                 timed(lambda: ref.multiway_membership_ref(cands, others)),
+                 membership_bytes(cands, others),
+                 note=f" B={b} D={d}, {e - 1} others")
+
+    cap = 1 << 20
+    src = graph.nbrs
+    for kk in (2, 1):
+        n_keys = int(cap * 0.9)
+        pick = torch.randint(0, src.numel(), (n_keys, kk), generator=gen, device=src.device)
+        filled = src[pick].to(torch.int64)  # vertex ids, skewed like a join key
+        comb = filled[:, 0] * (1 << 31) + (filled[:, 1] if kk == 2 else 0)
+        filled = filled[torch.sort(comb, stable=True).indices].to(torch.int32)
+        keys = torch.full((cap, kk), INVALID, dtype=torch.int32, device=src.device)
+        keys[:n_keys] = filled
+        q = keys[torch.randint(0, n_keys, (b,), generator=gen, device=src.device)].clone()
+        q[b // 2 : 3 * b // 4] = src[torch.randint(0, src.numel(), (b // 4, kk), generator=gen,
+                                                   device=src.device)]
+        q[3 * b // 4 :] = INVALID - 1  # the join's invalid-query encoding
+        lo_k, hi_k = ik.lex_bounds(keys, q)
+        lo_r, hi_r = ref.lex_bounds_ref(keys, q)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(lo_k, lo_r), max_abs_err(hi_k, hi_r))
+        assert err == 0, f"lex_bounds KK={kk} disagrees with its plain version"
+        library = None
+        if kk == 1:
+            k1, q1 = keys[:, 0].contiguous(), q[:, 0].contiguous()
+            lo_l = torch.searchsorted(k1, q1)
+            hi_l = torch.searchsorted(k1, q1, right=True)
+            assert torch.equal(lo_l.to(torch.int32), lo_k) and torch.equal(hi_l.to(torch.int32), hi_k)
+            library = timed(lambda: (torch.searchsorted(k1, q1), torch.searchsorted(k1, q1, right=True)))
+        keep("lex_bounds", f"KK={kk}", err, timed(lambda: ik.lex_bounds(keys, q)),
+             timed(lambda: ref.lex_bounds_ref(keys, q)), lex_bytes(keys, q, ref),
+             library=library, note=f" CAP={cap} B={b}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phases 3-5: the main path through the engine's entry points
+# ---------------------------------------------------------------------------
+
+def run_counted(ik, launches, fn):
+    """Drive one main-path run with every launch count set to 0 just before
+    it; add the counts read just after into ``launches``."""
+    ik.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    seen = dict(ik.launches)
+    for name, n in seen.items():
+        launches[name] += n
+    return out, seen
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+
+    from repro_torch.core.cost import GraphStats
+    from repro_torch.core.dataflow import translate
+    from repro_torch.core.engine import EngineConfig, HugeEngine
+    from repro_torch.core.optimizer import optimal_plan
+    from repro_torch.core.query import PAPER_QUERIES
+    from repro_torch.graph import powerlaw_graph
+    from repro_torch.kernels.intersect import build
+    from repro_torch.kernels.intersect import ops as ik
+    from repro_torch.kernels.intersect import ref
+
+    dev = torch.device("cuda")
+    # -- phase 1 ---------------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    build.load()
+    log(f"phase 1: kernels built in {build.build_seconds:.2f} s -> {build.library_path()}")
+
+    t0 = time.perf_counter()
+    big = powerlaw_graph(875_713, 9.8, exponent=3.0, seed=7, device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 1: full-width graph |V|={big.num_vertices} |E|={big.num_edges} "
+        f"max_deg={big.max_degree} d_pad={big.padded.d_pad} "
+        f"adj={big.padded.adj.numel() * 4 / 1e9:.2f} GB, built in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 2 ---------------------------------------------------------------
+    log("phase 2: kernels vs plain versions at full-width shapes")
+    rec = phase_kernels(big, ik, ref)
+
+    launches = {name: 0 for name in ik.launches}
+
+    # -- phase 3 ---------------------------------------------------------------
+    g4k = powerlaw_graph(4096, 8.0, seed=7, device=dev)
+    stats4k = GraphStats.from_graph(g4k)
+    for qname, want in TABLE4.items():
+        cfg = EngineConfig(batch_size=1024, queue_capacity=1 << 17, cache_capacity=1 << 13,
+                           num_machines=8, join_out_capacity=1 << 18,
+                           join_buffer_capacity=1 << 21, fused=True)
+        flow = translate(optimal_plan(PAPER_QUERIES[qname], stats4k, 8, "huge"))
+        res, seen = run_counted(ik, launches, lambda: HugeEngine(g4k, cfg).run(flow))
+        s = res.stats
+        log(f"phase 3: table4 {qname}/huge fused count={res.count} (want {want}) "
+            f"wall={s.wall_time:.3f} s matches/s={res.count / s.wall_time:.1f} launches={seen}")
+        assert res.count == want, (qname, res.count, want)
+        assert seen["fused_extend"] > 0, "the fused extend kernel never ran"
+
+    # -- phase 4 ---------------------------------------------------------------
+    g512 = powerlaw_graph(512, 6.0, seed=0, device=dev)
+    for qname, space, want, cfg, must in (
+        ("q3", "rads", 84, EngineConfig(fused=True), "fused_verify"),
+        ("q1", "seed", 4361, EngineConfig(fused=True), "lex_bounds"),
+        ("q2", "seed", 2551, EngineConfig(fused=True), "lex_bounds"),
+        ("q3", "huge", 84, EngineConfig(use_intersect_kernel=True), "multiway_membership"),
+    ):
+        res, seen = run_counted(
+            ik, launches, lambda: HugeEngine(g512, cfg).run(PAPER_QUERIES[qname], space=space))
+        log(f"phase 4: {qname}/{space} count={res.count} (want {want}) "
+            f"wall={res.stats.wall_time:.3f} s launches={seen}")
+        assert res.count == want, (qname, space, res.count, want)
+        assert seen[must] > 0, f"{must} never ran in {qname}/{space}"
+
+    # -- phase 5 ---------------------------------------------------------------
+    qname = "q3"
+    t0 = time.perf_counter()
+    flow = translate(optimal_plan(PAPER_QUERIES[qname], GraphStats.from_graph(big), 8, "huge"))
+    plan_s = time.perf_counter() - t0
+    log(f"phase 5: planning {plan_s * 1e3:.1f} ms; dataflow:\n{flow.describe()}")
+    full_cfg = dict(batch_size=1024, queue_capacity=1 << 18, cache_capacity=1 << 14,
+                    num_machines=8)
+    counts, walls = {}, {}
+    for fused in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        eng = HugeEngine(big, EngineConfig(fused=fused, **full_cfg))
+        res, seen = run_counted(ik, launches if fused else {n: 0 for n in launches},
+                                lambda: eng.run(flow))
+        s = res.stats
+        counts[fused] = res.count
+        walls[fused] = (s.wall_time, res.schedule.steps)
+        log(f"phase 5: {qname}/huge full width fused={fused} count={res.count} "
+            f"wall={s.wall_time:.2f} s matches/s={res.count / s.wall_time:.1f} "
+            f"steps={res.schedule.steps} launches={seen} "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            f"T_R={s.compute_time:.2f} s T_C={s.comm_time:.2f} s")
+        if fused:
+            assert seen["fused_extend"] > 0, "the fused extend kernel never ran at full width"
+    assert counts[True] == counts[False], counts
+    profile_window(big, flow, EngineConfig(fused=True, **full_cfg), HugeEngine, *walls[True])
+
+    for name in launches:
+        assert launches[name] > 0, f"{name} was never launched on the main path"
+    kernels = []
+    for name in ("fused_extend", "fused_verify", "lex_bounds", "multiway_membership"):
+        head = next(c for c in rec[name]["configs"] if c["shape"] == HEADLINE[name])
+        kernels.append(dict(
+            name=name, route="cuda", source=CU_SOURCE, replaces=REPLACES[name],
+            launches=launches[name], max_abs_err=rec[name]["max_abs_err"],
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by="bytes", library_ms=head["library_ms"], shape=head["shape"],
+            configs=rec[name]["configs"]))
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def profile_window(graph, flow, cfg, engine_cls, run_wall, run_steps, steps: int = 400):
+    """Profile the first ``steps`` scheduler steps of a fresh fused run: device
+    time by kernel against the window's wall time (the idle share is what the
+    host's launches and syncs cost). The profiler slows the host, so the
+    unprofiled run's idle share is also estimated from its own wall time
+    (``run_wall`` over ``run_steps``) and the window's device time a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = engine_cls(graph, cfg)
+    session = eng.prepare(flow, session_stats=eng.stats)
+    session.tick(20)  # warm-up outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session.tick(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in events
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = device_busy_us(prof)
+    ours = sum(t for k, t, _ in rows if any(f"{name}_kernel" in k for name in REPLACES))
+    log(f"phase 5: profile of {steps} fused steps: wall={wall * 1e3:.1f} ms "
+        f"device busy={busy_us / 1e3:.1f} ms (port's kernels {ours / 1e3:.1f} ms) "
+        f"idle share={1 - busy_us / 1e3 / (wall * 1e3):.3f}")
+    per_step_ms = busy_us / 1e3 / steps
+    log(f"phase 5: device busy {per_step_ms:.4f} ms a step; unprofiled run "
+        f"{run_wall / run_steps * 1e3:.4f} ms a step -> estimated idle share "
+        f"{1 - per_step_ms * run_steps / (run_wall * 1e3):.3f}")
+    for key, t, n in sorted(rows, key=lambda r: -r[1])[:12]:
+        log(f"phase 5:   device {t / 1e3:9.2f} ms  x{n:<6d} {key[:90]}")
+    # Host time inside the CUDA runtime: waits for the device (syncs) and launches.
+    for e in sorted((e for e in events if e.key.startswith("cuda")),
+                    key=lambda e: -e.self_cpu_time_total)[:6]:
+        log(f"phase 5:   host {e.self_cpu_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key}")
+    if not rows:
+        log("phase 5: profiler recorded no device time (not measured)")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,163 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device. The file
+imports only torch and numpy (the machine with the card has no JAX), so it
+runs there with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
+Integer outputs must be equal bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.graph.storage import INVALID
+from repro_torch.kernels.intersect import ops as ik
+from repro_torch.kernels.intersect.ref import (
+    fused_extend_ref,
+    fused_verify_ref,
+    lex_bounds_ref,
+    multiway_membership_ref,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _sorted_table(rng, r, d, vmax, full_rows=0):
+    t = np.full((r, d), INVALID, np.int32)
+    for i in range(r):
+        k = d if i < full_rows else int(rng.integers(0, d + 1))
+        vals = np.unique(rng.integers(0, vmax, size=k)).astype(np.int32)
+        t[i, : len(vals)] = vals
+    return t
+
+
+def _fused_inputs(rng, b, e, k, d, r0, r1, dev):
+    tab0 = _sorted_table(rng, r0, d, 400, full_rows=2)
+    tab1 = _sorted_table(rng, r1, d, 400)
+    idx = np.stack([rng.integers(0, r0, (b, e)), rng.integers(0, r1, (b, e))]).astype(np.int32)
+    sel = rng.integers(0, 2, (b, e)).astype(np.int32)
+    ok = (rng.random((b, e)) < 0.85).astype(np.int32)
+    rows = rng.integers(0, 400, (b, k)).astype(np.int32)
+    rows[rng.random((b, k)) < 0.1] = INVALID
+    return [torch.from_numpy(a).to(dev) for a in (tab0, tab1, idx, sel, ok, rows)]
+
+
+@pytest.mark.parametrize("b,e,k,lt,gt,d", [
+    (1, 1, 2, (), (), 128),
+    (37, 2, 3, (1,), (), 256),
+    (64, 3, 4, (0,), (2,), 384),
+    (300, 3, 4, (0, 3), (1,), 640),
+])
+def test_fused_extend_kernel_matches_plain(cuda, b, e, k, lt, gt, d):
+    rng = np.random.default_rng(b)
+    args = _fused_inputs(rng, b, e, k, d, 23, 41, cuda)
+    before = ik.launches["fused_extend"]
+    c_k, m_k = ik.fused_extend(*args, lt=lt, gt=gt)
+    torch.cuda.synchronize()
+    assert ik.launches["fused_extend"] == before + 1
+    c_r, m_r = fused_extend_ref(*args, lt=lt, gt=gt)
+    assert torch.equal(c_k, c_r) and torch.equal(m_k, m_r)
+    assert m_r.any(), "inputs should exercise the True branch"
+
+
+@pytest.mark.parametrize("b,e,k,vpos", [(1, 1, 2, 0), (45, 2, 4, 2), (700, 3, 3, 1)])
+def test_fused_verify_kernel_matches_plain(cuda, b, e, k, vpos):
+    rng = np.random.default_rng(100 + b)
+    tab0, tab1, idx, sel, ok, rows = _fused_inputs(rng, b, e, k, 256, 19, 29, cuda)
+    # make half the targets members of their first slab so True occurs
+    s0 = torch.where((sel[:, 0] == 1)[:, None], tab0[idx[0, :, 0].long()], tab1[idx[1, :, 0].long()])
+    rows[::2, vpos] = s0[::2, 0]
+    got = ik.fused_verify(tab0, tab1, idx, sel, ok, rows, vpos=vpos)
+    torch.cuda.synchronize()
+    want = fused_verify_ref(tab0, tab1, idx, sel, ok, rows, vpos=vpos)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cap,kk,bq,padded", [
+    (64, 1, 7, True), (200, 2, 300, True), (1000, 3, 65, True), (77, 1, 40, False),
+])
+def test_lex_bounds_kernel_matches_plain(cuda, cap, kk, bq, padded):
+    rng = np.random.default_rng(cap)
+    nk = int(cap * 0.8) if padded else cap
+    keys = np.full((cap, kk), INVALID, np.int32)
+    filled = rng.integers(0, 30, (nk, kk)).astype(np.int32)  # many duplicate keys
+    keys[:nk] = filled[np.lexsort(filled[:, ::-1].T)]
+    q = rng.integers(0, 32, (bq, kk)).astype(np.int32)
+    q[rng.random(bq) < 0.25] = INVALID - 1
+    keys_t, q_t = torch.from_numpy(keys).to(cuda), torch.from_numpy(q).to(cuda)
+    lo_k, hi_k = ik.lex_bounds(keys_t, q_t)
+    torch.cuda.synchronize()
+    lo_r, hi_r = lex_bounds_ref(keys_t, q_t)
+    assert torch.equal(lo_k, lo_r) and torch.equal(hi_k, hi_r)
+
+
+@pytest.mark.parametrize("b,e,d", [(1, 1, 128), (16, 2, 256), (70, 3, 384), (9, 0, 128)])
+def test_multiway_membership_kernel_matches_plain(cuda, b, e, d):
+    rng = np.random.default_rng(7 + b)
+    others = np.stack([_sorted_table(rng, e, d, 500) for _ in range(b)]) if e else \
+        np.zeros((b, 0, d), np.int32)
+    cands = rng.integers(0, 500, size=(b, d)).astype(np.int32)
+    cands[rng.random((b, d)) < 0.2] = INVALID
+    c_t, o_t = torch.from_numpy(cands).to(cuda), torch.from_numpy(others).to(cuda)
+    got = ik.multiway_membership(c_t, o_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, multiway_membership_ref(c_t, o_t))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    a = torch.zeros((4, 128), dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        ik.multiway_membership(a, a[:, None, :])
+    b = torch.zeros((4, 256), dtype=torch.int32, device=cuda)[:, ::2]
+    with pytest.raises(ValueError):
+        ik.multiway_membership(b, b[:, None, :])
+    with pytest.raises(ValueError):
+        ik.lex_bounds(torch.zeros((8, 1), dtype=torch.int32), torch.zeros((2, 1), dtype=torch.int32,
+                                                                            device=cuda))
+
+
+def test_value_cache_duplicate_targets_on_card(cuda):
+    """More misses than ways in one set: the last writer wins every slot, for
+    keys and slabs alike, exactly as on the CPU (and in the JAX reference)."""
+    from repro_torch.core import cache as lrbu
+
+    vids = torch.tensor([0, 4, 8, 12, 16, 20, INVALID, INVALID], dtype=torch.int32)
+    rows = torch.arange(32, dtype=torch.int32).view(8, 4)
+    degs = torch.arange(8, dtype=torch.int32)
+    states = []
+    for dev in ("cpu", cuda):
+        st = lrbu.make_cache(8, ways=2, d_pad=4, device=dev)
+        _, hit = lrbu.fetch_update_values(st, vids.to(dev), rows.to(dev), degs.to(dev))
+        states.append((st, hit))
+    (sc, hc), (sg, hg) = states
+    for name in ("keys", "epoch", "current_epoch", "values", "degs"):
+        assert torch.equal(getattr(sg, name).cpu(), getattr(sc, name)), name
+    assert torch.equal(hg.cpu(), hc)
+
+
+@pytest.mark.parametrize("qname,space,launched", [
+    ("q1", "huge", "fused_extend"), ("q3", "rads", "fused_verify"), ("q2", "seed", "lex_bounds"),
+])
+def test_engine_on_card_equals_cpu_port(cuda, qname, space, launched):
+    """Stats and materialised matches of the fused engine on the card equal
+    the CPU port's, which the CPU tests hold equal to the JAX engine's."""
+    from repro_torch.core.engine import EngineConfig, HugeEngine
+    from repro_torch.core.query import PAPER_QUERIES
+    from repro_torch.graph import powerlaw_graph
+
+    g = powerlaw_graph(512, 6.0, seed=0, device="cpu")
+    cfg = EngineConfig(fused=True, materialize=True)
+    r_cpu = HugeEngine(g, cfg, device="cpu").run(PAPER_QUERIES[qname], space=space)
+    ik.reset_launches()
+    r_gpu = HugeEngine(g, cfg, device=cuda).run(PAPER_QUERIES[qname], space=space)
+    assert ik.launches[launched] > 0
+    for f in ("count", "pulled_bytes", "pushed_bytes", "cache_hits", "cache_misses",
+              "peak_queue_rows", "batches", "rows_emitted"):
+        assert getattr(r_gpu.stats, f) == getattr(r_cpu.stats, f), f
+    assert np.array_equal(r_gpu.matches, r_cpu.matches)

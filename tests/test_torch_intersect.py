@@ -1,0 +1,163 @@
+"""Plain PyTorch versions of the intersect kernels against the JAX package:
+its pure-jnp twins and its Pallas kernels in interpret mode, on the same
+numpy inputs. Outputs are integer or boolean and must be equal bit for bit.
+(The CUDA kernels themselves are held against these plain versions on the
+card, in test_torch_gpu.py.)"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.intersect import intersect as pallas
+from repro.kernels.intersect import ops as ops_ref
+from repro.kernels.intersect import ref as twin
+from repro_torch.graph.storage import INVALID
+from repro_torch.kernels.intersect import ops as ik
+from repro_torch.kernels.intersect import ref as plain
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread is faster, and test
+    workers that share the cores do not oversubscribe them."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def sorted_table(rng, r, d, vmax, full_rows=0):
+    tab = np.full((r, d), INVALID, np.int32)
+    for i in range(r):
+        k = d if i < full_rows else int(rng.integers(0, d + 1))
+        vals = np.unique(rng.integers(0, vmax, size=k)).astype(np.int32)
+        tab[i, : len(vals)] = vals
+    return tab
+
+
+def fused_inputs(seed, b, e, k, d=128, r0=29, r1=41, ok_rate=0.85):
+    rng = np.random.default_rng(seed)
+    tab0 = sorted_table(rng, r0, d, 300, full_rows=1)
+    tab1 = sorted_table(rng, r1, d, 300)
+    idx = np.stack([rng.integers(0, r0, (b, e)), rng.integers(0, r1, (b, e))]).astype(np.int32)
+    sel = rng.integers(0, 2, (b, e)).astype(np.int32)
+    ok = (rng.random((b, e)) < ok_rate).astype(np.int32)
+    rows = rng.integers(0, 300, (b, k)).astype(np.int32)
+    return tab0, tab1, idx, sel, ok, rows
+
+
+@pytest.mark.parametrize("b,e,k,lt,gt,ok_rate", [
+    (6, 1, 2, (), (), 0.85),       # E=1: no membership, only filters
+    (8, 2, 3, (1,), (), 0.85),
+    (11, 3, 4, (0,), (2,), 0.5),   # partially ok
+    (5, 2, 2, (0, 1), (), 1.0),
+    (9, 3, 3, (), (0, 2), 0.0),    # every slab forced to INVALID
+])
+def test_fused_extend_plain_matches_twin_and_pallas(b, e, k, lt, gt, ok_rate):
+    args = fused_inputs(b * 10 + e, b, e, k, ok_rate=ok_rate)
+    c_p, m_p = plain.fused_extend_ref(*map(t, args), lt=lt, gt=gt)
+    jargs = [jnp.asarray(a) for a in args]
+    c_t, m_t = twin.fused_extend_ref(*jargs, lt=lt, gt=gt)
+    c_k, m_k = pallas.fused_extend_kernel(*jargs, lt=lt, gt=gt, interpret=True)
+    for ref_c, ref_m in ((c_t, m_t), (c_k, m_k)):
+        np.testing.assert_array_equal(c_p.numpy(), np.asarray(ref_c))
+        np.testing.assert_array_equal(m_p.numpy(), np.asarray(ref_m))
+    # the wrapper takes the plain version for CPU tensors and counts no launch
+    before = dict(ik.launches)
+    c_w, m_w = ik.fused_extend(*map(t, args), lt=lt, gt=gt)
+    assert torch.equal(c_w, c_p) and torch.equal(m_w, m_p)
+    assert ik.launches == before
+
+
+@pytest.mark.parametrize("b,e,k,vpos,ok_rate", [
+    (5, 1, 3, 0, 0.85), (9, 2, 4, 2, 0.85), (8, 3, 3, 1, 0.6), (4, 2, 2, 1, 1.0),
+])
+def test_fused_verify_plain_matches_twin_and_pallas(b, e, k, vpos, ok_rate):
+    tab0, tab1, idx, sel, ok, rows = fused_inputs(100 + b, b, e, k, r0=23, r1=31,
+                                                  ok_rate=ok_rate)
+    rows[::2, vpos] = np.where(sel[::2, 0] == 1, tab0[idx[0, ::2, 0], 0], tab1[idx[1, ::2, 0], 0])
+    rows[-1, vpos] = INVALID
+    args = (tab0, tab1, idx, sel, ok, rows)
+    got = plain.fused_verify_ref(*map(t, args), vpos=vpos).numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    np.testing.assert_array_equal(got, np.asarray(twin.fused_verify_ref(*jargs, vpos=vpos)))
+    np.testing.assert_array_equal(
+        got, np.asarray(pallas.fused_verify_kernel(*jargs, vpos=vpos, interpret=True)))
+    assert torch.equal(ik.fused_verify(*map(t, args), vpos=vpos), torch.from_numpy(got))
+    if e == 1:
+        assert got.any()
+
+
+@pytest.mark.parametrize("cap,kk,bq", [(64, 1, 7), (200, 2, 17), (384, 3, 8), (1000, 2, 33)])
+def test_lex_bounds_plain_matches_twin_and_pallas(cap, kk, bq):
+    rng = np.random.default_rng(cap)
+    nk = int(cap * 0.8)
+    keys = np.full((cap, kk), INVALID, np.int32)
+    filled = rng.integers(0, 12, (nk, kk)).astype(np.int32)  # many duplicate keys
+    keys[:nk] = filled[np.lexsort(filled[:, ::-1].T)]
+    q = rng.integers(0, 14, (bq, kk)).astype(np.int32)
+    q[rng.random(bq) < 0.25] = INVALID - 1  # the join's invalid-query encoding
+    lo_p, hi_p = plain.lex_bounds_ref(t(keys), t(q))
+    for lo_r, hi_r in (twin.lex_bounds_ref(jnp.asarray(keys), jnp.asarray(q)),
+                       pallas.lex_bounds_kernel(jnp.asarray(keys), jnp.asarray(q),
+                                                interpret=True)):
+        np.testing.assert_array_equal(lo_p.numpy(), np.asarray(lo_r))
+        np.testing.assert_array_equal(hi_p.numpy(), np.asarray(hi_r))
+    if kk < 3:
+        assert (hi_p > lo_p).any()  # duplicates give real equal ranges
+    lo_w, hi_w = ik.lex_bounds(t(keys), t(q))
+    assert torch.equal(lo_w, lo_p) and torch.equal(hi_w, hi_p)
+
+
+def test_lex_bounds_on_unpadded_table_follows_the_twin():
+    """With no INVALID row at the end of the table, the twin's fixed-count
+    search can step past CAP (hi = CAP+1 for a query equal to the last key),
+    where the Pallas compare-count kernel stops at CAP. The port follows the
+    twin, step for step (ROADMAP, Queue 3)."""
+    keys = np.asarray([[1], [2], [3], [4]], np.int32)
+    q = np.asarray([[4], [5], [0]], np.int32)
+    lo_p, hi_p = plain.lex_bounds_ref(t(keys), t(q))
+    lo_r, hi_r = twin.lex_bounds_ref(jnp.asarray(keys), jnp.asarray(q))
+    np.testing.assert_array_equal(lo_p.numpy(), np.asarray(lo_r))
+    np.testing.assert_array_equal(hi_p.numpy(), np.asarray(hi_r))
+    assert hi_p.tolist() == [5, 5, 0]
+
+
+@pytest.mark.parametrize("b,e,d", [(8, 1, 128), (13, 2, 256), (8, 3, 384), (3, 0, 128)])
+def test_multiway_membership_plain_matches_twin_and_pallas(b, e, d):
+    rng = np.random.default_rng(b + e)
+    others = np.stack([sorted_table(rng, e, d, 500) for _ in range(b)]) if e \
+        else np.zeros((b, 0, d), np.int32)
+    cands = rng.integers(0, 500, size=(b, d)).astype(np.int32)
+    cands[rng.random((b, d)) < 0.2] = INVALID
+    got = plain.multiway_membership_ref(t(cands), t(others)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(twin.multiway_membership_ref(jnp.asarray(cands), jnp.asarray(others))))
+    if e:
+        np.testing.assert_array_equal(got, np.asarray(ops_ref.multiway_membership(
+            jnp.asarray(cands), jnp.asarray(others), force_kernel=True)))
+    assert torch.equal(ik.multiway_membership(t(cands), t(others)), torch.from_numpy(got))
+
+
+def test_gather_slabs_and_lex_cmp_match_twin():
+    args = fused_inputs(3, 7, 3, 3)
+    np.testing.assert_array_equal(
+        plain.gather_slabs(*map(t, args[:5])).numpy(),
+        np.asarray(twin.gather_slabs(*[jnp.asarray(a) for a in args[:5]])))
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, 3, (50, 3)).astype(np.int32)
+    b = rng.integers(0, 3, (50, 3)).astype(np.int32)
+    lt_p, eq_p = plain._lex_cmp(t(a), t(b))
+    lt_r, eq_r = twin._lex_cmp(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_array_equal(lt_p.numpy(), np.asarray(lt_r))
+    np.testing.assert_array_equal(eq_p.numpy(), np.asarray(eq_r))
+
+
+def test_wrappers_refuse_mixed_or_unsupported_devices():
+    x = torch.zeros((2, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ik.multiway_membership(x, x[:, None, :])
