@@ -2,36 +2,70 @@
 
 Phases (each prints its results; any failure exits non-zero):
 
-1. set-up: the card's name and power limit, versions, the kernel build;
-2. each CUDA kernel against its plain PyTorch version, on the card, at the
-   shapes of the full-width run (bit-equal outputs), with CUDA-event times
-   (median and spread of 7 repeats) and the byte bound of each configuration;
+1. set-up: the card's name and power limit, versions, the kernel builds (one
+   nvcc per source, started together);
+2. each intersect kernel against its plain PyTorch version, on the card, at
+   the shapes of the full-width run (bit-equal outputs), with device times
+   (profiler, median and spread of 5 windows), CUDA-event call times and the
+   byte bound of each configuration;
 3. the table4 workload: q1-q3 under ``huge`` on powerlaw_graph(4096, 8.0,
    seed=7), fused, with the reference's match counts;
 4. verify and join: q3/rads, q1/seed, q2/seed (fused) and q3/huge through the
    membership kernel on powerlaw_graph(512, 6.0, seed=0);
 5. full width: q3 under ``huge`` on a 875,713-vertex power-law graph shaped
    like web-Google, fused against plain, plus a profiled window of the fused
-   run.
+   run;
+6. the RWKV6 kernel against its plain version at the LM path's shapes
+   (forward, serve prefill with the state, a ragged tail), with its times and
+   its bound;
+7. rwkv6-7b at full width: ``loss_fn`` and ``forward`` on 4 x 4096 tokens
+   (32 kernel launches a pass), a profiled forward, and ``prefill`` +
+   ``decode_step`` against the forward's logits, in bf16 and with the
+   parameters widened to float32;
+8. rwkv6-7b serving: ``BatchedServer``, greedy, 16 requests of 512 prompt
+   tokens and 32 new tokens on 8 slots.
 
 The line before the last holds the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. It imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+F32_FLOPS_PER_S = 67e12    # H100 SXM float32 peak outside the tensor cores (data sheet)
 SECTOR = 32  # bytes: the unit in which the card fetches a scattered load
 INVALID = 2**31 - 1
 CU_SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
+RWKV_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu"
+RWKV_REPLACES = "src/repro/kernels/rwkv6/rwkv6.py:74"
+RWKV_TOL = 1e-4  # kernel vs plain, max |diff| / max |plain|: float32, another summation order
+# prefill + decode vs the forward pass, max |diff| / max |forward logits|. In
+# float32 the two paths differ only in summation order. In bf16 the logits
+# carry bf16's own rounding: at full width the bf16 forward differs from the
+# float32 forward of the same weights by about 0.06, and from a bf16 forward
+# of the same tokens in another batch shape by as much.
+LOGITS_TOL_F32 = 1e-3
+LOGITS_TOL_BF16 = 0.10
+# The LM phases' sizes: the kernel's (what, BH, T, state out) at the LM path's
+# shapes; forward (B, S, prefill length, decode steps); serving (requests,
+# prompt length, new tokens, slots).
+RWKV_SHAPES = (("forward B=4", 4 * 64, 4096, False),
+               ("serve prefill B=8", 8 * 64, 512, True),
+               ("ragged tail B=8", 8 * 64, 37, True))
+LM_FORWARD = (4, 4096, 512, 3)
+LM_SERVE = (16, 512, 32, 8)
+DEV = "cuda"
 REPLACES = {
     "fused_extend": "src/repro/kernels/intersect/intersect.py:181",
     "fused_verify": "src/repro/kernels/intersect/intersect.py:239",
@@ -69,6 +103,13 @@ def call_ms(fn, iters: int = 20, repeats: int = 7, warmup: int = 10):
     return means[len(means) // 2], means[0], means[-1]
 
 
+def device_kernels(prof) -> int:
+    """Kernels (device rows) a profile recorded."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
 def device_busy_us(prof) -> float:
     """Device time in a profile: the kernels' own durations. (A CPU event
     carries the time of the kernels it launched as well; counting it too
@@ -79,30 +120,55 @@ def device_busy_us(prof) -> float:
                if e.device_type == DeviceType.CUDA)
 
 
-def device_ms(fn, iters: int = 20, repeats: int = 5):
-    """Device time per call of ``fn``: the durations of the kernels it
-    launches, with no host gaps between them, as the profiler records them;
-    the mean of ``iters`` calls in each of ``repeats`` profiled windows.
-    Returns (median, min, max) over the windows."""
+def _profiled(fn, n):
+    """(kernels recorded, device busy µs) of ``n`` calls of ``fn`` under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return device_kernels(prof), device_busy_us(prof)
+
+
+def device_ms(fn, iters: int = 20, repeats: int = 5, attempts: int = 25):
+    """Device time per call of ``fn``, which launches a few kernels: their
+    durations as the profiler records them, the mean of ``iters`` calls in
+    each of ``repeats`` windows. The profiler can lose kernel records (seen
+    with long kernels queued back to back), so a window counts only if it
+    recorded as many kernels as the fullest window; the others are dropped
+    and counted. Returns (median, min, max, dropped windows)."""
     fn()
     torch.cuda.synchronize()
-    means = []
-    for _ in range(repeats):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        means.append(device_busy_us(prof) / 1e3 / iters)
-    means.sort()
+    per_call = max(_profiled(fn, 1)[0] for _ in range(3))
+    seen = []
+    while len(seen) < attempts:
+        seen.append(_profiled(fn, iters))
+        full = max(per_call * iters, max(n for n, _ in seen))
+        means = sorted(busy_us / 1e3 / iters for n, busy_us in seen if n == full)
+        if len(means) >= repeats:
+            break
+    assert means and means[-1] > 0, "the profiler recorded no complete window"
+    return means[len(means) // 2], means[0], means[-1], len(seen) - len(means)
+
+
+def plain_device_ms(fn, iters: int = 20, repeats: int = 5):
+    """Device time per call of a plain version, whose calls launch up to tens
+    of thousands of torch kernels: the device rows of ``repeats`` profiled
+    windows, unchecked (no window of that many records comes out complete),
+    so it may read low. Returns (median, min, max, None)."""
+    fn()
+    torch.cuda.synchronize()
+    means = sorted(_profiled(fn, iters)[1] / 1e3 / iters for _ in range(repeats))
     assert means[-1] > 0, "the profiler recorded no device time"
-    return means[len(means) // 2], means[0], means[-1]
+    return means[len(means) // 2], means[0], means[-1], None
 
 
-def timed(fn):
-    """Both times of ``fn``: calls first (they warm it up), then device."""
-    return call_ms(fn), device_ms(fn)
+def timed(fn, iters: int = 20, call_repeats: int = 7, warmup: int = 10, plain: bool = False):
+    """Both times of ``fn``: calls first (they warm it up), then device (5
+    profiled windows of ``iters`` calls; ``plain`` for a plain version)."""
+    return (call_ms(fn, iters=iters, repeats=call_repeats, warmup=warmup),
+            (plain_device_ms if plain else device_ms)(fn, iters=iters))
 
 
 def max_abs_err(a, b) -> int:
@@ -271,7 +337,7 @@ def phase_kernels(graph, ik, ref):
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
 
     def keep(name, shape, err, kernel, plain, nbytes, library=None, note=""):
-        (call, (ms, lo, hi)), (plain_call, plain_dev) = kernel, plain
+        (call, (ms, lo, hi, dropped)), (plain_call, plain_dev) = kernel, plain
         cfg = dict(shape=shape, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_dev[0],
                    bound_ms=bound_ms(nbytes), bound_bytes=nbytes,
                    library_ms=library[1][0] if library else None,
@@ -279,7 +345,7 @@ def phase_kernels(graph, ik, ref):
                    plain_call_ms=plain_call[0],
                    library_call_ms=library[0][0] if library else None)
         log(f"  {name} [{shape}{note}]: max_abs_err={err} "
-            f"kernel device={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) "
+            f"kernel device={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}; {dropped} windows dropped) "
             f"call={call[0]:.4f} ms (min {call[1]:.4f}, max {call[2]:.4f}) | "
             f"plain device={plain_dev[0]:.4f} ms call={plain_call[0]:.4f} ms | "
             f"bound={cfg['bound_ms']:.5f} ms ({nbytes} B)" +
@@ -299,7 +365,8 @@ def phase_kernels(graph, ik, ref):
         assert err == 0, f"fused_extend E={e} K={k} disagrees with its plain version"
         keep("fused_extend", f"E={e} K={k}", err,
              timed(lambda: ik.fused_extend(tab0, tab1, idx, sel, ok, rows, lt=lt, gt=gt)),
-             timed(lambda: ref.fused_extend_ref(tab0, tab1, idx, sel, ok, rows, lt=lt, gt=gt)),
+             timed(lambda: ref.fused_extend_ref(tab0, tab1, idx, sel, ok, rows, lt=lt, gt=gt),
+                   plain=True),
              extend_bytes(tab0, tab1, idx, sel, ok, rows, lt, gt, ref),
              note=f" B={b} D={d}, {int(m_r.sum())} matches")
 
@@ -315,7 +382,8 @@ def phase_kernels(graph, ik, ref):
         assert err == 0, f"fused_verify E={e} K={k} disagrees with its plain version"
         keep("fused_verify", f"E={e} K={k}", err,
              timed(lambda: ik.fused_verify(tab0, tab1, idx, sel, ok, vrows, vpos=vpos)),
-             timed(lambda: ref.fused_verify_ref(tab0, tab1, idx, sel, ok, vrows, vpos=vpos)),
+             timed(lambda: ref.fused_verify_ref(tab0, tab1, idx, sel, ok, vrows, vpos=vpos),
+                   plain=True),
              verify_bytes(tab0, tab1, idx, sel, ok, vrows, vpos, ref),
              note=f" B={b} D={d}, {int(v_r.sum())} kept")
 
@@ -329,7 +397,7 @@ def phase_kernels(graph, ik, ref):
             assert err == 0, f"multiway_membership E={e} disagrees with its plain version"
             keep("multiway_membership", f"E={e}", err,
                  timed(lambda: ik.multiway_membership(cands, others)),
-                 timed(lambda: ref.multiway_membership_ref(cands, others)),
+                 timed(lambda: ref.multiway_membership_ref(cands, others), plain=True),
                  membership_bytes(cands, others),
                  note=f" B={b} D={d}, {e - 1} others")
 
@@ -360,7 +428,7 @@ def phase_kernels(graph, ik, ref):
             assert torch.equal(lo_l.to(torch.int32), lo_k) and torch.equal(hi_l.to(torch.int32), hi_k)
             library = timed(lambda: (torch.searchsorted(k1, q1), torch.searchsorted(k1, q1, right=True)))
         keep("lex_bounds", f"KK={kk}", err, timed(lambda: ik.lex_bounds(keys, q)),
-             timed(lambda: ref.lex_bounds_ref(keys, q)), lex_bytes(keys, q, ref),
+             timed(lambda: ref.lex_bounds_ref(keys, q), plain=True), lex_bytes(keys, q, ref),
              library=library, note=f" CAP={cap} B={b}")
     return rec
 
@@ -381,6 +449,275 @@ def run_counted(ik, launches, fn):
     return out, seen
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the RWKV6 kernel against its plain version at the LM path's shapes
+# ---------------------------------------------------------------------------
+
+def rwkv_inputs(bh, t, gen, kd=64, vd=64, dtype=torch.bfloat16):
+    """r, k, v as the model's projections give them (unit scale), w from the
+    model's decay formula around its w0 = -2, u at its init scale."""
+    dev = gen.device
+    r, k = (torch.randn((bh, t, kd), generator=gen, device=dev) for _ in range(2))
+    v = torch.randn((bh, t, vd), generator=gen, device=dev)
+    logdecay = -2.0 + torch.randn((bh, t, kd), generator=gen, device=dev)
+    w = torch.exp(-torch.exp(logdecay.clamp(-8.0, 1.2)))
+    u = torch.randn((bh, kd), generator=gen, device=dev) * 0.3
+    return [x.to(dtype).contiguous() for x in (r, k, v, w)] + [u]
+
+
+def rwkv_bound(args, with_state):
+    """(bound ms, what bounds it, bytes, flops): every input read once, out
+    (and the state) written once, at 3.35 TB/s; against 4*BH*T*K*V float32
+    operations at 67 TFLOP/s."""
+    r, v = args[0], args[2]
+    bh, t, kd = r.shape
+    vd = v.shape[-1]
+    nbytes = sum(x.numel() * x.element_size() for x in args) + bh * t * vd * 4
+    nbytes += bh * kd * vd * 4 if with_state else 0
+    flops = 4 * bh * t * kd * vd
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), \
+        nbytes, flops, bytes_ms, ops_ms
+
+
+def phase_rwkv6_kernel(rk):
+    from repro_torch.kernels.rwkv6.ref import rwkv6_ref
+
+    log("phase 6: rwkv6 kernel vs its plain version (bf16 inputs, K=V=64)")
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    out = {"max_abs_err": 0.0, "configs": []}
+    for what, bh, t, with_state in RWKV_SHAPES:
+        args = rwkv_inputs(bh, t, gen)
+        got = rk.rwkv6(*args, return_state=with_state)
+        want_o, want_s = rwkv6_ref(*args, return_state=True)
+        torch.cuda.synchronize()
+        pairs = [(got[0] if with_state else got, want_o)] + ([(got[1], want_s)] if with_state else [])
+        errs = [float((g - w).abs().max()) for g, w in pairs]
+        scale = max(float(w.abs().max()) for _, w in pairs)
+        rel = max(errs) / max(1.0, scale)
+        assert rel < RWKV_TOL, f"rwkv6 {what} T={t}: max |diff| {max(errs)} / max |plain| {scale}"
+        plain_iters = 1 if t > 1024 else 5
+        call, (ms, lo, hi, dropped) = timed(lambda: rk.rwkv6(*args, return_state=with_state))
+        (pcall, pdev) = timed(lambda: rwkv6_ref(*args, return_state=with_state),
+                              iters=plain_iters, call_repeats=3, warmup=1, plain=True)
+        bound, by, nbytes, flops, bytes_ms, ops_ms = rwkv_bound(args, with_state)
+        shape = f"BH={bh} T={t} K=V=64 bf16" + (" +state" if with_state else "")
+        out["configs"].append(dict(
+            shape=shape, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0], call_ms_min=call[1],
+            call_ms_max=call[2], plain_ms=pdev[0], plain_call_ms=pcall[0], bound_ms=bound,
+            bound_by=by, bound_bytes=nbytes, bound_flops=flops, max_abs_err=max(errs),
+            rel_err=rel, library_ms=None, profiler_windows_dropped=dropped))
+        out["max_abs_err"] = max(out["max_abs_err"], max(errs))
+        log(f"  rwkv6 [{what}: {shape}]: max_abs_err={max(errs):.3e} (out"
+            f"{', state' if with_state else ''}; max |plain| {scale:.3f}, relative {rel:.2e}, "
+            f"tolerance {RWKV_TOL:g}) | kernel device={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}; "
+            f"{dropped} profiler windows dropped) "
+            f"call={call[0]:.4f} ms (min {call[1]:.4f}, max {call[2]:.4f}) | plain device="
+            f"{pdev[0]:.4f} ms call={pcall[0]:.4f} ms | bound={bound:.4f} ms by {by} "
+            f"(bytes {nbytes} -> {bytes_ms:.4f} ms at 3.35 TB/s; {flops} flop -> "
+            f"{ops_ms:.4f} ms at 67 TFLOP/s f32) | library: none")
+        del args, got, want_o, want_s, pairs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-8: rwkv6-7b at full width, forward and serving
+# ---------------------------------------------------------------------------
+
+def lm_setup():
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("rwkv6-7b")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"phase 7: rwkv6-7b full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
+        f"{n} parameters ({cfg.param_count()} in param_count's matrices), "
+        f"{nbytes / 1e9:.2f} GB, initialised on the card in {time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+def phase_lm_forward(rk, cfg, params) -> int:
+    """loss_fn and forward on B=4 x S=4096, a profiled forward, then prefill
+    of 512 tokens of two rows and 3 decode steps against the forward's
+    logits. Returns the kernel launches of the phase."""
+    from repro_torch.models import transformer as T
+
+    b, s, pre, extra = LM_FORWARD
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEV)
+    batch = {"tokens": toks}
+    total = 0
+
+    def counted(fn, want):
+        nonlocal total
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = rk.launches["rwkv6"]
+        assert n == want, f"rwkv6 launched {n} times, want {want}"
+        total += n
+        return res, wall
+
+    torch.cuda.reset_peak_memory_stats()
+    loss, wall = counted(lambda: T.loss_fn(cfg, params, batch, device=DEV), cfg.num_layers)
+    assert bool(torch.isfinite(loss)), loss
+    log(f"phase 7: loss_fn B={b} S={s}: loss={float(loss):.4f} (ln vocab "
+        f"{math.log(cfg.vocab_size):.4f}) wall={wall:.3f} s tokens/s={b * s / wall:,.0f} "
+        f"launches={cfg.num_layers} max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        logits, wall = counted(lambda: T.forward(cfg, params, batch, device=DEV), cfg.num_layers)
+        log(f"phase 7: forward {i + 1} B={b} S={s}: wall={wall:.3f} s "
+            f"tokens/s={b * s / wall:,.0f} launches={cfg.num_layers} "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    ref = logits[:2, pre - 1 : pre + extra].float()
+    assert bool(torch.isfinite(ref).all())
+    del logits, loss
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (logits, wall) = counted(lambda: T.forward(cfg, params, batch, device=DEV),
+                                 cfg.num_layers)
+    del logits
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in rows) / 1e3
+    ours = sum(t for k, t, _ in rows if "rwkv6_kernel" in k) / 1e3
+    log(f"phase 7: profiled forward: wall={wall * 1e3:.1f} ms device busy={busy:.1f} ms "
+        f"(rwkv6 kernel {ours:.1f} ms, {ours / max(busy, 1e-9):.3f} of busy) "
+        f"idle share={1 - busy / (wall * 1e3):.3f}")
+    for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"phase 7:   device {t / 1e3:9.2f} ms  x{n:<5d} {key[:90]}")
+
+    def prefill_decode(c, p):
+        """Logits of prefill (last position) and of ``extra`` decode steps."""
+        (cache, last), wall = counted(
+            lambda: T.prefill(c, p, {"tokens": toks[:2, :pre]}, pre + extra + 8, device=DEV),
+            c.num_layers)
+        out = [last[:, 0].float()]
+        for i in range(extra):
+            (logits, cache), _ = counted(
+                lambda: T.decode_step(c, p, cache, toks[:2, pre + i : pre + i + 1], pre + i,
+                                      device=DEV), 0)
+            out.append(logits[:, 0].float())
+        return torch.stack(out, dim=1), wall
+
+    def agree(label, got, want, tol):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        same_top = int((got.argmax(-1) == want.argmax(-1)).sum())
+        log(f"phase 7: {label}: prefill {pre} tokens x2 + {extra} decode steps vs forward "
+            f"logits at positions {pre - 1}..{pre + extra - 1}: max |diff| {err:.5f}, max "
+            f"|logit| {scale:.4f}, relative {err / scale:.2e} (tolerance {tol:g}), same "
+            f"argmax {same_top}/{got.shape[0] * got.shape[1]}")
+        assert err / scale < tol, (label, err, scale)
+
+    got, wall = prefill_decode(cfg, params)
+    log(f"phase 7: bf16 prefill of {pre} tokens x2: wall {wall:.3f} s")
+    agree("bf16", got, ref, LOGITS_TOL_BF16)
+    # bf16's own floor at these positions: the same forward in another batch
+    # shape, and (below) the float32 forward of the same weights.
+    short = {"tokens": toks[:2, : pre + extra]}
+    other, _ = counted(lambda: T.forward(cfg, params, short, device=DEV)[:, pre - 1 :].float(),
+                       cfg.num_layers)
+    log(f"phase 7: bf16 floor: forward of 2 x {pre + extra} tokens vs the {b} x {s} forward: "
+        f"relative {float((other - ref).abs().max() / ref.abs().max()):.2e}")
+    # The same check in float32, with the parameters widened (exactly): here
+    # the two paths may differ only in summation order.
+    cfg32 = cfg.scaled(dtype="float32")
+    p32 = T.LM(cfg32, DEV)
+    with torch.no_grad():
+        for wide, narrow in zip(p32.parameters(), params.parameters()):
+            wide.copy_(narrow)
+    want32, _ = counted(lambda: T.forward(cfg32, p32, short, device=DEV)[:, pre - 1 :].float(),
+                        cfg.num_layers)
+    log(f"phase 7: bf16 floor: bf16 forward vs float32 forward: relative "
+        f"{float((ref - want32).abs().max() / want32.abs().max()):.2e}")
+    got32, _ = prefill_decode(cfg32, p32)
+    agree("float32", got32, want32, LOGITS_TOL_F32)
+    del p32
+    return total
+
+
+def decode_profile(cfg, params, b: int, plen: int) -> None:
+    """One profiled decode step of ``b`` sequences after a ``plen``-token
+    prefill: its wall time against its device time and against the time to
+    read every weight once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    toks = torch.randint(2, cfg.vocab_size, (b, plen + 2), generator=gen, device=DEV)
+    cache, _ = T.prefill(cfg, params, {"tokens": toks[:, :plen]}, plen + 8, device=DEV)
+    T.decode_step(cfg, params, cache, toks[:, plen : plen + 1], plen, device=DEV)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        T.decode_step(cfg, params, cache, toks[:, plen + 1 : plen + 2], plen + 1, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    n = sum(e.count for e in rows)
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"phase 8: profiled decode step B={b}: wall={wall * 1e3:.2f} ms (profiled) device "
+        f"busy={busy:.2f} ms over {n} kernels, idle share={1 - busy / (wall * 1e3):.3f}; "
+        f"reading the {weights / 1e9:.2f} GB of weights once takes "
+        f"{weights / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s")
+
+
+def phase_lm_serve(rk, cfg, params) -> int:
+    """BatchedServer, greedy: 16 requests of 512 prompt tokens, 32 new tokens
+    each, 8 slots. Returns the kernel launches of the measured run."""
+    import dataclasses
+
+    from repro_torch.serve.engine import BatchedServer, Request, ServeConfig
+
+    n_req, plen, new, slots = LM_SERVE
+    rng = np.random.default_rng(8)
+    scfg = ServeConfig(max_len=plen + new + 8, batch_slots=slots, temperature=0.0,
+                       eos_token=-1, max_new_tokens=new)
+
+    def requests(n):
+        return [Request(prompt=rng.integers(2, cfg.vocab_size, size=plen).astype(np.int32))
+                for _ in range(n)]
+
+    # Warm-up group (cuBLAS picks its kernels for these shapes); not counted.
+    BatchedServer(cfg, params, dataclasses.replace(scfg, max_new_tokens=2),
+                  device=DEV).run(requests(slots))
+    reqs = requests(n_req)
+    server = BatchedServer(cfg, params, scfg, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    rk.reset_launches()
+    stats = server.run(reqs)
+    torch.cuda.synchronize()
+    n = rk.launches["rwkv6"]
+    groups = -(-n_req // slots)
+    assert all(r.done and len(r.out_tokens) == new for r in reqs), "a request is short"
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
+    assert n == cfg.num_layers * groups, f"rwkv6 launched {n} times in {groups} prefills"
+    lat = np.array([r.latency_s for r in reqs])
+    decode_profile(cfg, params, slots, plen)
+    log(f"phase 8: served {n_req} requests x {new} tokens (prompt {plen}, {slots} slots): "
+        f"wall={stats['wall_s']:.3f} s, {stats['new_tokens']} decode tokens -> "
+        f"{stats['tokens_per_s']:,.1f} tokens/s; all {n_req * new} generated tokens -> "
+        f"{n_req * new / stats['wall_s']:,.1f} tokens/s; latency p50 "
+        f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f} s; launches={n}; "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -389,17 +726,9 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
 
-    from repro_torch.core.cost import GraphStats
-    from repro_torch.core.dataflow import translate
-    from repro_torch.core.engine import EngineConfig, HugeEngine
-    from repro_torch.core.optimizer import optimal_plan
-    from repro_torch.core.query import PAPER_QUERIES
-    from repro_torch.graph import powerlaw_graph
-    from repro_torch.kernels.intersect import build
     from repro_torch.kernels.intersect import ops as ik
-    from repro_torch.kernels.intersect import ref
+    from repro_torch.kernels.rwkv6 import ops as rk
 
-    dev = torch.device("cuda")
     # -- phase 1 ---------------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -408,9 +737,66 @@ def main() -> int:
     log(smi)
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    build.load()
-    log(f"phase 1: kernels built in {build.build_seconds:.2f} s -> {build.library_path()}")
+    t0 = time.perf_counter()
+    libs = (ik.LIB, rk.LIB)
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, started together
+        list(pool.map(lambda lib: lib.build(), libs))
+    for lib in libs:
+        lib.load()
+        log(f"phase 1: {lib.name} built in {lib.build_seconds:.2f} s -> {lib.library_path()}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"phase 1:   {line.strip()}")
+    log(f"phase 1: builds took {time.perf_counter() - t0:.2f} s of wall time")
 
+    rec, launches = enumeration_phases(ik)
+    gc.collect()
+    torch.cuda.empty_cache()  # the 16 GB adjacency of phase 5 goes back to the card
+
+    # -- phases 6-8 ------------------------------------------------------------
+    rwkv = phase_rwkv6_kernel(rk)
+    cfg, params = lm_setup()
+    launches["rwkv6"] = phase_lm_forward(rk, cfg, params) + phase_lm_serve(rk, cfg, params)
+
+    for name in launches:
+        assert launches[name] > 0, f"{name} was never launched on the main path"
+    kernels = []
+    for name in ("fused_extend", "fused_verify", "lex_bounds", "multiway_membership"):
+        head = next(c for c in rec[name]["configs"] if c["shape"] == HEADLINE[name])
+        kernels.append(dict(
+            name=name, route="cuda", source=CU_SOURCE, replaces=REPLACES[name],
+            launches=launches[name], max_abs_err=rec[name]["max_abs_err"],
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by="bytes", library_ms=head["library_ms"], shape=head["shape"],
+            configs=rec[name]["configs"]))
+    head = rwkv["configs"][0]
+    kernels.append(dict(
+        name="rwkv6", route="cuda", source=RWKV_SOURCE, replaces=RWKV_REPLACES,
+        launches=launches["rwkv6"], max_abs_err=rwkv["max_abs_err"],
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
+        configs=rwkv["configs"]))
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def enumeration_phases(ik):
+    """Phases 1 (graph) to 5: the enumeration engine's kernels and main path.
+    Returns the phase-2 records and the main path's launch counts; the
+    graphs are freed when it returns."""
+    from repro_torch.core.cost import GraphStats
+    from repro_torch.core.dataflow import translate
+    from repro_torch.core.engine import EngineConfig, HugeEngine
+    from repro_torch.core.optimizer import optimal_plan
+    from repro_torch.core.query import PAPER_QUERIES
+    from repro_torch.graph import powerlaw_graph
+    from repro_torch.kernels.intersect import ref
+
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
     big = powerlaw_graph(875_713, 9.8, exponent=3.0, seed=7, device=dev)
     torch.cuda.synchronize()
@@ -423,7 +809,6 @@ def main() -> int:
     rec = phase_kernels(big, ik, ref)
 
     launches = {name: 0 for name in ik.launches}
-
     # -- phase 3 ---------------------------------------------------------------
     g4k = powerlaw_graph(4096, 8.0, seed=7, device=dev)
     stats4k = GraphStats.from_graph(g4k)
@@ -480,24 +865,7 @@ def main() -> int:
             assert seen["fused_extend"] > 0, "the fused extend kernel never ran at full width"
     assert counts[True] == counts[False], counts
     profile_window(big, flow, EngineConfig(fused=True, **full_cfg), HugeEngine, *walls[True])
-
-    for name in launches:
-        assert launches[name] > 0, f"{name} was never launched on the main path"
-    kernels = []
-    for name in ("fused_extend", "fused_verify", "lex_bounds", "multiway_membership"):
-        head = next(c for c in rec[name]["configs"] if c["shape"] == HEADLINE[name])
-        kernels.append(dict(
-            name=name, route="cuda", source=CU_SOURCE, replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=rec[name]["max_abs_err"],
-            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-            bound_by="bytes", library_ms=head["library_ms"], shape=head["shape"],
-            configs=rec[name]["configs"]))
-    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return rec, launches
 
 
 def profile_window(graph, flow, cfg, engine_cls, run_wall, run_steps, steps: int = 400):

@@ -31,7 +31,7 @@
 // instead of searching, and skipping the INVALID tail of padded rows are the
 // work of later changes.
 //
-// Built by build.py with
+// Built by src/repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared -Xcompiler -fPIC
 // into a plain-C shared library loaded with ctypes. Each launcher launches on
 // the given stream, allocates nothing, and returns cudaGetLastError().

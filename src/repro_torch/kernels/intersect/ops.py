@@ -4,7 +4,8 @@ Dispatch is by the device of the input tensors, with no flag:
 
 * every input on the CPU  → the plain PyTorch version (``ref.py``);
 * every input on a CUDA device → the hand-written CUDA kernel
-  (``csrc/intersect.cu``), or an exception; there is no fallback.
+  (``csrc/intersect.cu``, built by :mod:`repro_torch.kernels.build`), or an
+  exception; there is no fallback.
 
 Each wrapper checks device, dtype (int32), shape and contiguity, allocates
 its outputs with ``torch.empty``, launches on the current stream, and raises
@@ -14,18 +15,35 @@ them), so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.core.faults import KernelFault
-from repro_torch.kernels.intersect import build
+from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.intersect.ref import (
     fused_extend_ref,
     fused_verify_ref,
     lex_bounds_ref,
     multiway_membership_ref,
 )
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
+    lib.fused_extend_launch.argtypes = [p] * 8 + [i64, i32, i32, i64, u32, u32, p]
+    lib.fused_verify_launch.argtypes = [p] * 7 + [i64, i32, i32, i64, i32, p]
+    lib.lex_bounds_launch.argtypes = [p] * 4 + [i32, i32, i64, i32, p]
+    lib.multiway_membership_launch.argtypes = [p] * 3 + [i64, i32, i64, p]
+    for fn in (lib.fused_extend_launch, lib.fused_verify_launch,
+               lib.lex_bounds_launch, lib.multiway_membership_launch):
+        fn.restype = ctypes.c_int
+
+
+LIB = CudaLibrary("intersect", Path(__file__).resolve().parent / "csrc" / "intersect.cu",
+                  _declare)
 
 launches: Dict[str, int] = {
     "fused_extend": 0,
@@ -105,7 +123,7 @@ def multiway_membership(cands: torch.Tensor, others: torch.Tensor) -> torch.Tens
     out = torch.empty((b, d), dtype=torch.bool, device=cands.device)
     if b == 0 or d == 0:
         return out
-    rc = build.load().multiway_membership_launch(
+    rc = LIB.load().multiway_membership_launch(
         cands.data_ptr(), others.data_ptr(), out.data_ptr(), b, e, d, _stream()
     )
     _check(rc, "multiway_membership")
@@ -132,7 +150,7 @@ def fused_extend(
     mask = torch.empty((b, d), dtype=torch.bool, device=rows.device)
     if b == 0 or d == 0:
         return cands, mask
-    rc = build.load().fused_extend_launch(
+    rc = LIB.load().fused_extend_launch(
         tab0.data_ptr(), tab1.data_ptr(), idx.data_ptr(), sel.data_ptr(),
         ok.data_ptr(), rows.data_ptr(), cands.data_ptr(), mask.data_ptr(),
         b, e, k, d, _bits(lt, k), _bits(gt, k), _stream(),
@@ -160,7 +178,7 @@ def fused_verify(
     out = torch.empty((b,), dtype=torch.bool, device=rows.device)
     if b == 0:
         return out
-    rc = build.load().fused_verify_launch(
+    rc = LIB.load().fused_verify_launch(
         tab0.data_ptr(), tab1.data_ptr(), idx.data_ptr(), sel.data_ptr(),
         ok.data_ptr(), rows.data_ptr(), out.data_ptr(), b, e, k, d, vpos, _stream(),
     )
@@ -182,7 +200,7 @@ def lex_bounds(sorted_keys: torch.Tensor, queries: torch.Tensor) -> Tuple[torch.
     hi = torch.empty((b,), dtype=torch.int32, device=queries.device)
     if b == 0:
         return lo, hi
-    rc = build.load().lex_bounds_launch(
+    rc = LIB.load().lex_bounds_launch(
         sorted_keys.data_ptr(), queries.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         cap, kk, b, max(1, cap.bit_length()), _stream(),
     )

@@ -1,0 +1,363 @@
+"""The decoder stack of the ported language models, in PyTorch.
+
+``ModelConfig`` is the JAX package's config, copied whole. The stack is a
+``ModuleList`` of layers (not a scanned stack of stacked parameters); only
+``rwkv`` mixers and ``dense`` MLPs are ported, and any other mixer or MLP
+raises ``NotImplementedError`` by name.
+
+API (the JAX package's, with an explicit device and generator):
+  init_params(cfg, gen=None, *, seed=0, device=None)      → LM
+  forward(cfg, params, batch, *, device=None)              → logits
+  loss_fn(cfg, params, batch, *, device=None)              → scalar loss
+  init_cache(cfg, batch, max_len, *, device=None)          → decode cache
+  prefill(cfg, params, batch, max_len, *, device=None)     → (cache, last_logits)
+  decode_step(cfg, params, cache, tokens, pos, *, device=None) → (logits, cache)
+
+``device`` goes through :func:`repro_torch.device.resolve_device`: ``cuda``
+unless the caller asks for the CPU, and the parameters must live there.
+Everything runs under ``torch.inference_mode()``. The decode cache has the
+JAX package's layout (``{"pos<p>": {"rwkv": (x_prev [G, B, d], S [G, B, H,
+hd, hd])}}`` with G the number of layer groups) and is updated in place:
+``decode_step`` returns the cache it was given, which saves a copy of the
+whole state at every step.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (
+    MLP,
+    AttnSpec,
+    dense_init,
+    dtype_of,
+    empty_param,
+    mlp_block,
+    mlp_init,
+    rmsnorm,
+)
+
+
+# ---------------------------------------------------------------------------
+# Config
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | hybrid | ssm | encdec | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 → d_model // num_heads
+    # mixer / mlp patterns, cycled over layers
+    layer_pattern: Tuple[str, ...] = ("attn",)          # attn | attn_local | mamba | rwkv
+    mlp_pattern: Tuple[str, ...] = ("dense",)           # dense | moe | moe_dense
+    # attention
+    rope_theta: float = 1e4
+    rope_fraction: float = 1.0
+    local_window: int = 4096
+    attn_softcap: Optional[float] = None
+    logit_softcap: Optional[float] = None
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    attn_chunk: int = 512
+    # moe
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    moe_comm: str = "auto"           # auto | push | pull | local
+    # ssm
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    mamba_expand: int = 2
+    # enc-dec
+    encoder_layers: int = 0
+    # modality frontend stub: inputs arrive as precomputed embeddings
+    frontend: Optional[str] = None   # "audio" | "vision"
+    frontend_len: int = 0
+    # misc
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    sub_quadratic: bool = False      # eligible for long_500k decode
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding rows padded to a multiple of 64 so the vocab axis shards
+        evenly over model=16 (padded logits are masked to -inf)."""
+        return ((self.vocab_size + 63) // 64) * 64
+
+    @property
+    def period(self) -> int:
+        return int(math.lcm(len(self.layer_pattern), len(self.mlp_pattern)))
+
+    @property
+    def num_groups(self) -> int:
+        assert self.num_layers % self.period == 0, (self.num_layers, self.period)
+        return self.num_layers // self.period
+
+    def mixer_at(self, pos: int) -> str:
+        return self.layer_pattern[pos % len(self.layer_pattern)]
+
+    def mlp_at(self, pos: int) -> str:
+        return self.mlp_pattern[pos % len(self.mlp_pattern)]
+
+    def attn_spec(self, local: bool) -> AttnSpec:
+        return AttnSpec(
+            num_heads=self.num_heads,
+            num_kv_heads=self.num_kv_heads,
+            head_dim=self.hd,
+            rope_theta=self.rope_theta,
+            rope_fraction=self.rope_fraction,
+            window=self.local_window if local else None,
+            attn_softcap=self.attn_softcap,
+            bias=self.qkv_bias,
+            causal=True,
+        )
+
+    def scaled(self, **overrides) -> "ModelConfig":
+        return dataclasses.replace(self, **overrides)
+
+    def param_count(self) -> int:
+        """Analytic total parameter count (for roofline MODEL_FLOPS)."""
+        d, ff, v, hd = self.d_model, self.d_ff, self.vocab_size, self.hd
+        total = v * d + (0 if self.tie_embeddings else v * d)
+        for l in range(self.num_layers):
+            mixer = self.mixer_at(l)
+            if mixer in ("attn", "attn_local"):
+                total += d * (self.num_heads + 2 * self.num_kv_heads) * hd + self.num_heads * hd * d
+            elif mixer == "mamba":
+                di = self.mamba_expand * d
+                total += d * 2 * di + di * d + di * (max(1, d // 16) + 2 * self.ssm_state) + di * self.ssm_conv
+            elif mixer == "rwkv":
+                total += 5 * d * d + 2 * d * 64
+            mlp = self.mlp_at(l)
+            if mlp in ("dense",):
+                total += 3 * d * ff
+            if mlp in ("moe", "moe_dense"):
+                total += 3 * d * self.moe_d_ff * self.num_experts + d * self.num_experts
+            if mlp == "moe_dense":
+                total += 3 * d * ff
+        if self.encoder_layers:
+            # encoder self-attn + mlp + decoder cross-attn
+            total += self.encoder_layers * (
+                d * (self.num_heads + 2 * self.num_kv_heads) * hd + self.num_heads * hd * d + 3 * d * ff
+            )
+            total += self.num_layers * (d * (self.num_heads + 2 * self.num_kv_heads) * hd + self.num_heads * hd * d)
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        if not self.num_experts:
+            return self.param_count()
+        d = self.d_model
+        dense = self.param_count() - self.num_layers_moe() * 3 * d * self.moe_d_ff * self.num_experts
+        return dense + self.num_layers_moe() * 3 * d * self.moe_d_ff * self.experts_per_token
+
+    def num_layers_moe(self) -> int:
+        return sum(1 for l in range(self.num_layers) if self.mlp_at(l) in ("moe", "moe_dense"))
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def _check_ported(cfg: ModelConfig, layer: int) -> None:
+    mixer, mlp = cfg.mixer_at(layer), cfg.mlp_at(layer)
+    if mixer != "rwkv":
+        raise NotImplementedError(f"mixer {mixer!r} (layer {layer} of {cfg.name}) is not ported")
+    if mlp != "dense":
+        raise NotImplementedError(f"mlp {mlp!r} (layer {layer} of {cfg.name}) is not ported")
+
+
+class Block(nn.Module):
+    """One layer: ln1 → mixer → residual, ln2 → MLP → residual."""
+
+    def __init__(self, cfg: ModelConfig, layer: int, device=None):
+        super().__init__()
+        _check_ported(cfg, layer)
+        dt = dtype_of(cfg.dtype)
+        self.ln1 = empty_param((cfg.d_model,), torch.float32, device)
+        self.ln2 = empty_param((cfg.d_model,), torch.float32, device)
+        self.rwkv = ssm_mod.RWKV6(cfg.d_model, cfg.num_heads, dt, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+
+class LM(nn.Module):
+    """The decoder: embed [vocab_padded, d], ``blocks`` (one per layer, layer
+    ``g * period + pos`` being group g's position pos), final_norm [d] f32,
+    lm_head [d, vocab_padded] unless the embeddings are tied. The parameters
+    are allocated uninitialised; ``init_params`` and ``convert`` fill them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if cfg.encoder_layers or cfg.frontend:
+            raise NotImplementedError(f"{cfg.family} frontends/encoders are not ported")
+        dt = dtype_of(cfg.dtype)
+        self.cfg = cfg
+        self.embed = empty_param((cfg.vocab_padded, cfg.d_model), dt, device)
+        self.blocks = nn.ModuleList(Block(cfg, l, device) for l in range(cfg.num_layers))
+        self.final_norm = empty_param((cfg.d_model,), torch.float32, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = empty_param((cfg.d_model, cfg.vocab_padded), dt, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_params(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *, seed: int = 0,
+                device=None) -> LM:
+    """Random parameters with the JAX package's shapes, scales and dtypes,
+    drawn from ``gen`` (default: a generator on ``device`` seeded with
+    ``seed``). The numbers differ from ``jax.random``'s; the tests carry the
+    JAX package's parameters across with ``convert.from_jax_params``."""
+    dev = resolve_device(device)
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+    if torch.device(gen.device).type != dev.type:
+        raise ValueError(f"generator on {gen.device}, parameters asked on {dev}")
+    dt = dtype_of(cfg.dtype)
+    lm = LM(cfg, dev)
+    for blk in lm.blocks:
+        blk.ln1.zero_()
+        blk.ln2.zero_()
+        blk.rwkv = ssm_mod.rwkv6_init(gen, cfg.d_model, cfg.num_heads, dtype=dt)
+        blk.mlp = mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+    lm.embed.copy_(dense_init(gen, (cfg.vocab_padded, cfg.d_model), dt, scale=0.02))
+    lm.final_norm.zero_()
+    if not cfg.tie_embeddings:
+        lm.lm_head.copy_(dense_init(gen, (cfg.d_model, cfg.vocab_padded), dt))
+    return lm
+
+
+def params_device(params: LM, device) -> torch.device:
+    dev = resolve_device(device)
+    if params.device.type != dev.type or (dev.index is not None and params.device != dev):
+        raise ValueError(f"parameters live on {params.device}, asked to run on {dev}")
+    return params.device
+
+
+def _tokens(tokens, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=dev).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# Forward / loss
+# ---------------------------------------------------------------------------
+
+def _embed(cfg: ModelConfig, params: LM, tokens: torch.Tensor) -> torch.Tensor:
+    x = params.embed[torch.clamp(tokens, 0, cfg.vocab_size - 1)] * (cfg.d_model ** 0.5)
+    return x.to(dtype_of(cfg.dtype))
+
+
+def _logits(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = x @ head
+    if cfg.logit_softcap is not None:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    if cfg.vocab_padded != cfg.vocab_size:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab_size
+        logits = torch.where(pad, logits, torch.tensor(-1e30, dtype=logits.dtype,
+                                                       device=logits.device))
+    return logits
+
+
+def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, state=None):
+    h = rmsnorm(x, blk.ln1, cfg.norm_eps)
+    y, new_state = ssm_mod.rwkv6_block(blk.rwkv, h, cfg.num_heads, state)
+    x = x + y
+    x = x + mlp_block(blk.mlp, rmsnorm(x, blk.ln2, cfg.norm_eps))
+    return x, new_state
+
+
+@torch.inference_mode()
+def forward(cfg: ModelConfig, params: LM, batch: Dict, *, device=None) -> torch.Tensor:
+    """tokens [B, S] → logits [B, S, vocab_padded] in the model dtype."""
+    if batch.get("frontend") is not None:
+        raise NotImplementedError("frontend embeddings are not ported")
+    dev = params_device(params, device)
+    x = _embed(cfg, params, _tokens(batch["tokens"], dev))
+    for blk in params.blocks:
+        x, _ = _apply_layer(cfg, blk, x)
+    return _logits(cfg, params, x)
+
+
+@torch.inference_mode()
+def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *, device=None) -> torch.Tensor:
+    """Mean next-token cross-entropy (float32), under ``loss_mask`` if given."""
+    logits = forward(cfg, params, batch, device=device)
+    tokens = _tokens(batch["tokens"], logits.device)
+    preds = logits[:, :-1, :].to(torch.float32)
+    logz = torch.logsumexp(preds, dim=-1)
+    gold = torch.gather(preds, -1, tokens[:, 1:, None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else \
+        torch.as_tensor(mask, device=nll.device)[:, 1:].to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> Dict[str, Any]:
+    """Zero decode state for ``batch`` sequences. RWKV's state does not grow
+    with the sequence, so ``max_len`` is unused (kept for the JAX API)."""
+    dev = resolve_device(device)
+    dt = dtype_of(cfg.dtype)
+    ng, hd = cfg.num_groups, cfg.d_model // cfg.num_heads
+    cache = {}
+    for pos in range(cfg.period):
+        _check_ported(cfg, pos)
+        cache[f"pos{pos}"] = {"rwkv": (
+            torch.zeros((ng, batch, cfg.d_model), dtype=dt, device=dev),
+            torch.zeros((ng, batch, cfg.num_heads, hd, hd), dtype=torch.float32, device=dev),
+        )}
+    return cache
+
+
+def _run_with_cache(cfg: ModelConfig, params: LM, x: torch.Tensor, cache: Dict) -> torch.Tensor:
+    for layer, blk in enumerate(params.blocks):
+        g, pos = divmod(layer, cfg.period)
+        x_prev, s = cache[f"pos{pos}"]["rwkv"]
+        x, (new_prev, new_s) = _apply_layer(cfg, blk, x, (x_prev[g], s[g]))
+        x_prev[g].copy_(new_prev)
+        s[g].copy_(new_s)
+    return x
+
+
+@torch.inference_mode()
+def prefill(cfg: ModelConfig, params: LM, batch: Dict, max_len: int, *,
+            device=None) -> Tuple[Dict, torch.Tensor]:
+    """Run the prompt [B, S] from a fresh cache → (cache, logits [B, 1, V])."""
+    dev = params_device(params, device)
+    tokens = _tokens(batch["tokens"], dev)
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=dev)
+    x = _run_with_cache(cfg, params, _embed(cfg, params, tokens), cache)
+    return cache, _logits(cfg, params, x[:, -1:, :])
+
+
+@torch.inference_mode()
+def decode_step(cfg: ModelConfig, params: LM, cache: Dict, tokens, pos=None, *,
+                device=None) -> Tuple[torch.Tensor, Dict]:
+    """tokens [B, 1] → (logits [B, 1, V], cache). ``pos`` (the position) is
+    not needed by RWKV and kept for the JAX API."""
+    dev = params_device(params, device)
+    x = _run_with_cache(cfg, params, _embed(cfg, params, _tokens(tokens, dev)), cache)
+    return _logits(cfg, params, x), cache

@@ -3,7 +3,10 @@
 Every test here is marked ``gpu`` and skips without a CUDA device. The file
 imports only torch and numpy (the machine with the card has no JAX), so it
 runs there with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
-Integer outputs must be equal bit for bit.
+Integer outputs must be equal bit for bit. The RWKV6 kernel's float32 outputs
+must be within 1e-4 of its plain version relative to the largest plain value:
+both compute in float32, in another summation order and with fused
+multiply-adds, over up to 512 dependent steps.
 """
 import numpy as np
 import pytest
@@ -11,6 +14,8 @@ import torch
 
 from repro_torch.graph.storage import INVALID
 from repro_torch.kernels.intersect import ops as ik
+from repro_torch.kernels.rwkv6 import ops as rk
+from repro_torch.kernels.rwkv6.ref import rwkv6_ref
 from repro_torch.kernels.intersect.ref import (
     fused_extend_ref,
     fused_verify_ref,
@@ -161,3 +166,91 @@ def test_engine_on_card_equals_cpu_port(cuda, qname, space, launched):
               "peak_queue_rows", "batches", "rows_emitted"):
         assert getattr(r_gpu.stats, f) == getattr(r_cpu.stats, f), f
     assert np.array_equal(r_gpu.matches, r_cpu.matches)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6
+# ---------------------------------------------------------------------------
+
+RWKV_TOL = 1e-4
+
+
+def _rwkv_inputs(bh, t, kd, vd, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.randn((bh, t, kd), generator=g, device=dev) * 0.5
+    k = torch.randn((bh, t, kd), generator=g, device=dev) * 0.5
+    v = torch.randn((bh, t, vd), generator=g, device=dev)
+    w = torch.exp(-torch.exp(torch.rand((bh, t, kd), generator=g, device=dev) * 9.2 - 8.0))
+    u = torch.randn((bh, kd), generator=g, device=dev) * 0.3
+    return [x.to(dtype) for x in (r, k, v, w)] + [u]
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", [16, 64])
+@pytest.mark.parametrize("t", [1, 37, 512])
+def test_rwkv6_kernel_matches_plain(cuda, t, kv, dtype, with_state):
+    args = _rwkv_inputs(6, t, kv, kv, dtype, cuda, seed=t + kv)
+    before = rk.launches["rwkv6"]
+    got = rk.rwkv6(*args, return_state=with_state)
+    torch.cuda.synchronize()
+    assert rk.launches["rwkv6"] == before + 1
+    want_o, want_s = rwkv6_ref(*args, return_state=True)
+    got_o = got[0] if with_state else got
+    assert got_o.dtype == torch.float32 and got_o.shape == want_o.shape
+    assert _rel(got_o, want_o) < RWKV_TOL
+    if with_state:
+        assert got[1].shape == want_s.shape and _rel(got[1], want_s) < RWKV_TOL
+
+
+def test_rwkv6_kernel_takes_transposed_views_and_odd_widths(cuda):
+    """heads() hands over transposed views; the wrapper makes them dense.
+    K and V need not be equal or multiples of 8."""
+    bh, t, kd, vd = 4, 45, 24, 40
+    base = _rwkv_inputs(bh, t, kd, vd, torch.bfloat16, cuda, seed=3)
+    views = [x.transpose(0, 1).contiguous().transpose(0, 1) for x in base[:4]] + [base[4]]
+    assert not views[0].is_contiguous()
+    got_o, got_s = rk.rwkv6(*views, return_state=True)
+    want_o, want_s = rwkv6_ref(*base, return_state=True)
+    assert _rel(got_o, want_o) < RWKV_TOL and _rel(got_s, want_s) < RWKV_TOL
+
+
+def test_rwkv6_kernel_refuses_wide_heads(cuda):
+    from repro_torch.core.faults import KernelFault
+
+    args = _rwkv_inputs(2, 8, 96, 64, torch.float32, cuda)
+    with pytest.raises(KernelFault, match="K, V <= 64"):
+        rk.rwkv6(*args)
+    args = _rwkv_inputs(2, 8, 16, 16, torch.float16, cuda)
+    with pytest.raises(TypeError):
+        rk.rwkv6(*args)
+
+
+def test_batched_server_smoke_on_card(cuda):
+    """A smoke-size server on the card: every request gets its tokens, the
+    kernel runs on every prefill, and greedy tokens equal the CPU port's for
+    the same float32 parameters."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import BatchedServer, Request, ServeConfig
+
+    cfg = smoke_config("rwkv6-7b").scaled(dtype="float32")
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    gpu_params = T.init_params(cfg, seed=0, device="cpu").to(cuda)
+    prompts = [np.random.default_rng(i).integers(2, cfg.vocab_size, 12).astype(np.int32)
+               for i in range(5)]
+    scfg = ServeConfig(max_len=32, batch_slots=2, max_new_tokens=6, eos_token=-1)
+    out = {}
+    for dev, params in (("cpu", cpu_params), (cuda, gpu_params)):
+        reqs = [Request(prompt=p.copy()) for p in prompts]
+        rk.reset_launches()
+        BatchedServer(cfg, params, scfg, device=dev).run(reqs)
+        assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
+        out[str(dev)] = ([r.out_tokens for r in reqs], rk.launches["rwkv6"])
+    assert out["cpu"][1] == 0
+    assert out["cuda"][1] == cfg.num_layers * 3  # three prefills of two layers
+    assert out["cuda"][0] == out["cpu"][0]

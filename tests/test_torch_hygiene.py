@@ -25,6 +25,10 @@ def _port_modules():
 def test_port_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.core.engine" in mods and "repro_torch.kernels.intersect.ops" in mods
+    for m in ("repro_torch.kernels.rwkv6.ops", "repro_torch.kernels.build",
+              "repro_torch.models.transformer", "repro_torch.models.convert",
+              "repro_torch.serve.engine", "repro_torch.launch.serve", "repro_torch.configs"):
+        assert m in mods, m
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"
@@ -42,6 +46,19 @@ def test_port_imports_without_jax_or_repro():
                           cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("first", [
+    "repro_torch.kernels.build", "repro_torch.kernels.rwkv6.ops",
+    "repro_torch.kernels.intersect.ops", "repro_torch.models.transformer",
+    "repro_torch.serve.engine",
+])
+def test_each_entry_module_imports_first(first):
+    """No import cycle bites a program whose first import is this module."""
+    proc = subprocess.run([sys.executable, "-c", f"import {first}"], capture_output=True,
+                          text=True, cwd=ROOT, timeout=300,
+                          env={**os.environ, "PYTHONPATH": SRC})
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_entry_points_raise_without_cuda():
@@ -65,6 +82,33 @@ def test_entry_points_raise_without_cuda():
         build_graph([[0, 1]], 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--query", "q3", "--vertices", "64"])
+
+
+def test_lm_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA device")
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import BatchedServer, ServeConfig
+
+    cfg = smoke_config("rwkv6-7b")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    batch = {"tokens": [[1, 2, 3]]}
+    for call in (
+        lambda: T.init_params(cfg, seed=0),
+        lambda: T.forward(cfg, params, batch),
+        lambda: T.loss_fn(cfg, params, batch),
+        lambda: T.prefill(cfg, params, batch, 8),
+        lambda: T.init_cache(cfg, 1, 8),
+        lambda: BatchedServer(cfg, params, ServeConfig()),
+        lambda: cli.main(["lm", "--smoke", "--requests", "1"]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # Given the CPU, the same calls run.
+    assert T.forward(cfg, params, batch, device="cpu").shape == (1, 3, cfg.vocab_padded)
+    BatchedServer(cfg, params, ServeConfig(), device="cpu")
 
 
 def test_chip_smoke_fails_without_cuda():
