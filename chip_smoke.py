@@ -23,13 +23,23 @@ Phases (each prints its results; any failure exits non-zero):
    ``decode_step`` against the forward's logits, in bf16 and with the
    parameters widened to float32;
 8. rwkv6-7b serving: ``BatchedServer``, greedy, 16 requests of 512 prompt
-   tokens and 32 new tokens on 8 slots.
+   tokens and 32 new tokens on 8 slots;
+9. the flash attention kernel against its plain version at granite's
+   forward, serve-prefill and decode shapes, gemma2's softcap branch (bf16,
+   scores scaled to reach the cap) and the float32 check's prefill shape,
+   over all outputs and row by row, with the readings of faults put into
+   the plain version (to show the check can fail), its times, its bound and
+   SDPA's time;
+10. granite-3-8b at full width, as phase 7 (40 kernel launches a pass and a
+   decode step);
+11. granite-3-8b serving, as phase 8.
 
 The line before the last holds the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. It imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -38,18 +48,40 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 peak outside the tensor cores (data sheet)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense tensor-core peak (data sheet)
 SECTOR = 32  # bytes: the unit in which the card fetches a scattered load
 INVALID = 2**31 - 1
 CU_SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
 RWKV_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu"
 RWKV_REPLACES = "src/repro/kernels/rwkv6/rwkv6.py:74"
 RWKV_TOL = 1e-4  # kernel vs plain, max |diff| / max |plain|: float32, another summation order
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:89"
+# Flash kernel vs plain, two readings, each held to its tolerance:
+# - max |diff| over all outputs, on unit-normal inputs: the JAX package's
+#   tolerances for its kernel;
+# - the worst query row's max |diff| over that row's max |plain|. A row's
+#   output shrinks as it attends more keys (about 0.03 at row 2048 of 4096),
+#   so only this reading sees a fault confined to late rows or late keys. In
+#   bf16, 2e-2 of the row's largest value is 2.5 units in the last place
+#   there: both round the output to bf16 (up to 1 unit apart) and the kernel
+#   also rounds the probabilities to bf16 before the product with V (the TPU
+#   kernel keeps them in float32), about 0.002 of a row's largest value. In
+#   float32 the summation orders differ by about 1e-6 absolute in every row
+#   while a row's largest value falls to about 0.1 at S = 512: 1e-4.
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+FLASH_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# q is scaled by this in the softcap shape, so the scores (standard deviation
+# 20) reach the cap of 50 and the check sees the softcap branch: at unit
+# scale 50·tanh(s/50) moves a score by about s³/7500, too little to see.
+SOFTCAP_Q_SCALE = 20.0
 # prefill + decode vs the forward pass, max |diff| / max |forward logits|. In
 # float32 the two paths differ only in summation order. In bf16 the logits
 # carry bf16's own rounding: at full width the bf16 forward differs from the
@@ -65,6 +97,16 @@ RWKV_SHAPES = (("forward B=4", 4 * 64, 4096, False),
                ("ragged tail B=8", 8 * 64, 37, True))
 LM_FORWARD = (4, 4096, 512, 3)
 LM_SERVE = (16, 512, 32, 8)
+# The flash kernel's shapes: (what, B, Hq, Hkv, Sq, Sk, Dh, softcap, dtype),
+# all causal, q scaled by SOFTCAP_Q_SCALE where there is a softcap; the first
+# is the JSON line's headline.
+FLASH_SHAPES = (
+    ("granite forward B=4", 4, 32, 8, 4096, 4096, 128, None, torch.bfloat16),
+    ("granite serve prefill B=8", 8, 32, 8, 512, 512, 128, None, torch.bfloat16),
+    ("granite decode B=8", 8, 32, 8, 1, 544, 128, None, torch.bfloat16),
+    ("gemma2 softcap B=4", 4, 16, 8, 2048, 2048, 256, 50.0, torch.bfloat16),
+    ("granite float32 check B=2", 2, 32, 8, 512, 512, 128, None, torch.float32),
+)
 DEV = "cuda"
 REPLACES = {
     "fused_extend": "src/repro/kernels/intersect/intersect.py:181",
@@ -162,6 +204,37 @@ def plain_device_ms(fn, iters: int = 20, repeats: int = 5):
     means = sorted(_profiled(fn, iters)[1] / 1e3 / iters for _ in range(repeats))
     assert means[-1] > 0, "the profiler recorded no device time"
     return means[len(means) // 2], means[0], means[-1], None
+
+
+def queued_ms(fn, iters: int = 20, repeats: int = 5):
+    """Device time per call of ``fn`` without the profiler: a sleep kernel
+    keeps the device busy while the host queues ``iters`` calls, so CUDA
+    events around the calls time the device alone (the gaps between its
+    kernels included). The profiler can miss a library's kernels (cuDNN's
+    were missing from every window of one run); this cannot. The sleep is
+    doubled until it outlasts the host's queueing. Returns (median, min,
+    max)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, means = 1 << 24, []
+    while len(means) < repeats:
+        slept0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        slept0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if host_ms >= 0.8 * slept0.elapsed_time(start):  # the queue may have run dry
+            cycles *= 2
+            assert cycles < 1 << 34, "the host cannot queue the calls ahead of the device"
+            continue
+        means.append(start.elapsed_time(end) / iters)
+    means.sort()
+    return means[len(means) // 2], means[0], means[-1]
 
 
 def timed(fn, iters: int = 20, call_repeats: int = 7, warmup: int = 10, plain: bool = False):
@@ -521,64 +594,227 @@ def phase_rwkv6_kernel(rk):
 
 
 # ---------------------------------------------------------------------------
-# Phases 7-8: rwkv6-7b at full width, forward and serving
+# Phase 9: the flash attention kernel against its plain version and SDPA
 # ---------------------------------------------------------------------------
 
-def lm_setup():
+def attention_bound(q, k, v, causal):
+    """(bound ms, what bounds it, bytes, flops, pairs): q, k, v read once and
+    the output written once at 3.35 TB/s, against 4 * Dh operations for each
+    (query, visible key) pair at the dtype's peak (989 TFLOP/s on the tensor
+    cores in bf16, 67 TFLOP/s float32 outside them)."""
+    bhq, sq, dh = q.shape
+    sk = k.shape[1]
+    if causal:
+        seen = (torch.arange(sq, dtype=torch.int64) + (sk - sq) + 1).clamp(0, sk)
+        pairs = int(seen.sum()) * bhq
+    else:
+        pairs = bhq * sq * sk
+    flops = 4 * pairs * dh
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * q.element_size()
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), \
+        nbytes, flops, pairs
+
+
+def flash_errs(got, want):
+    """(max |got - want|, the worst row's max |got - want| over its max
+    |want|) over [..., Sq, Dh] outputs; a row that is 0 in both reads 0."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(-1).clamp_min(1e-30)
+    return float(diff.max()), float((diff.amax(-1) / scale).max())
+
+
+def flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what):
+    """Whether the check above could fail: the plain version with a fault put
+    into it, on the last (up to 128) query rows, read as the check reads the
+    kernel. The faults: the keys of the last 64-key tile lost (their V
+    zeroed), and the softcap dropped. Returns their readings."""
+    n = min(q.shape[1], 128)
+    tail = k.shape[1] - (k.shape[1] - 1) // 64 * 64
+    v_lost = v.clone()
+    v_lost[:, -tail:] = 0
+    faults = {"tail lost": (v_lost, cap)}
+    if cap is not None:
+        faults["softcap dropped"] = (v, None)
+    out = {}
+    for fault, (vf, capf) in faults.items():
+        bad = attention_chunked(q[:, -n:], k, vf, causal=True, softcap=capf)
+        out[fault] = flash_errs(bad, want[:, -n:])
+        assert out[fault][1] > row_tol, f"flash_attention {what}: the check misses '{fault}'"
+    return out
+
+
+def phase_flash_kernel(fa):
+    """The kernel at granite's forward, serve-prefill and decode shapes and at
+    gemma2's softcap branch (bf16, the tensor-core kernel), and at the float32
+    check's prefill shape (the float32 kernel), each against the plain
+    version (the wrapper's CPU path, run on the card), with the readings of
+    faults put into the plain version beside it, and timed beside SDPA where
+    one SDPA call computes the same function (every shape but the softcap's).
+    Kernel and SDPA are timed the same way, by ``queued_ms``."""
+    from repro_torch.kernels.flash_attention.ops import attention_chunked
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    log("phase 9: flash attention kernel vs its plain version and SDPA")
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    out = {"max_abs_err": 0.0, "configs": []}
+    for what, b, hq, hkv, sq, sk, dh, cap, dtype in FLASH_SHAPES:
+        q = torch.randn((b * hq, sq, dh), generator=gen, device=DEV)
+        if cap is not None:
+            q *= SOFTCAP_Q_SCALE
+        q = q.to(dtype)
+        k = torch.randn((b * hkv, sk, dh), generator=gen, device=DEV).to(dtype)
+        v = torch.randn((b * hkv, sk, dh), generator=gen, device=DEV).to(dtype)
+        got = fa.attention(q, k, v, causal=True, softcap=cap)
+        want = attention_chunked(q, k, v, causal=True, softcap=cap)
+        torch.cuda.synchronize()
+        err, row_err = flash_errs(got, want)
+        tol, row_tol = FLASH_TOL[dtype], FLASH_ROW_TOL[dtype]
+        assert err < tol and row_err < row_tol, (
+            f"flash_attention {what}: max |kernel - plain| {err} (tolerance {tol}), worst row "
+            f"{row_err} of its max |plain| (tolerance {row_tol})")
+        faults = flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what)
+
+        def kernel():
+            return fa.attention(q, k, v, causal=True, softcap=cap)
+
+        call = call_ms(kernel)
+        ms, lo, hi = queued_ms(kernel)
+        big = sq * sk * b * hq > 1 << 28
+        pcall, pdev = timed(lambda: attention_chunked(q, k, v, causal=True, softcap=cap),
+                            iters=1 if big else 5, call_repeats=3, warmup=1, plain=True)
+        lib_call = lib_ms = lib_err = None
+        if cap is None:
+            # One SDPA call on the same inputs as [B, H, S, Dh] views; at Sq = 1
+            # every key is visible, elsewhere Sq = Sk and its top-left causal
+            # diagonal is ours.
+            q4, k4, v4 = q.view(b, hq, sq, dh), k.view(b, hkv, sk, dh), v.view(b, hkv, sk, dh)
+            assert sq == 1 or sq == sk
+
+            def lib():
+                return sdpa(q4, k4, v4, is_causal=sq > 1, enable_gqa=True)
+
+            lib_err = flash_errs(lib().reshape(got.shape), want)[0]
+            lib_call, lib_ms = call_ms(lib), queued_ms(lib)
+        bound, by, nbytes, flops, pairs = attention_bound(q, k, v, True)
+        shape = (f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} causal "
+                 f"{str(dtype)[6:]}" + (f" softcap={cap:g}, q x{SOFTCAP_Q_SCALE:g}" if cap else ""))
+        out["configs"].append(dict(
+            shape=shape, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0], call_ms_min=call[1],
+            call_ms_max=call[2], plain_ms=pdev[0], plain_call_ms=pcall[0], bound_ms=bound,
+            bound_by=by, bound_bytes=nbytes, bound_flops=flops, max_abs_err=err,
+            row_rel_err=row_err, fault_readings=faults,
+            library_ms=lib_ms[0] if lib_ms else None,
+            library_call_ms=lib_call[0] if lib_call else None, library_max_abs_err=lib_err))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        log(f"  flash_attention [{what}: {shape}]: max_abs_err={err:.3e} (tolerance {tol:g}), "
+            f"worst row {row_err:.3e} of its max |plain| (tolerance {row_tol:g}); a fault in the "
+            f"plain version reads " + ", ".join(
+                f"{f}: {a:.3e} / row {r:.3e}" for f, (a, r) in faults.items()) +
+            f" | kernel queued={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) call={call[0]:.4f} ms "
+            f"(min {call[1]:.4f}, max {call[2]:.4f}) | plain device={pdev[0]:.4f} ms "
+            f"call={pcall[0]:.4f} ms | bound={bound:.4f} ms by {by} ({nbytes} B; {pairs} "
+            f"visible pairs, {flops} flop) | achieved {flops / (ms * 1e-3) / 1e12:.1f} "
+            f"TFLOP/s | " +
+            (f"SDPA queued={lib_ms[0]:.4f} ms (min {lib_ms[1]:.4f}, max {lib_ms[2]:.4f}) "
+             f"call={lib_call[0]:.4f} ms (max |SDPA - plain| {lib_err:.3e}); kernel / SDPA "
+             f"queued = {ms / lib_ms[0]:.2f}" if lib_ms else "library: none (SDPA has no softcap)"))
+        del q, k, v, got, want
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-8 (rwkv6-7b) and 10-11 (granite-3-8b): LM inference at full width
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LMPath:
+    """One model's path and the kernel it must run: ``ops`` holds its launch
+    counter ``kernel``; every pass over the layers (forward, prefill)
+    launches it once a layer, and each decode step ``per_decode`` times a
+    layer. ``symbol`` picks its kernels out of a profile."""
+    arch: str
+    ops: Any
+    kernel: str
+    symbol: str
+    per_decode: int
+    forward_phase: str
+    serve_phase: str
+
+
+def lm_setup(path: LMPath):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = get_config("rwkv6-7b")
+    cfg = get_config(path.arch)
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
     n = sum(p.numel() for p in params.parameters())
     nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    log(f"phase 7: rwkv6-7b full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
-        f"{n} parameters ({cfg.param_count()} in param_count's matrices), "
-        f"{nbytes / 1e9:.2f} GB, initialised on the card in {time.perf_counter() - t0:.2f} s")
+    log(f"{path.forward_phase}: {cfg.name} full width ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} KV) of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}): {n} parameters ({cfg.param_count()} in "
+        f"param_count's matrices), {nbytes / 1e9:.2f} GB, initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
     return cfg, params
 
 
-def phase_lm_forward(rk, cfg, params) -> int:
+def by_category(rows, symbol):
+    """Device ms of profile rows ``(name, device µs)`` summed by kind: the
+    cuBLAS GEMMs, the port's kernel, copies and casts, the other torch
+    kernels."""
+    out = {"gemm": 0.0, "kernel": 0.0, "copy": 0.0, "other": 0.0}
+    for key, us in rows:
+        kind = ("kernel" if symbol in key else
+                "gemm" if any(s in key for s in ("nvjet", "gemm", "cutlass", "sm90_xmma")) else
+                "copy" if "copy" in key else "other")
+        out[kind] += us / 1e3
+    return {k: round(v, 2) for k, v in out.items()}
+
+
+def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
     """loss_fn and forward on B=4 x S=4096, a profiled forward, then prefill
     of 512 tokens of two rows and 3 decode steps against the forward's
-    logits. Returns the kernel launches of the phase."""
+    logits. Returns the kernel launches of the phase by pass kind."""
     from repro_torch.models import transformer as T
 
+    ph = path.forward_phase
     b, s, pre, extra = LM_FORWARD
     gen = torch.Generator(device=DEV).manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEV)
     batch = {"tokens": toks}
-    total = 0
+    total = {"forward": 0, "prefill": 0, "decode": 0}
+    per_pass, per_step = cfg.num_layers, cfg.num_layers * path.per_decode
 
-    def counted(fn, want):
-        nonlocal total
-        rk.reset_launches()
+    def counted(fn, want, kind):
+        path.ops.reset_launches()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = rk.launches["rwkv6"]
-        assert n == want, f"rwkv6 launched {n} times, want {want}"
-        total += n
+        n = path.ops.launches[path.kernel]
+        assert n == want, f"{path.kernel} launched {n} times, want {want}"
+        total[kind] += n
         return res, wall
 
     torch.cuda.reset_peak_memory_stats()
-    loss, wall = counted(lambda: T.loss_fn(cfg, params, batch, device=DEV), cfg.num_layers)
+    loss, wall = counted(lambda: T.loss_fn(cfg, params, batch, device=DEV), per_pass, "forward")
     assert bool(torch.isfinite(loss)), loss
-    log(f"phase 7: loss_fn B={b} S={s}: loss={float(loss):.4f} (ln vocab "
+    log(f"{ph}: loss_fn B={b} S={s}: loss={float(loss):.4f} (ln vocab "
         f"{math.log(cfg.vocab_size):.4f}) wall={wall:.3f} s tokens/s={b * s / wall:,.0f} "
-        f"launches={cfg.num_layers} max_memory_allocated="
+        f"launches={per_pass} max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     for i in range(2):
         torch.cuda.reset_peak_memory_stats()
-        logits, wall = counted(lambda: T.forward(cfg, params, batch, device=DEV), cfg.num_layers)
-        log(f"phase 7: forward {i + 1} B={b} S={s}: wall={wall:.3f} s "
-            f"tokens/s={b * s / wall:,.0f} launches={cfg.num_layers} "
+        logits, wall = counted(lambda: T.forward(cfg, params, batch, device=DEV), per_pass,
+                               "forward")
+        log(f"{ph}: forward {i + 1} B={b} S={s}: wall={wall:.3f} s "
+            f"tokens/s={b * s / wall:,.0f} launches={per_pass} "
             f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    ref = logits[:2, pre - 1 : pre + extra].float()
+    vocab = cfg.vocab_size  # the padded columns hold -1e30: compare the real ones
+    ref = logits[:2, pre - 1 : pre + extra, :vocab].float()
     assert bool(torch.isfinite(ref).all())
     del logits, loss
 
@@ -586,50 +822,52 @@ def phase_lm_forward(rk, cfg, params) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        (logits, wall) = counted(lambda: T.forward(cfg, params, batch, device=DEV),
-                                 cfg.num_layers)
+        (logits, wall) = counted(lambda: T.forward(cfg, params, batch, device=DEV), per_pass,
+                                 "forward")
     del logits
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(t for _, t, _ in rows) / 1e3
-    ours = sum(t for k, t, _ in rows if "rwkv6_kernel" in k) / 1e3
-    log(f"phase 7: profiled forward: wall={wall * 1e3:.1f} ms device busy={busy:.1f} ms "
-        f"(rwkv6 kernel {ours:.1f} ms, {ours / max(busy, 1e-9):.3f} of busy) "
+    ours = sum(t for k, t, _ in rows if path.symbol in k) / 1e3
+    log(f"{ph}: profiled forward: wall={wall * 1e3:.1f} ms device busy={busy:.1f} ms "
+        f"({path.kernel} kernel {ours:.1f} ms, {ours / max(busy, 1e-9):.3f} of busy) "
         f"idle share={1 - busy / (wall * 1e3):.3f}")
-    for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
-        log(f"phase 7:   device {t / 1e3:9.2f} ms  x{n:<5d} {key[:90]}")
+    for key, t, n in sorted(rows, key=lambda r: -r[1])[:10]:
+        log(f"{ph}:   device {t / 1e3:9.2f} ms  x{n:<5d} {key[:90]}")
+    log(f"{ph}:   device ms by kind: {by_category([(k, t) for k, t, _ in rows], path.symbol)}")
 
     def prefill_decode(c, p):
         """Logits of prefill (last position) and of ``extra`` decode steps."""
         (cache, last), wall = counted(
             lambda: T.prefill(c, p, {"tokens": toks[:2, :pre]}, pre + extra + 8, device=DEV),
-            c.num_layers)
-        out = [last[:, 0].float()]
+            per_pass, "prefill")
+        out = [last[:, 0, :vocab].float()]
         for i in range(extra):
             (logits, cache), _ = counted(
                 lambda: T.decode_step(c, p, cache, toks[:2, pre + i : pre + i + 1], pre + i,
-                                      device=DEV), 0)
-            out.append(logits[:, 0].float())
+                                      device=DEV), per_step, "decode")
+            out.append(logits[:, 0, :vocab].float())
         return torch.stack(out, dim=1), wall
 
     def agree(label, got, want, tol):
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         same_top = int((got.argmax(-1) == want.argmax(-1)).sum())
-        log(f"phase 7: {label}: prefill {pre} tokens x2 + {extra} decode steps vs forward "
+        log(f"{ph}: {label}: prefill {pre} tokens x2 + {extra} decode steps vs forward "
             f"logits at positions {pre - 1}..{pre + extra - 1}: max |diff| {err:.5f}, max "
             f"|logit| {scale:.4f}, relative {err / scale:.2e} (tolerance {tol:g}), same "
             f"argmax {same_top}/{got.shape[0] * got.shape[1]}")
         assert err / scale < tol, (label, err, scale)
 
     got, wall = prefill_decode(cfg, params)
-    log(f"phase 7: bf16 prefill of {pre} tokens x2: wall {wall:.3f} s")
+    log(f"{ph}: bf16 prefill of {pre} tokens x2: wall {wall:.3f} s")
     agree("bf16", got, ref, LOGITS_TOL_BF16)
     # bf16's own floor at these positions: the same forward in another batch
     # shape, and (below) the float32 forward of the same weights.
     short = {"tokens": toks[:2, : pre + extra]}
-    other, _ = counted(lambda: T.forward(cfg, params, short, device=DEV)[:, pre - 1 :].float(),
-                       cfg.num_layers)
-    log(f"phase 7: bf16 floor: forward of 2 x {pre + extra} tokens vs the {b} x {s} forward: "
+    other, _ = counted(
+        lambda: T.forward(cfg, params, short, device=DEV)[:, pre - 1 :, :vocab].float(),
+        per_pass, "forward")
+    log(f"{ph}: bf16 floor: forward of 2 x {pre + extra} tokens vs the {b} x {s} forward: "
         f"relative {float((other - ref).abs().max() / ref.abs().max()):.2e}")
     # The same check in float32, with the parameters widened (exactly): here
     # the two paths may differ only in summation order.
@@ -638,9 +876,10 @@ def phase_lm_forward(rk, cfg, params) -> int:
     with torch.no_grad():
         for wide, narrow in zip(p32.parameters(), params.parameters()):
             wide.copy_(narrow)
-    want32, _ = counted(lambda: T.forward(cfg32, p32, short, device=DEV)[:, pre - 1 :].float(),
-                        cfg.num_layers)
-    log(f"phase 7: bf16 floor: bf16 forward vs float32 forward: relative "
+    want32, _ = counted(
+        lambda: T.forward(cfg32, p32, short, device=DEV)[:, pre - 1 :, :vocab].float(),
+        per_pass, "forward")
+    log(f"{ph}: bf16 floor: bf16 forward vs float32 forward: relative "
         f"{float((ref - want32).abs().max() / want32.abs().max()):.2e}")
     got32, _ = prefill_decode(cfg32, p32)
     agree("float32", got32, want32, LOGITS_TOL_F32)
@@ -648,7 +887,7 @@ def phase_lm_forward(rk, cfg, params) -> int:
     return total
 
 
-def decode_profile(cfg, params, b: int, plen: int) -> None:
+def decode_profile(path: LMPath, cfg, params, b: int, plen: int) -> None:
     """One profiled decode step of ``b`` sequences after a ``plen``-token
     prefill: its wall time against its device time and against the time to
     read every weight once."""
@@ -669,21 +908,26 @@ def decode_profile(cfg, params, b: int, plen: int) -> None:
         wall = time.perf_counter() - t0
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e3
+    ours = sum(e.self_device_time_total for e in rows if path.symbol in e.key) / 1e3
     n = sum(e.count for e in rows)
     weights = sum(p.numel() * p.element_size() for p in params.parameters())
-    log(f"phase 8: profiled decode step B={b}: wall={wall * 1e3:.2f} ms (profiled) device "
-        f"busy={busy:.2f} ms over {n} kernels, idle share={1 - busy / (wall * 1e3):.3f}; "
-        f"reading the {weights / 1e9:.2f} GB of weights once takes "
-        f"{weights / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s")
+    log(f"{path.serve_phase}: profiled decode step B={b}: wall={wall * 1e3:.2f} ms (profiled) "
+        f"device busy={busy:.2f} ms over {n} kernels ({path.kernel} kernel {ours:.3f} ms), "
+        f"idle share={1 - busy / (wall * 1e3):.3f}; reading the {weights / 1e9:.2f} GB of "
+        f"weights once takes {weights / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"{path.serve_phase}:   device {e.self_device_time_total / 1e3:8.3f} ms  "
+            f"x{e.count:<5d} {e.key[:90]}")
+    log(f"{path.serve_phase}:   device ms by kind: "
+        f"{by_category([(e.key, e.self_device_time_total) for e in rows], path.symbol)}")
 
 
-def phase_lm_serve(rk, cfg, params) -> int:
+def phase_lm_serve(path: LMPath, cfg, params) -> int:
     """BatchedServer, greedy: 16 requests of 512 prompt tokens, 32 new tokens
     each, 8 slots. Returns the kernel launches of the measured run."""
-    import dataclasses
-
     from repro_torch.serve.engine import BatchedServer, Request, ServeConfig
 
+    ph = path.serve_phase
     n_req, plen, new, slots = LM_SERVE
     rng = np.random.default_rng(8)
     scfg = ServeConfig(max_len=plen + new + 8, batch_slots=slots, temperature=0.0,
@@ -699,23 +943,41 @@ def phase_lm_serve(rk, cfg, params) -> int:
     reqs = requests(n_req)
     server = BatchedServer(cfg, params, scfg, device=DEV)
     torch.cuda.reset_peak_memory_stats()
-    rk.reset_launches()
+    path.ops.reset_launches()
     stats = server.run(reqs)
     torch.cuda.synchronize()
-    n = rk.launches["rwkv6"]
+    n = path.ops.launches[path.kernel]
     groups = -(-n_req // slots)
+    want = cfg.num_layers * groups * (1 + (new - 1) * path.per_decode)
     assert all(r.done and len(r.out_tokens) == new for r in reqs), "a request is short"
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
-    assert n == cfg.num_layers * groups, f"rwkv6 launched {n} times in {groups} prefills"
+    assert n == want, f"{path.kernel} launched {n} times in {groups} groups, want {want}"
     lat = np.array([r.latency_s for r in reqs])
-    decode_profile(cfg, params, slots, plen)
-    log(f"phase 8: served {n_req} requests x {new} tokens (prompt {plen}, {slots} slots): "
+    peak = torch.cuda.max_memory_allocated()
+    decode_profile(path, cfg, params, slots, plen)
+    log(f"{ph}: served {n_req} requests x {new} tokens (prompt {plen}, {slots} slots): "
         f"wall={stats['wall_s']:.3f} s, {stats['new_tokens']} decode tokens -> "
         f"{stats['tokens_per_s']:,.1f} tokens/s; all {n_req * new} generated tokens -> "
         f"{n_req * new / stats['wall_s']:,.1f} tokens/s; latency p50 "
         f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f} s; launches={n}; "
-        f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        f"max_memory_allocated={peak / 1e9:.2f} GB")
     return n
+
+
+def lm_phases(path: LMPath) -> int:
+    """A model's forward and serving phases; its parameters are freed when it
+    returns. Returns the kernel launches of the main path."""
+    cfg, params = lm_setup(path)
+    by_kind = phase_lm_forward(path, cfg, params)
+    served = phase_lm_serve(path, cfg, params)
+    log(f"{path.forward_phase}: {path.kernel} launches on the main path: {by_kind}, "
+        f"serving {served}")
+    for kind, n in by_kind.items():
+        assert n > 0 or (kind == "decode" and path.per_decode == 0), (path.kernel, kind)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sum(by_kind.values()) + served
 
 
 def main() -> int:
@@ -726,6 +988,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
 
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.intersect import ops as ik
     from repro_torch.kernels.rwkv6 import ops as rk
 
@@ -738,7 +1001,7 @@ def main() -> int:
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = (ik.LIB, rk.LIB)
+    libs = (ik.LIB, rk.LIB, fa.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, started together
         list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:
@@ -755,8 +1018,13 @@ def main() -> int:
 
     # -- phases 6-8 ------------------------------------------------------------
     rwkv = phase_rwkv6_kernel(rk)
-    cfg, params = lm_setup()
-    launches["rwkv6"] = phase_lm_forward(rk, cfg, params) + phase_lm_serve(rk, cfg, params)
+    launches["rwkv6"] = lm_phases(LMPath("rwkv6-7b", rk, "rwkv6", "rwkv6_kernel", 0,
+                                         "phase 7", "phase 8"))
+
+    # -- phases 9-11 -----------------------------------------------------------
+    flash = phase_flash_kernel(fa)
+    launches["flash_attention"] = lm_phases(LMPath(
+        "granite-3-8b", fa, "flash_attention", "flash_mma_kernel", 1, "phase 10", "phase 11"))
 
     for name in launches:
         assert launches[name] > 0, f"{name} was never launched on the main path"
@@ -776,6 +1044,13 @@ def main() -> int:
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
         configs=rwkv["configs"]))
+    head = flash["configs"][0]
+    kernels.append(dict(
+        name="flash_attention", route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES,
+        launches=launches["flash_attention"], max_abs_err=flash["max_abs_err"],
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
+        configs=flash["configs"]))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ from typing import Dict
 
 ARCH_MODULES: Dict[str, str] = {
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
 }
 
 ARCH_NAMES = list(ARCH_MODULES)

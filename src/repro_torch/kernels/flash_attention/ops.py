@@ -1,0 +1,180 @@
+"""Public attention entry points: the kernel wrapper ``attention`` and the
+chunked online-softmax scan that is its CPU path.
+
+``attention`` dispatches on the device of its inputs, with no flag:
+
+* every input on the CPU → ``attention_chunked``, as the JAX package runs off
+  the TPU;
+* every input on one CUDA device → the hand-written kernel
+  (``csrc/flash_attention.cu``, built by :mod:`repro_torch.kernels.build`),
+  or :class:`KernelFault`; there is no fallback;
+* inputs on several devices → ``ValueError``.
+
+Layouts: q ``[BHq, Sq, Dh]`` with k, v ``[BHkv, Sk, Dh]`` (the JAX kernel's
+signature, plus grouped-query attention: BHkv divides BHq and query row
+``bh`` reads KV row ``bh // (BHq // BHkv)``), or the same split as
+``[B, Hq, Sq, Dh]`` and ``[B, Hkv, Sk, Dh]``. The kernel reads its operands
+through their strides (only ``Dh`` must be dense), so the model hands over
+transposed views of its ``[B, S, H, Dh]`` projections and of the KV cache's
+valid prefix without a copy; for 4-D inputs on the card the output is a
+``[B, Hq, Sq, Dh]`` view of a ``[B, Sq, Hq, Dh]`` tensor, which the model
+flattens back without a copy.
+
+``launches["flash_attention"]`` counts the kernel's launches
+(``reset_launches`` zeroes it), so a run can show that it went through the
+kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from repro_torch.core.faults import KernelFault
+from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv
+
+MAX_HEAD_DIM = 256  # the kernel's widest head (gemma2's)
+MAX_GRID_Y = 65535  # one grid row of blocks per query row bh
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_launch.argtypes = [p, p, p, p, p] + [i32] * 7 + [f32, f32, i32, i32, p]
+    lib.flash_attention_launch.restype = ctypes.c_int
+
+
+LIB = CudaLibrary("flash_attention",
+                  Path(__file__).resolve().parent / "csrc" / "flash_attention.cu", _declare)
+
+launches: Dict[str, int] = {"flash_attention": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, softcap: float | None = None,
+                      chunk: int = 512):
+    """Online-softmax attention walked over KV chunks of ``chunk`` keys, the
+    JAX package's ``attention_chunked``: peak memory O(Sq·chunk), a ragged Sk
+    padded to a chunk multiple and masked. 3-D inputs only."""
+    bh, sq, dh = q.shape
+    k, v = expand_kv(q, k, v)
+    sk = k.shape[1]
+    chunk = min(chunk, sk)
+    pad = (-sk) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    f32 = torch.float32
+    dev = q.device
+    qf = q.to(f32) / (dh ** 0.5)
+    q_pos = torch.arange(sq, device=dev)
+    acc = torch.zeros((bh, sq, dh), dtype=f32, device=dev)
+    m = torch.full((bh, sq, 1), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((bh, sq, 1), dtype=f32, device=dev)
+    for c0 in range(0, k.shape[1], chunk):
+        kb = k[:, c0 : c0 + chunk].to(f32)
+        vb = v[:, c0 : c0 + chunk].to(f32)
+        s = torch.einsum("bqd,bkd->bqk", qf, kb)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = c0 + torch.arange(chunk, device=dev)
+        mask = (k_pos < sk)[None, :]  # padding
+        if causal:
+            mask = mask & (q_pos[:, None] + (sk - sq) >= k_pos[None, :])
+        s = torch.where(mask[None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask[None], torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bqk,bkd->bqd", p, vb)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True if every tensor is on one CUDA device, False if all are on the
+    CPU; anything else raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"attention: inputs on several devices {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"attention: unsupported device {dev}")
+    return True
+
+
+def _check_shapes(q, k, v) -> None:
+    ok = q.ndim in (3, 4) and k.ndim == q.ndim and v.shape == k.shape \
+        and k.shape[-1] == q.shape[-1] and q.shape[:-3] == k.shape[:-3] \
+        and k.shape[-3] >= 1 and q.shape[-3] % k.shape[-3] == 0
+    if not ok:
+        raise ValueError(f"attention: shapes q={tuple(q.shape)} k={tuple(k.shape)} "
+                         f"v={tuple(v.shape)}")
+
+
+def _strides(x: torch.Tensor):
+    """(batch, head, sequence) strides of a 3-D or 4-D operand."""
+    if x.ndim == 3:
+        return x.stride(0), 0, x.stride(1)
+    return x.stride(0), x.stride(1), x.stride(2)
+
+
+def attention(q, k, v, *, causal: bool = True, softcap: float | None = None,
+              chunk: int = 512):
+    """Causal (or full) softmax attention with scores ``(q·k)/√Dh``, optionally
+    soft-capped; under ``causal`` query i sees key j iff ``i + Sk − Sq ≥ j``
+    (q is the suffix of the key sequence). Returns q's dtype and leading
+    shape. ``chunk`` is the CPU path's chunk length; the kernel takes any
+    Sq, Sk ≥ 1 and Dh ≤ 256."""
+    _check_shapes(q, k, v)
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"attention: softcap must be positive, got {softcap}")
+    if not _on_cuda(q, k, v):
+        lead = q.shape[:-2]
+        flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v)]
+        return attention_chunked(*flat, causal=causal, softcap=softcap,
+                                 chunk=chunk).reshape(*lead, *q.shape[-2:])
+    sq, dh = q.shape[-2:]
+    sk = k.shape[-2]
+    bhq = q.shape[:-2].numel()
+    if min(bhq, sq, sk, dh) < 1:
+        raise ValueError(f"attention: empty operand q={tuple(q.shape)} k={tuple(k.shape)}")
+    if dh > MAX_HEAD_DIM:
+        raise KernelFault(f"flash_attention kernel takes Dh <= {MAX_HEAD_DIM}, got Dh={dh}",
+                          op="flash_attention")
+    if bhq > MAX_GRID_Y:
+        raise KernelFault(f"flash_attention kernel takes at most {MAX_GRID_Y} query rows "
+                          f"(batch x heads), got {bhq}", op="flash_attention")
+    if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"attention: q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    if q.ndim == 3:
+        out = torch.empty((bhq, sq, dh), dtype=q.dtype, device=q.device)
+        hq = hkv = 1
+    else:
+        b, hq = q.shape[:2]
+        hkv = k.shape[1]
+        out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out) for s in _strides(x)))
+    group = q.shape[-3] // k.shape[-3]
+    rc = LIB.load().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
+        bhq, hq, hkv, group, sq, sk, dh, 1.0 / (dh ** 0.5),
+        0.0 if softcap is None else float(softcap), int(bool(causal)), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise KernelFault(f"flash_attention launch failed: cudaError {rc}", op="flash_attention")
+    launches["flash_attention"] += 1
+    return out

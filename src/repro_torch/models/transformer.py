@@ -2,8 +2,8 @@
 
 ``ModelConfig`` is the JAX package's config, copied whole. The stack is a
 ``ModuleList`` of layers (not a scanned stack of stacked parameters); only
-``rwkv`` mixers and ``dense`` MLPs are ported, and any other mixer or MLP
-raises ``NotImplementedError`` by name.
+``attn`` (global GQA attention) and ``rwkv`` mixers and ``dense`` MLPs are
+ported, and any other mixer or MLP raises ``NotImplementedError`` by name.
 
 API (the JAX package's, with an explicit device and generator):
   init_params(cfg, gen=None, *, seed=0, device=None)      → LM
@@ -16,10 +16,13 @@ API (the JAX package's, with an explicit device and generator):
 ``device`` goes through :func:`repro_torch.device.resolve_device`: ``cuda``
 unless the caller asks for the CPU, and the parameters must live there.
 Everything runs under ``torch.inference_mode()``. The decode cache has the
-JAX package's layout (``{"pos<p>": {"rwkv": (x_prev [G, B, d], S [G, B, H,
-hd, hd])}}`` with G the number of layer groups) and is updated in place:
-``decode_step`` returns the cache it was given, which saves a copy of the
-whole state at every step.
+JAX package's layout, with G the number of layer groups: ``{"pos<p>":
+{"attn": {"k", "v": [G, B, max_len, KV, hd], "len": [G] int32}}}`` for an
+attention position and ``{"pos<p>": {"rwkv": (x_prev [G, B, d], S [G, B, H,
+hd, hd])}}`` for an RWKV one. It is updated in place: ``decode_step``
+returns the cache it was given, which saves a copy of the whole state at
+every step. ``len`` lives on the host, so reading the valid prefix of the KV
+cache needs no device sync.
 """
 from __future__ import annotations
 
@@ -34,7 +37,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     MLP,
+    Attention,
     AttnSpec,
+    attention_block,
+    attn_init,
     dense_init,
     dtype_of,
     empty_param,
@@ -177,7 +183,7 @@ class ModelConfig:
 
 def _check_ported(cfg: ModelConfig, layer: int) -> None:
     mixer, mlp = cfg.mixer_at(layer), cfg.mlp_at(layer)
-    if mixer != "rwkv":
+    if mixer not in ("attn", "rwkv"):
         raise NotImplementedError(f"mixer {mixer!r} (layer {layer} of {cfg.name}) is not ported")
     if mlp != "dense":
         raise NotImplementedError(f"mlp {mlp!r} (layer {layer} of {cfg.name}) is not ported")
@@ -190,9 +196,13 @@ class Block(nn.Module):
         super().__init__()
         _check_ported(cfg, layer)
         dt = dtype_of(cfg.dtype)
+        self.mixer = cfg.mixer_at(layer)
         self.ln1 = empty_param((cfg.d_model,), torch.float32, device)
         self.ln2 = empty_param((cfg.d_model,), torch.float32, device)
-        self.rwkv = ssm_mod.RWKV6(cfg.d_model, cfg.num_heads, dt, device=device)
+        if self.mixer == "attn":
+            self.attn = Attention(cfg.d_model, cfg.attn_spec(False), dt, device)
+        else:
+            self.rwkv = ssm_mod.RWKV6(cfg.d_model, cfg.num_heads, dt, device=device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 
 
@@ -235,7 +245,10 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *, seed
     for blk in lm.blocks:
         blk.ln1.zero_()
         blk.ln2.zero_()
-        blk.rwkv = ssm_mod.rwkv6_init(gen, cfg.d_model, cfg.num_heads, dtype=dt)
+        if blk.mixer == "attn":
+            blk.attn = attn_init(gen, cfg.d_model, cfg.attn_spec(False), dt)
+        else:
+            blk.rwkv = ssm_mod.rwkv6_init(gen, cfg.d_model, cfg.num_heads, dtype=dt)
         blk.mlp = mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
     lm.embed.copy_(dense_init(gen, (cfg.vocab_padded, cfg.d_model), dt, scale=0.02))
     lm.final_norm.zero_()
@@ -277,9 +290,18 @@ def _logits(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, state=None):
+def _positions(start: int, s: int, dev: torch.device) -> torch.Tensor:
+    return torch.arange(start, start + s, device=dev)[None]  # [1, S], broadcast over B
+
+
+def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, positions: torch.Tensor,
+                 state=None):
     h = rmsnorm(x, blk.ln1, cfg.norm_eps)
-    y, new_state = ssm_mod.rwkv6_block(blk.rwkv, h, cfg.num_heads, state)
+    if blk.mixer == "attn":
+        y, new_state = attention_block(blk.attn, h, cfg.attn_spec(False), positions, state,
+                                       chunk=cfg.attn_chunk)
+    else:
+        y, new_state = ssm_mod.rwkv6_block(blk.rwkv, h, cfg.num_heads, state)
     x = x + y
     x = x + mlp_block(blk.mlp, rmsnorm(x, blk.ln2, cfg.norm_eps))
     return x, new_state
@@ -292,8 +314,9 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *, device=None) -> torch.
         raise NotImplementedError("frontend embeddings are not ported")
     dev = params_device(params, device)
     x = _embed(cfg, params, _tokens(batch["tokens"], dev))
+    positions = _positions(0, x.shape[1], dev)
     for blk in params.blocks:
-        x, _ = _apply_layer(cfg, blk, x)
+        x, _ = _apply_layer(cfg, blk, x, positions)
     return _logits(cfg, params, x)
 
 
@@ -317,14 +340,24 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *, device=None) -> torch.
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> Dict[str, Any]:
-    """Zero decode state for ``batch`` sequences. RWKV's state does not grow
-    with the sequence, so ``max_len`` is unused (kept for the JAX API)."""
+    """Zero decode state for ``batch`` sequences: a KV cache of ``max_len``
+    positions for each attention layer; RWKV's state does not grow with the
+    sequence."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
-    ng, hd = cfg.num_groups, cfg.d_model // cfg.num_heads
+    ng = cfg.num_groups
     cache = {}
     for pos in range(cfg.period):
         _check_ported(cfg, pos)
+        if cfg.mixer_at(pos) == "attn":
+            shape = (ng, batch, max_len, cfg.num_kv_heads, cfg.hd)
+            cache[f"pos{pos}"] = {"attn": {
+                "k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "len": torch.zeros((ng,), dtype=torch.int32),
+            }}
+            continue
+        hd = cfg.d_model // cfg.num_heads
         cache[f"pos{pos}"] = {"rwkv": (
             torch.zeros((ng, batch, cfg.d_model), dtype=dt, device=dev),
             torch.zeros((ng, batch, cfg.num_heads, hd, hd), dtype=torch.float32, device=dev),
@@ -332,11 +365,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> Di
     return cache
 
 
-def _run_with_cache(cfg: ModelConfig, params: LM, x: torch.Tensor, cache: Dict) -> torch.Tensor:
+def _cache_len(cfg: ModelConfig, cache: Dict) -> Optional[int]:
+    """Tokens held by the KV cache (None for a model without attention)."""
+    for pos in range(cfg.period):
+        entry = cache[f"pos{pos}"]
+        if "attn" in entry:
+            return int(entry["attn"]["len"][0])
+    return None
+
+
+def _run_with_cache(cfg: ModelConfig, params: LM, x: torch.Tensor, positions: torch.Tensor,
+                    cache: Dict) -> torch.Tensor:
     for layer, blk in enumerate(params.blocks):
         g, pos = divmod(layer, cfg.period)
-        x_prev, s = cache[f"pos{pos}"]["rwkv"]
-        x, (new_prev, new_s) = _apply_layer(cfg, blk, x, (x_prev[g], s[g]))
+        entry = cache[f"pos{pos}"]
+        if blk.mixer == "attn":
+            kv = entry["attn"]
+            x, new = _apply_layer(cfg, blk, x, positions, {
+                "k": kv["k"][g], "v": kv["v"][g], "len": int(kv["len"][g])})
+            kv["len"][g] = new["len"]
+            continue
+        x_prev, s = entry["rwkv"]
+        x, (new_prev, new_s) = _apply_layer(cfg, blk, x, positions, (x_prev[g], s[g]))
         x_prev[g].copy_(new_prev)
         s[g].copy_(new_s)
     return x
@@ -349,15 +399,26 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict, max_len: int, *,
     dev = params_device(params, device)
     tokens = _tokens(batch["tokens"], dev)
     cache = init_cache(cfg, tokens.shape[0], max_len, device=dev)
-    x = _run_with_cache(cfg, params, _embed(cfg, params, tokens), cache)
+    x = _run_with_cache(cfg, params, _embed(cfg, params, tokens),
+                        _positions(0, tokens.shape[1], dev), cache)
     return cache, _logits(cfg, params, x[:, -1:, :])
 
 
 @torch.inference_mode()
 def decode_step(cfg: ModelConfig, params: LM, cache: Dict, tokens, pos=None, *,
                 device=None) -> Tuple[torch.Tensor, Dict]:
-    """tokens [B, 1] → (logits [B, 1, V], cache). ``pos`` (the position) is
-    not needed by RWKV and kept for the JAX API."""
+    """tokens [B, 1] → (logits [B, 1, V], cache). ``pos`` is the new token's
+    position. With attention layers it must equal the KV cache's length,
+    else ``ValueError``: the kernel places the query on the diagonal after
+    the cached keys, where the JAX package masks by ``pos`` itself, and the
+    two agree only there (the JAX server never passes another). RWKV does not
+    need it."""
     dev = params_device(params, device)
-    x = _run_with_cache(cfg, params, _embed(cfg, params, _tokens(tokens, dev)), cache)
+    length = _cache_len(cfg, cache)
+    if length is not None and pos is not None and int(pos) != length:
+        raise ValueError(f"decode_step: position {int(pos)} is not the KV cache's length "
+                         f"{length}")
+    start = length if length is not None else 0
+    x = _run_with_cache(cfg, params, _embed(cfg, params, _tokens(tokens, dev)),
+                        _positions(start, 1, dev), cache)
     return _logits(cfg, params, x), cache

@@ -6,7 +6,15 @@ runs there with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Integer outputs must be equal bit for bit. The RWKV6 kernel's float32 outputs
 must be within 1e-4 of its plain version relative to the largest plain value:
 both compute in float32, in another summation order and with fused
-multiply-adds, over up to 512 dependent steps.
+multiply-adds, over up to 512 dependent steps. The flash attention kernel's
+outputs must be within 2e-5 (float32) and 2e-2 (bfloat16) of its plain
+version, the JAX package's own tolerances for its kernel: in bfloat16 the
+kernel rounds the probabilities to bfloat16 before the product with V and
+both round the output to bfloat16. Each query row's max |diff| must also be
+within 1e-4 (float32) and 2e-2 (bfloat16, 2.5 units in the last place) of
+that row's max |plain|, since a row's output shrinks as it attends more
+keys. Where a case has a softcap, q is scaled by 20 so that the scores reach
+the cap, and the case checks that dropping the softcap would fail the test.
 """
 import numpy as np
 import pytest
@@ -253,4 +261,142 @@ def test_batched_server_smoke_on_card(cuda):
         out[str(dev)] = ([r.out_tokens for r in reqs], rk.launches["rwkv6"])
     assert out["cpu"][1] == 0
     assert out["cuda"][1] == cfg.num_layers * 3  # three prefills of two layers
+    assert out["cuda"][0] == out["cpu"][0]
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SOFTCAP_Q_SCALE = 20.0  # scores of standard deviation 20 reach a cap of 30 or 50
+
+
+def _flash_errs(got, want):
+    """(max |got - want|, the worst row's max |got - want| over its max |want|)."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(-1).clamp_min(1e-30)
+    return float(diff.max()), float((diff.amax(-1) / scale).max())
+
+
+def _flash_close(got, want, dtype):
+    err, row_err = _flash_errs(got, want)
+    return err < FLASH_TOL[dtype] and row_err < FLASH_ROW_TOL[dtype]
+
+
+def _qkv(bhq, bhkv, sq, sk, dh, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((bhq, sq, dh), generator=g, device=dev)
+    k = torch.randn((bhkv, sk, dh), generator=g, device=dev)
+    v = torch.randn((bhkv, sk, dh), generator=g, device=dev)
+    return [x.to(dtype) for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bhq,bhkv,sq,sk,dh,causal,cap", [
+    (2, 2, 128, 128, 64, True, None),
+    (1, 1, 256, 256, 128, True, None),
+    (2, 2, 128, 256, 64, False, None),
+    (1, 1, 128, 128, 64, True, 30.0),
+    (1, 1, 64, 192, 64, True, None),       # q is a suffix of the keys
+    (8, 2, 1, 544, 128, True, None),       # decode against a cache, grouped query heads
+    (3, 3, 100, 37, 16, True, None),       # Sk < Sq: the first 63 rows see no key
+    (2, 2, 70, 70, 256, True, 50.0),       # gemma2's head width and softcap
+    (6, 2, 33, 97, 36, False, None),       # Dh not a multiple of 8
+])
+def test_flash_attention_kernel_matches_plain(cuda, bhq, bhkv, sq, sk, dh, causal, cap, dtype):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _qkv(bhq, bhkv, sq, sk, dh, dtype, cuda, seed=sq + sk + dh)
+    if cap is not None:
+        q = (q.float() * SOFTCAP_Q_SCALE).to(dtype)
+    before = fa.launches["flash_attention"]
+    got = fa.attention(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.attention_chunked(q, k, v, causal=causal, softcap=cap, chunk=96)
+    assert _flash_close(got, want, dtype), _flash_errs(got, want)
+    if cap is not None:  # the scores reach the cap: without it the check fails
+        uncapped = fa.attention_chunked(q, k, v, causal=causal, chunk=96)
+        assert not _flash_close(uncapped, want, dtype), _flash_errs(uncapped, want)
+    if sk >= sq or not causal:  # the materialised twin differs only on rows that see no key
+        ref = attention_ref(q, k, v, causal=causal, softcap=cap)
+        assert _flash_close(got, ref, dtype), _flash_errs(got, ref)
+    else:
+        assert not got[:, : sq - sk].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_reads_strided_views(cuda, dtype):
+    """The model's operands: [B, S, H, Dh] projections and the valid prefix of
+    a [B, max_len, KV, Dh] cache, as [B, H, S, Dh] views. The output is a
+    [B, H, Sq, Dh] view of a [B, Sq, H, Dh] tensor."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    b, h, kvh, sq, length, max_len, dh = 3, 8, 2, 17, 50, 64, 128
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((b, sq, h, dh), generator=g, device=cuda).to(dtype)
+    kc = torch.randn((b, max_len, kvh, dh), generator=g, device=cuda).to(dtype)
+    vc = torch.randn((b, max_len, kvh, dh), generator=g, device=cuda).to(dtype)
+    qv, kv, vv = q.transpose(1, 2), kc[:, :length].transpose(1, 2), vc[:, :length].transpose(1, 2)
+    assert not (qv.is_contiguous() or kv.is_contiguous())
+    got = fa.attention(qv, kv, vv, causal=True)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, sq, dh) and got.transpose(1, 2).is_contiguous()
+    flat = [x.contiguous().reshape(-1, x.shape[2], dh) for x in (qv, kv, vv)]
+    want = fa.attention_chunked(*flat, causal=True).reshape(b, h, sq, dh)
+    assert _flash_close(got, want, dtype), _flash_errs(got, want)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.core.faults import KernelFault
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    q, k, v = _qkv(2, 2, 8, 8, 264, torch.bfloat16, cuda)
+    with pytest.raises(KernelFault, match="Dh <= 256"):
+        fa.attention(q, k, v)
+    q, k, v = _qkv(2, 2, 8, 8, 64, torch.float16, cuda)
+    with pytest.raises(TypeError):
+        fa.attention(q, k, v)
+    q, k, v = _qkv(4, 3, 8, 8, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        fa.attention(q, k, v)
+    q, k, v = _qkv(2, 2, 8, 8, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        fa.attention(q, k.cpu(), v)
+
+
+def test_granite_smoke_on_card_equals_cpu_port(cuda):
+    """granite-3-8b's smoke config in float32: forward logits and greedy
+    served tokens on the card equal the CPU port's (which the CPU tests hold
+    to the JAX package), and every attention call runs the kernel."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import BatchedServer, Request, ServeConfig
+
+    cfg = smoke_config("granite-3-8b").scaled(dtype="float32")
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    gpu_params = T.init_params(cfg, seed=0, device="cpu").to(cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    fa.reset_launches()
+    got = T.forward(cfg, gpu_params, {"tokens": toks}, device=cuda)
+    assert fa.launches["flash_attention"] == cfg.num_layers
+    want = T.forward(cfg, cpu_params, {"tokens": toks}, device="cpu")
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    prompts = [np.random.default_rng(i).integers(2, cfg.vocab_size, 9 + i).astype(np.int32)
+               for i in range(5)]
+    scfg = ServeConfig(max_len=32, batch_slots=2, max_new_tokens=6, eos_token=-1)
+    out = {}
+    for dev, params in (("cpu", cpu_params), (cuda, gpu_params)):
+        reqs = [Request(prompt=p.copy()) for p in prompts]
+        fa.reset_launches()
+        BatchedServer(cfg, params, scfg, device=dev).run(reqs)
+        assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
+        out[str(dev)] = ([r.out_tokens for r in reqs], fa.launches["flash_attention"])
+    assert out["cpu"][1] == 0
+    assert out["cuda"][1] == cfg.num_layers * 3 * 6  # three groups: a prefill, 5 decode steps
     assert out["cuda"][0] == out["cpu"][0]

@@ -25,7 +25,8 @@ def _port_modules():
 def test_port_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.core.engine" in mods and "repro_torch.kernels.intersect.ops" in mods
-    for m in ("repro_torch.kernels.rwkv6.ops", "repro_torch.kernels.build",
+    for m in ("repro_torch.kernels.rwkv6.ops", "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.configs.granite_3_8b", "repro_torch.kernels.build",
               "repro_torch.models.transformer", "repro_torch.models.convert",
               "repro_torch.serve.engine", "repro_torch.launch.serve", "repro_torch.configs"):
         assert m in mods, m
@@ -50,6 +51,7 @@ def test_port_imports_without_jax_or_repro():
 
 @pytest.mark.parametrize("first", [
     "repro_torch.kernels.build", "repro_torch.kernels.rwkv6.ops",
+    "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.intersect.ops", "repro_torch.models.transformer",
     "repro_torch.serve.engine",
 ])

@@ -84,7 +84,7 @@ def test_config_equals_jax(which):
     assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
     assert pc.param_count() == jc.param_count()
     assert pc.num_groups == jc.num_groups and pc.vocab_padded == jc.vocab_padded
-    assert ARCH_NAMES == [ARCH]
+    assert ARCH_NAMES == [ARCH, "granite-3-8b"]
 
 
 def test_full_config_is_the_7b_model():
@@ -95,11 +95,11 @@ def test_full_config_is_the_7b_model():
 
 
 def test_unported_mixer_raises_by_name():
-    granite = T.ModelConfig(**dataclasses.asdict(jax_smoke_config("granite-3-8b")))
-    with pytest.raises(NotImplementedError, match="'attn'"):
-        T.LM(granite, device="cpu")
-    with pytest.raises(NotImplementedError, match="'attn'"):
-        T.init_cache(granite, 1, 8, device="cpu")
+    gemma = T.ModelConfig(**dataclasses.asdict(jax_smoke_config("gemma2-9b")))
+    with pytest.raises(NotImplementedError, match="'attn_local'"):
+        T.LM(gemma, device="cpu")
+    with pytest.raises(NotImplementedError, match="'attn_local'"):
+        T.init_cache(gemma, 1, 8, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
