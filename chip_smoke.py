@@ -6,8 +6,9 @@ Phases (each prints its results; any failure exits non-zero):
    nvcc per source, started together);
 2. each intersect kernel against its plain PyTorch version, on the card, at
    the shapes of the full-width run (bit-equal outputs), with device times
-   (profiler, median and spread of 5 windows), CUDA-event call times and the
-   byte bound of each configuration;
+   (``queued_ms``: median and spread of 5 windows of calls queued behind a
+   sleep kernel), CUDA-event call times and the byte bound of each
+   configuration;
 3. the table4 workload: q1-q3 under ``huge`` on powerlaw_graph(4096, 8.0,
    seed=7), fused, with the reference's match counts;
 4. verify and join: q3/rads, q1/seed, q2/seed (fused) and q3/huge through the
@@ -28,11 +29,14 @@ Phases (each prints its results; any failure exits non-zero):
    forward, serve-prefill and decode shapes, gemma2's softcap branch (bf16,
    scores scaled to reach the cap) and the float32 check's prefill shape,
    over all outputs and row by row, with the readings of faults put into
-   the plain version (to show the check can fail), its times, its bound and
-   SDPA's time;
+   the plain version (to show the check can fail), the kernel form that
+   ran, its times, achieved TFLOP/s and GB/s, its bound, and SDPA's time
+   (at the softcap shape, a compiled flex_attention's); then the serve-prefill
+   and decode shapes (the latter at Dh = 36) on views off 16 bytes, which the
+   wrapper copies aligned for the bf16 forms;
 10. granite-3-8b at full width, as phase 7 (40 kernel launches a pass and a
-   decode step);
-11. granite-3-8b serving, as phase 8.
+   decode step, each pass in the form its shape names);
+11. granite-3-8b serving, as phase 8 (prefill and decode forms counted).
 
 The line before the last holds the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. It imports torch, numpy and the port only.
@@ -107,6 +111,18 @@ FLASH_SHAPES = (
     ("gemma2 softcap B=4", 4, 16, 8, 2048, 2048, 256, 50.0, torch.bfloat16),
     ("granite float32 check B=2", 2, 32, 8, 512, 512, 128, None, torch.float32),
 )
+# Shapes that reach the bf16 forms through the wrapper's aligned copy: (what,
+# B, Hq, Hkv, Sq, Sk, Dh), causal, every operand read through a view one
+# element (2 bytes) off 16 bytes.
+FLASH_UNALIGNED = (
+    ("granite serve prefill B=8, views off 16 bytes", 8, 32, 8, 512, 512, 128),
+    ("granite decode B=8, Dh=36, views off 16 bytes", 8, 32, 8, 1, 544, 36),
+)
+# The flash kernel's form on each pass of the granite phases, by (pass kind,
+# dtype): the model's calls take the form their shape names and nothing else.
+GRANITE_FORMS = {("forward", "bfloat16"): {"prefill"}, ("prefill", "bfloat16"): {"prefill"},
+                 ("decode", "bfloat16"): {"decode"}, ("forward", "float32"): {"f32"},
+                 ("prefill", "float32"): {"f32"}, ("decode", "float32"): {"f32"}}
 DEV = "cuda"
 REPLACES = {
     "fused_extend": "src/repro/kernels/intersect/intersect.py:181",
@@ -173,27 +189,6 @@ def _profiled(fn, n):
     return device_kernels(prof), device_busy_us(prof)
 
 
-def device_ms(fn, iters: int = 20, repeats: int = 5, attempts: int = 25):
-    """Device time per call of ``fn``, which launches a few kernels: their
-    durations as the profiler records them, the mean of ``iters`` calls in
-    each of ``repeats`` windows. The profiler can lose kernel records (seen
-    with long kernels queued back to back), so a window counts only if it
-    recorded as many kernels as the fullest window; the others are dropped
-    and counted. Returns (median, min, max, dropped windows)."""
-    fn()
-    torch.cuda.synchronize()
-    per_call = max(_profiled(fn, 1)[0] for _ in range(3))
-    seen = []
-    while len(seen) < attempts:
-        seen.append(_profiled(fn, iters))
-        full = max(per_call * iters, max(n for n, _ in seen))
-        means = sorted(busy_us / 1e3 / iters for n, busy_us in seen if n == full)
-        if len(means) >= repeats:
-            break
-    assert means and means[-1] > 0, "the profiler recorded no complete window"
-    return means[len(means) // 2], means[0], means[-1], len(seen) - len(means)
-
-
 def plain_device_ms(fn, iters: int = 20, repeats: int = 5):
     """Device time per call of a plain version, whose calls launch up to tens
     of thousands of torch kernels: the device rows of ``repeats`` profiled
@@ -238,10 +233,13 @@ def queued_ms(fn, iters: int = 20, repeats: int = 5):
 
 
 def timed(fn, iters: int = 20, call_repeats: int = 7, warmup: int = 10, plain: bool = False):
-    """Both times of ``fn``: calls first (they warm it up), then device (5
-    profiled windows of ``iters`` calls; ``plain`` for a plain version)."""
+    """Both times of ``fn``: calls first (they warm it up), then device:
+    ``queued_ms`` for a kernel or a library call, 5 profiled windows of
+    ``iters`` calls for a plain version (``plain``). The profiler is not used
+    for kernels: it loses kernel records, and at ``lex_bounds``' shape it
+    recorded no complete window in 25 in one run."""
     return (call_ms(fn, iters=iters, repeats=call_repeats, warmup=warmup),
-            (plain_device_ms if plain else device_ms)(fn, iters=iters))
+            (plain_device_ms if plain else queued_ms)(fn, iters=iters))
 
 
 def max_abs_err(a, b) -> int:
@@ -410,7 +408,7 @@ def phase_kernels(graph, ik, ref):
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
 
     def keep(name, shape, err, kernel, plain, nbytes, library=None, note=""):
-        (call, (ms, lo, hi, dropped)), (plain_call, plain_dev) = kernel, plain
+        (call, (ms, lo, hi)), (plain_call, plain_dev) = kernel, plain
         cfg = dict(shape=shape, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_dev[0],
                    bound_ms=bound_ms(nbytes), bound_bytes=nbytes,
                    library_ms=library[1][0] if library else None,
@@ -418,11 +416,11 @@ def phase_kernels(graph, ik, ref):
                    plain_call_ms=plain_call[0],
                    library_call_ms=library[0][0] if library else None)
         log(f"  {name} [{shape}{note}]: max_abs_err={err} "
-            f"kernel device={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}; {dropped} windows dropped) "
+            f"kernel queued={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) "
             f"call={call[0]:.4f} ms (min {call[1]:.4f}, max {call[2]:.4f}) | "
             f"plain device={plain_dev[0]:.4f} ms call={plain_call[0]:.4f} ms | "
             f"bound={cfg['bound_ms']:.5f} ms ({nbytes} B)" +
-            (f" | library device={library[1][0]:.4f} ms call={library[0][0]:.4f} ms"
+            (f" | library queued={library[1][0]:.4f} ms call={library[0][0]:.4f} ms"
              if library else ""))
         r = rec[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -570,7 +568,7 @@ def phase_rwkv6_kernel(rk):
         rel = max(errs) / max(1.0, scale)
         assert rel < RWKV_TOL, f"rwkv6 {what} T={t}: max |diff| {max(errs)} / max |plain| {scale}"
         plain_iters = 1 if t > 1024 else 5
-        call, (ms, lo, hi, dropped) = timed(lambda: rk.rwkv6(*args, return_state=with_state))
+        call, (ms, lo, hi) = timed(lambda: rk.rwkv6(*args, return_state=with_state))
         (pcall, pdev) = timed(lambda: rwkv6_ref(*args, return_state=with_state),
                               iters=plain_iters, call_repeats=3, warmup=1, plain=True)
         bound, by, nbytes, flops, bytes_ms, ops_ms = rwkv_bound(args, with_state)
@@ -579,12 +577,12 @@ def phase_rwkv6_kernel(rk):
             shape=shape, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0], call_ms_min=call[1],
             call_ms_max=call[2], plain_ms=pdev[0], plain_call_ms=pcall[0], bound_ms=bound,
             bound_by=by, bound_bytes=nbytes, bound_flops=flops, max_abs_err=max(errs),
-            rel_err=rel, library_ms=None, profiler_windows_dropped=dropped))
+            rel_err=rel, library_ms=None))
         out["max_abs_err"] = max(out["max_abs_err"], max(errs))
         log(f"  rwkv6 [{what}: {shape}]: max_abs_err={max(errs):.3e} (out"
             f"{', state' if with_state else ''}; max |plain| {scale:.3f}, relative {rel:.2e}, "
-            f"tolerance {RWKV_TOL:g}) | kernel device={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}; "
-            f"{dropped} profiler windows dropped) "
+            f"tolerance {RWKV_TOL:g}) | kernel queued={ms:.4f} ms (min {lo:.4f}, "
+            f"max {hi:.4f}) "
             f"call={call[0]:.4f} ms (min {call[1]:.4f}, max {call[2]:.4f}) | plain device="
             f"{pdev[0]:.4f} ms call={pcall[0]:.4f} ms | bound={bound:.4f} ms by {by} "
             f"(bytes {nbytes} -> {bytes_ms:.4f} ms at 3.35 TB/s; {flops} flop -> "
@@ -645,14 +643,35 @@ def flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what):
     return out
 
 
+def flex_softcap(q4, k4, v4, cap):
+    """The softcap shape's yardstick: ``torch.compile(flex_attention)`` with
+    a tanh ``score_mod``, the causal diagonal as a block mask and
+    ``enable_gqa=True``, on [B, H, S, Dh] inputs. The port never calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    sq, sk = q4.shape[2], k4.shape[2]
+
+    def softcap(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def causal(b, h, q_idx, kv_idx):
+        return q_idx + (sk - sq) >= kv_idx
+
+    mask = create_block_mask(causal, None, None, sq, sk, device=q4.device)
+    flex = torch.compile(flex_attention)
+    return lambda: flex(q4, k4, v4, score_mod=softcap, block_mask=mask, enable_gqa=True)
+
+
 def phase_flash_kernel(fa):
     """The kernel at granite's forward, serve-prefill and decode shapes and at
     gemma2's softcap branch (bf16, the tensor-core kernel), and at the float32
     check's prefill shape (the float32 kernel), each against the plain
     version (the wrapper's CPU path, run on the card), with the readings of
     faults put into the plain version beside it, and timed beside SDPA where
-    one SDPA call computes the same function (every shape but the softcap's).
-    Kernel and SDPA are timed the same way, by ``queued_ms``."""
+    one SDPA call computes the same function (every shape but the softcap's,
+    where a compiled flex_attention stands in). Kernel and library are timed
+    the same way, by ``queued_ms``; the form the kernel ran is read from its
+    per-form launch counts."""
     from repro_torch.kernels.flash_attention.ops import attention_chunked
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -666,7 +685,9 @@ def phase_flash_kernel(fa):
         q = q.to(dtype)
         k = torch.randn((b * hkv, sk, dh), generator=gen, device=DEV).to(dtype)
         v = torch.randn((b * hkv, sk, dh), generator=gen, device=DEV).to(dtype)
+        before = dict(fa.launches_by_form)
         got = fa.attention(q, k, v, causal=True, softcap=cap)
+        (form,) = [f for f, n in fa.launches_by_form.items() if n > before[f]]
         want = attention_chunked(q, k, v, causal=True, softcap=cap)
         torch.cuda.synchronize()
         err, row_err = flash_errs(got, want)
@@ -684,44 +705,82 @@ def phase_flash_kernel(fa):
         big = sq * sk * b * hq > 1 << 28
         pcall, pdev = timed(lambda: attention_chunked(q, k, v, causal=True, softcap=cap),
                             iters=1 if big else 5, call_repeats=3, warmup=1, plain=True)
-        lib_call = lib_ms = lib_err = None
+        q4, k4, v4 = q.view(b, hq, sq, dh), k.view(b, hkv, sk, dh), v.view(b, hkv, sk, dh)
         if cap is None:
             # One SDPA call on the same inputs as [B, H, S, Dh] views; at Sq = 1
             # every key is visible, elsewhere Sq = Sk and its top-left causal
             # diagonal is ours.
-            q4, k4, v4 = q.view(b, hq, sq, dh), k.view(b, hkv, sk, dh), v.view(b, hkv, sk, dh)
             assert sq == 1 or sq == sk
+            lib_name = "SDPA"
 
             def lib():
                 return sdpa(q4, k4, v4, is_causal=sq > 1, enable_gqa=True)
-
-            lib_err = flash_errs(lib().reshape(got.shape), want)[0]
-            lib_call, lib_ms = call_ms(lib), queued_ms(lib)
+        else:
+            lib_name, lib = "flex_attention", flex_softcap(q4, k4, v4, cap)
+        lib_err = flash_errs(lib().reshape(got.shape), want)[0]
+        lib_call, lib_ms = call_ms(lib), queued_ms(lib)
         bound, by, nbytes, flops, pairs = attention_bound(q, k, v, True)
         shape = (f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} causal "
                  f"{str(dtype)[6:]}" + (f" softcap={cap:g}, q x{SOFTCAP_Q_SCALE:g}" if cap else ""))
+        tflops, gbs = flops / (ms * 1e-3) / 1e12, nbytes / (ms * 1e-3) / 1e9
+        ratio = ms / lib_ms[0]
         out["configs"].append(dict(
-            shape=shape, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0], call_ms_min=call[1],
-            call_ms_max=call[2], plain_ms=pdev[0], plain_call_ms=pcall[0], bound_ms=bound,
-            bound_by=by, bound_bytes=nbytes, bound_flops=flops, max_abs_err=err,
-            row_rel_err=row_err, fault_readings=faults,
-            library_ms=lib_ms[0] if lib_ms else None,
-            library_call_ms=lib_call[0] if lib_call else None, library_max_abs_err=lib_err))
+            shape=shape, form=form, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0],
+            call_ms_min=call[1], call_ms_max=call[2], tflops=tflops, gb_per_s=gbs,
+            plain_ms=pdev[0], plain_call_ms=pcall[0], bound_ms=bound, bound_by=by,
+            bound_bytes=nbytes, bound_flops=flops, max_abs_err=err, row_rel_err=row_err,
+            fault_readings=faults, library=lib_name, library_ms=lib_ms[0],
+            library_call_ms=lib_call[0], library_max_abs_err=lib_err,
+            kernel_over_library=ratio))
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        log(f"  flash_attention [{what}: {shape}]: max_abs_err={err:.3e} (tolerance {tol:g}), "
-            f"worst row {row_err:.3e} of its max |plain| (tolerance {row_tol:g}); a fault in the "
-            f"plain version reads " + ", ".join(
+        log(f"  flash_attention [{what}: {shape}] {form} form: max_abs_err={err:.3e} (tolerance "
+            f"{tol:g}), worst row {row_err:.3e} of its max |plain| (tolerance {row_tol:g}); a "
+            f"fault in the plain version reads " + ", ".join(
                 f"{f}: {a:.3e} / row {r:.3e}" for f, (a, r) in faults.items()) +
             f" | kernel queued={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) call={call[0]:.4f} ms "
             f"(min {call[1]:.4f}, max {call[2]:.4f}) | plain device={pdev[0]:.4f} ms "
             f"call={pcall[0]:.4f} ms | bound={bound:.4f} ms by {by} ({nbytes} B; {pairs} "
-            f"visible pairs, {flops} flop) | achieved {flops / (ms * 1e-3) / 1e12:.1f} "
-            f"TFLOP/s | " +
-            (f"SDPA queued={lib_ms[0]:.4f} ms (min {lib_ms[1]:.4f}, max {lib_ms[2]:.4f}) "
-             f"call={lib_call[0]:.4f} ms (max |SDPA - plain| {lib_err:.3e}); kernel / SDPA "
-             f"queued = {ms / lib_ms[0]:.2f}" if lib_ms else "library: none (SDPA has no softcap)"))
+            f"visible pairs, {flops} flop) | achieved {tflops:.1f} TFLOP/s, {gbs:.1f} GB/s, "
+            f"{bound / ms:.3f} of the bound | {lib_name} queued={lib_ms[0]:.4f} ms (min "
+            f"{lib_ms[1]:.4f}, max {lib_ms[2]:.4f}) call={lib_call[0]:.4f} ms (max "
+            f"|{lib_name} - plain| {lib_err:.3e}); kernel / {lib_name} queued = {ratio:.2f}")
         del q, k, v, got, want
+    out["unaligned"] = [flash_unaligned_check(fa, attention_chunked, gen, *shape)
+                        for shape in FLASH_UNALIGNED]
     return out
+
+
+def flash_unaligned_check(fa, attention_chunked, gen, what, b, hq, hkv, sq, sk, dh):
+    """The kernel on operands the bf16 forms cannot read as they lie: each a
+    view one element off 16 bytes (and Dh as given), which the wrapper copies
+    aligned and zero-padded. Held to the bf16 tolerances against the plain
+    version, with the readings of faults in the plain version; the form that
+    ran must be the one the shape names."""
+    dtype = torch.bfloat16
+    q, k, v = (torch.randn(b * h * s * dh + 1, generator=gen, device=DEV).to(dtype)[1:]
+               .view(b * h, s, dh) for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    assert not any(fa.aligned16(x) for x in (q, k, v))
+    before = dict(fa.launches_by_form)
+    got = fa.attention(q, k, v, causal=True)
+    (form,) = [f for f, n in fa.launches_by_form.items() if n > before[f]]
+    assert form == fa.kernel_form(dtype, sq, hq // hkv), (what, form)
+    want = attention_chunked(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err, row_err = flash_errs(got, want)
+    tol, row_tol = FLASH_TOL[dtype], FLASH_ROW_TOL[dtype]
+    assert err < tol and row_err < row_tol, (
+        f"flash_attention {what}: max |kernel - plain| {err} (tolerance {tol}), worst row "
+        f"{row_err} of its max |plain| (tolerance {row_tol})")
+    faults = flash_check_can_fail(attention_chunked, q, k, v, None, want, row_tol, what)
+    ms, lo, hi = queued_ms(lambda: fa.attention(q, k, v, causal=True))
+    shape = f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} causal bfloat16, unaligned"
+    log(f"  flash_attention [{what}: {shape}] {form} form: max_abs_err={err:.3e} (tolerance "
+        f"{tol:g}), worst row {row_err:.3e} of its max |plain| (tolerance {row_tol:g}); a "
+        f"fault in the plain version reads " + ", ".join(
+            f"{f}: {a:.3e} / row {r:.3e}" for f, (a, r) in faults.items()) +
+        f" | kernel with its copies queued={ms:.4f} ms (min {lo:.4f}, max {hi:.4f})")
+    return dict(shape=shape, form=form, ms=ms, ms_min=lo, ms_max=hi, max_abs_err=err,
+                row_rel_err=row_err, fault_readings=faults)
 
 
 # ---------------------------------------------------------------------------
@@ -741,6 +800,7 @@ class LMPath:
     per_decode: int
     forward_phase: str
     serve_phase: str
+    forms: Any = None  # {(pass kind, dtype): the kernel's forms} where it has several
 
 
 def lm_setup(path: LMPath):
@@ -786,9 +846,10 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEV)
     batch = {"tokens": toks}
     total = {"forward": 0, "prefill": 0, "decode": 0}
+    forms = {}  # the kernel's forms by (pass kind, dtype), where it has several
     per_pass, per_step = cfg.num_layers, cfg.num_layers * path.per_decode
 
-    def counted(fn, want, kind):
+    def counted(fn, want, kind, dtype=cfg.dtype):
         path.ops.reset_launches()
         t0 = time.perf_counter()
         res = fn()
@@ -797,6 +858,8 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
         n = path.ops.launches[path.kernel]
         assert n == want, f"{path.kernel} launched {n} times, want {want}"
         total[kind] += n
+        ran = {f for f, c in getattr(path.ops, "launches_by_form", {}).items() if c}
+        forms[(kind, dtype)] = forms.get((kind, dtype), set()) | ran
         return res, wall
 
     torch.cuda.reset_peak_memory_stats()
@@ -840,12 +903,12 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
         """Logits of prefill (last position) and of ``extra`` decode steps."""
         (cache, last), wall = counted(
             lambda: T.prefill(c, p, {"tokens": toks[:2, :pre]}, pre + extra + 8, device=DEV),
-            per_pass, "prefill")
+            per_pass, "prefill", c.dtype)
         out = [last[:, 0, :vocab].float()]
         for i in range(extra):
             (logits, cache), _ = counted(
                 lambda: T.decode_step(c, p, cache, toks[:2, pre + i : pre + i + 1], pre + i,
-                                      device=DEV), per_step, "decode")
+                                      device=DEV), per_step, "decode", c.dtype)
             out.append(logits[:, 0, :vocab].float())
         return torch.stack(out, dim=1), wall
 
@@ -878,12 +941,16 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
             wide.copy_(narrow)
     want32, _ = counted(
         lambda: T.forward(cfg32, p32, short, device=DEV)[:, pre - 1 :, :vocab].float(),
-        per_pass, "forward")
+        per_pass, "forward", cfg32.dtype)
     log(f"{ph}: bf16 floor: bf16 forward vs float32 forward: relative "
         f"{float((ref - want32).abs().max() / want32.abs().max()):.2e}")
     got32, _ = prefill_decode(cfg32, p32)
     agree("float32", got32, want32, LOGITS_TOL_F32)
     del p32
+    if path.forms is not None:
+        log(f"{ph}: {path.kernel} forms by (pass kind, dtype): "
+            f"{ {k: sorted(v) for k, v in forms.items()} }")
+        assert forms == path.forms, (path.kernel, forms, path.forms)
     return total
 
 
@@ -952,6 +1019,11 @@ def phase_lm_serve(path: LMPath, cfg, params) -> int:
     assert all(r.done and len(r.out_tokens) == new for r in reqs), "a request is short"
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
     assert n == want, f"{path.kernel} launched {n} times in {groups} groups, want {want}"
+    by_form = {f: c for f, c in getattr(path.ops, "launches_by_form", {}).items() if c}
+    if path.forms is not None:  # each group: one prefill pass, then its decode steps
+        (pf,), (df,) = path.forms[("prefill", cfg.dtype)], path.forms[("decode", cfg.dtype)]
+        prefills = cfg.num_layers * groups
+        assert by_form == {pf: prefills, df: n - prefills}, (path.kernel, by_form)
     lat = np.array([r.latency_s for r in reqs])
     peak = torch.cuda.max_memory_allocated()
     decode_profile(path, cfg, params, slots, plen)
@@ -959,8 +1031,8 @@ def phase_lm_serve(path: LMPath, cfg, params) -> int:
         f"wall={stats['wall_s']:.3f} s, {stats['new_tokens']} decode tokens -> "
         f"{stats['tokens_per_s']:,.1f} tokens/s; all {n_req * new} generated tokens -> "
         f"{n_req * new / stats['wall_s']:,.1f} tokens/s; latency p50 "
-        f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f} s; launches={n}; "
-        f"max_memory_allocated={peak / 1e9:.2f} GB")
+        f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f} s; launches={n}"
+        f"{f' by form {by_form}' if by_form else ''}; max_memory_allocated={peak / 1e9:.2f} GB")
     return n
 
 
@@ -1008,7 +1080,7 @@ def main() -> int:
         lib.load()
         log(f"phase 1: {lib.name} built in {lib.build_seconds:.2f} s -> {lib.library_path()}")
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line.lower() for w in ("registers", "spill", "compiling entry", "warning")):
                 log(f"phase 1:   {line.strip()}")
     log(f"phase 1: builds took {time.perf_counter() - t0:.2f} s of wall time")
 
@@ -1024,7 +1096,8 @@ def main() -> int:
     # -- phases 9-11 -----------------------------------------------------------
     flash = phase_flash_kernel(fa)
     launches["flash_attention"] = lm_phases(LMPath(
-        "granite-3-8b", fa, "flash_attention", "flash_mma_kernel", 1, "phase 10", "phase 11"))
+        "granite-3-8b", fa, "flash_attention", "flash_", 1, "phase 10", "phase 11",
+        GRANITE_FORMS))
 
     for name in launches:
         assert launches[name] > 0, f"{name} was never launched on the main path"
@@ -1050,7 +1123,7 @@ def main() -> int:
         launches=launches["flash_attention"], max_abs_err=flash["max_abs_err"],
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
-        configs=flash["configs"]))
+        configs=flash["configs"], unaligned=flash["unaligned"]))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,46 +19,76 @@
 // reads KV row f = bh / group, i.e. (f / hkv, f % hkv): grouped-query
 // attention with (batch, head) flattened batch-major.
 //
-// Two kernels, chosen by dtype:
+// Three forms. The wrapper (ops.py, kernel_form) picks one from the dtype and
+// the shape alone and passes it in; nothing here falls back to another. The
+// bf16 forms read with TMA and 16-byte copies, so they take Dh % 8 == 0 and
+// pointers and strides that are multiples of 16 bytes; the wrapper hands them
+// an aligned copy of any other operand, padded with zeros to a Dh that is a
+// multiple of 8 (the scale stays that of the true Dh).
 //
-// * bfloat16 -> flash_mma_kernel, on the tensor cores (mma.sync
-//   m16n8k16, bf16 in, f32 accumulate). One block of 4 warps per (64 query
-//   rows, bh); each warp owns 16 rows. The Q tile and one K and one V tile of
-//   BK keys are staged in shared memory (rows padded by 16 bytes, so the
-//   fragment loads hit 32 distinct banks), zero-filled past Sk and past Dh
-//   (Dh is padded to 64, 128 or 256). S = Q K^T comes out of the mma in
-//   registers; scale, softcap and mask are applied there, the running max
-//   and sum are kept per row (the sum per thread, reduced over the row's 4
-//   threads at the end), and P is rounded to bf16 in registers, where the
-//   accumulator layout of S is exactly the A-operand layout of P V. V's
-//   B fragments come from row-major shared memory through ldmatrix.trans.
-//   Causal blocks stop at their last visible key; a warp skips a tile that
-//   none of its rows sees.
-// * float32 -> flash_f32_kernel, on the CUDA cores (the tensor cores would
-//   round float32 to tf32). One warp per query row; each lane holds Dh/32
-//   of q and of the accumulator; a key's score is a warp-wide sum.
+// * prefill: bf16, Sq * group > 64 -> flash_fwd_kernel. Bound by the tensor
+//   cores: 4*Dh flop per visible (query, key) pair at 989 TFLOP/s. The
+//   design feeds them as Hopper wants. A block of three warpgroups takes 128
+//   query rows of one bh. Warpgroups 0 and 1 (the consumers, 64 rows each)
+//   run wgmma: S = Q K^T m64nBKk16 with Q and K read from shared memory
+//   (K-major); the softcap, the causal mask and the online softmax on S in
+//   registers; P rounded to bf16 in registers (the accumulator layout of S
+//   is the A-operand layout of P V); O += P V m64nDHk16 with V read from
+//   shared memory as an MN-major B operand (the descriptor's transpose bit;
+//   no ldmatrix.trans). Each consumer issues tile n's S = Q K^T beside tile
+//   n-1's O += P V and runs tile n's softmax while that product runs, and
+//   the two consumers' products interleave on the tensor cores. One thread
+//   of warpgroup 2 (the producer) keeps a ring of two K/V stages in flight
+//   with TMA (tensor maps over the strided 4-D views, encoded by the
+//   launcher on every call, 128-byte swizzled as the descriptors expect) and
+//   mbarriers; each consumer warp frees a stage's K once S is computed and
+//   its V once P V has landed. setmaxnreg moves registers from the producer
+//   (40) to the consumers (232). Tiles that every row of a warpgroup sees
+//   whole skip the mask; only tiles on the diagonal or at the Sk edge
+//   compute it, and a warpgroup skips tiles none of its rows sees. The
+//   softmax spends one multiply-add and one ex2.approx per score (the scale
+//   and log2 e folded together), and the softcap's tanh is compiled only
+//   into the kernels that need it: with exp2f and a per-score softcap test
+//   it ran 2.2x slower at granite's forward shape (H100 80GB HBM3 at 700 W;
+//   PERF.md). Blocks go longest causal row range first, across all bh, and
+//   stop at their last visible key tile. BK = 128 keys at Dh <= 128 and 64
+//   at Dh = 256: 160 KB and 192 KB of shared memory.
+// * decode: bf16, Sq * group <= 64 -> flash_decode_kernel, then
+//   flash_merge_kernel when the keys are split. Bound by the bytes of K and
+//   V, read once at 3.35 TB/s. One block per (KV row, key split): the group's
+//   query heads and their Sq rows are packed into the rows of one tile, so a
+//   KV head's keys are staged once (cp.async, 16 bytes a thread, zero-filled
+//   past the split), not once per query head; the causal diagonal is per row.
+//   The wrapper sizes the splits so that about four blocks run on each SM.
+//   Each block writes float32 partials (m, l, acc) per row to scratch that
+//   the wrapper allocates; the merge kernel combines them by log-sum-exp (a
+//   split a row sees nothing of has m = -1e30 and l = 0 and weighs nothing; a
+//   row that sees no key at all still gives 0). A single split writes the
+//   output itself. The rows are few, so mma.sync m16n8k16 serves.
+// * f32: float32 -> flash_f32_kernel, on the CUDA cores (the tensor cores
+//   would round float32 to tf32). One warp per query row; each lane holds
+//   Dh/32 of q and of the accumulator; a key's score is a warp-wide sum.
 //
-// What bounds it on an H100: at the model's prefill and forward shapes the
-// tensor-core operations, 4*BHq*Sq*Sk_eff*Dh of them (Sk_eff: the keys a
-// query sees) at 989 TFLOP/s bf16; at decode (Sq = 1) the bytes of K and V,
-// read once at 3.35 TB/s. This first design stays well above both: one
-// staging buffer (loads are not overlapped with the mma but by other blocks
-// on the SM), mma.sync rather than wgmma, no TMA, and at decode 63 of 64
-// query rows of a block are padding and each KV row is staged by each of its
-// query heads. Those are the redesign's work.
+// Times, bounds and the library's times at the model's shapes are in
+// PERF.md (chip_smoke.py phase 9, H100 80GB HBM3 at 700 W).
 //
 // Built by src/repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared -Xcompiler -fPIC
-// into a plain-C shared library loaded with ctypes. The launcher launches on
-// the given stream, allocates nothing, and returns cudaGetLastError().
+// into a plain-C shared library loaded with ctypes. cuTensorMapEncodeTiled
+// is reached through cudaGetDriverEntryPoint, so nothing links libcuda. The
+// launcher launches on the given stream, allocates nothing, and returns a
+// cudaError_t.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Operand {  // element (b, h, s, d) at ptr + b*sb + h*sh + s*ss + d
   const void* ptr;
@@ -81,10 +111,14 @@ __device__ __forceinline__ int64_t q_base(const Operand& op, int bh, int hq) {
   return static_cast<int64_t>(b) * op.sb + static_cast<int64_t>(h) * op.sh;
 }
 
-__device__ __forceinline__ int64_t kv_base(const Operand& op, int bh, const Params& p) {
-  const int f = bh / p.group;
-  const int b = f / p.hkv, h = f - b * p.hkv;
+// KV row f = bh / group of a query row bh.
+__device__ __forceinline__ int64_t kv_row_base(const Operand& op, int f, int hkv) {
+  const int b = f / hkv, h = f - b * hkv;
   return static_cast<int64_t>(b) * op.sb + static_cast<int64_t>(h) * op.sh;
+}
+
+__device__ __forceinline__ int64_t kv_base(const Operand& op, int bh, const Params& p) {
+  return kv_row_base(op, bh / p.group, p.hkv);
 }
 
 __device__ __forceinline__ float score(float dot, const Params& p) {
@@ -93,19 +127,9 @@ __device__ __forceinline__ float score(float dot, const Params& p) {
   return s;
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores
-// ---------------------------------------------------------------------------
-
-template <int DH>
-struct MmaCfg {
-  static constexpr int kWarps = 4;
-  static constexpr int BQ = 16 * kWarps;            // query rows a block
-  static constexpr int BK = DH <= 128 ? 64 : 32;    // keys a tile (registers bound DH = 256)
-  static constexpr int LD = DH + 8;                 // shared row stride in elements
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr size_t kSmem = static_cast<size_t>(BQ + 2 * BK) * LD * sizeof(__nv_bfloat16);
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
 
 __device__ __forceinline__ uint32_t ld_smem32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -116,12 +140,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+// c += a * b, mma.sync m16n8k16, bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float& c0, float& c1, float& c2, float& c3, uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "+f"(c0), "+f"(c1), "+f"(c2), "+f"(c3)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
@@ -130,185 +156,743 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
 // {V[2t][g], V[2t+1][g]} and {V[2t+8][g], V[2t+9][g]}.
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
                                                   const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(b0), "=r"(b1)
-               : "r"(addr));
+               : "r"(smem_u32(p)));
 }
 
-// rows x DH tile of a bf16 operand into shared memory (row stride DH + 8),
-// zero past valid_rows and past dh. ``vec``: 16-byte loads are aligned.
-template <int DH>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, int64_t ss,
-                                      int rows, int valid_rows, int dh, bool vec) {
-  constexpr int LD = DH + 8;
-  constexpr int CH = DH / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i - r * CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows && c < dh) {
-      const __nv_bfloat16* s = src + r * ss + c;
-      if (vec) {
-        val = *reinterpret_cast<const uint4*>(s);
-      } else {
-        uint32_t w[4];
+// Max over the 4 threads (a quad) that hold one row of an mma accumulator.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// cp.async, mbarrier, TMA and wgmma
+// ---------------------------------------------------------------------------
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Arrive once and expect ``bytes`` more of asynchronous (TMA) writes.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the barrier's phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory; completion is counted in
+// bytes on ``bar``. Coordinates are (d, s, h, b), innermost first.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                         int d, int s, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(d), "r"(s), "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (SW128).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Orders later uses of wgmma accumulators after the wait that completes them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t lo = c + 2 * j < dh ? __bfloat16_as_ushort(s[2 * j]) : 0u;
-          const uint32_t hi = c + 2 * j + 1 < dh ? __bfloat16_as_ushort(s[2 * j + 1]) : 0u;
-          w[j] = lo | (hi << 16);
-        }
-        val = make_uint4(w[0], w[1], w[2], w[3]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+
+// d[32] (+)= A (shared, K-major) * B (shared, K-major): m64n64k16, bf16 in, f32 out.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64] (+)= A (shared, K-major) * B (shared, K-major): m64n128k16, bf16 in, f32 out.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[32] += A (registers) * B (shared, MN-major): m64n64k16, bf16 in, f32 out.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64] += A (registers) * B (shared, MN-major): m64n128k16, bf16 in, f32 out.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[128] += A (registers) * B (shared, MN-major): m64n256k16, bf16 in, f32 out.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// prefill: warp-specialised wgmma kernel
+// ---------------------------------------------------------------------------
+
+template <int DH>  // head width padded to 64, 128 or 256
+struct FwdCfg {
+  static constexpr int BQ = 128;                   // query rows a block: two consumer warpgroups
+  static constexpr int BK = DH <= 128 ? 128 : 64;  // keys a tile
+  static constexpr int STAGES = 2;                 // K/V tiles in the ring
+  static constexpr int CB = DH / 64;               // 128-byte column blocks of a row
+  static constexpr uint32_t Q_BYTES = BQ * DH * 2;
+  static constexpr uint32_t KV_BYTES = BK * DH * 2;  // one K or one V tile
+  static constexpr int kThreads = 384;             // warpgroups 0, 1: consumers; 2: producer
+  // + 1024: the tiles start on the 1024-byte period of the 128-byte swizzle.
+  static constexpr size_t kSmem = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Softcap and (MASK) mask one tile of raw scores q.k in registers, update
+// the rows' running max m and sum l, and leave P = exp2(x * c - m) in s,
+// where x is the (soft-capped) score before the scale and c folds the scale
+// and log2 e into one multiply-add; m is kept in those base-2 units. Element
+// 4j + i of s is row a (+8 for i >= 2), key k0 + 8j + 2t + (i & 1); keys at
+// or past lim_a / lim_b are masked. alpha: the factor the rows' O must be
+// scaled by.
+template <bool MASK, bool SOFTCAP, int NS>
+__device__ __forceinline__ void online_softmax(float (&s)[NS], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], const Params& p, int k0,
+                                               int t, int lim_a, int lim_b) {
+  const float c = SOFTCAP ? kLog2e : p.scale * kLog2e;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x = s[4 * j + i];
+      if (SOFTCAP) x = p.softcap * tanhf(x * p.scale / p.softcap);
+      if (MASK && k0 + 8 * j + 2 * t + (i & 1) >= (i < 2 ? lim_a : lim_b)) x = -INFINITY;
+      s[4 * j + i] = x;
+      mx[i >> 1] = fmaxf(mx[i >> 1], x);
+    }
+  }
+  // m starts at -1e30, so it stays finite and a masked score's exp2 is 0.
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]) * c);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float e = fast_exp2(fmaf(s[4 * j + i], c, neg_m[i >> 1]));
+      s[4 * j + i] = e;
+      sum[i >> 1] += e;
+    }
+  }
+  l[0] = l[0] * alpha[0] + sum[0];
+  l[1] = l[1] * alpha[1] + sum[1];
+}
+
+// Barriers of the prefill form's ring, in static shared memory.
+template <int STAGES>
+struct FwdBars {
+  uint64_t q_full;
+  uint64_t k_full[STAGES], v_full[STAGES];    // a stage's K / V has landed
+  uint64_t k_empty[STAGES], v_empty[STAGES];  // every consumer warp is done with it
+};
+
+// A consumer warpgroup: 64 query rows from row_lo, over the block's n_tiles
+// K/V tiles as the producer delivers them. Tile n's S = Q K^T is issued
+// together with tile n-1's O += P V, and tile n's softmax runs while that
+// product is in flight.
+template <int DH, bool SOFTCAP>
+__device__ __forceinline__ void fwd_consumer(const Params& p, uint32_t qs, uint32_t ks,
+                                             uint32_t vs, FwdBars<FwdCfg<DH>::STAGES>& bar,
+                                             int bh, int q0, int n_tiles) {
+  using C = FwdCfg<DH>;
+  constexpr int NS = C::BK / 2;  // S accumulators a thread: BK/8 n8 tiles x 4
+  constexpr int NO = DH / 2;     // O accumulators a thread
+  constexpr int KS = C::BK / 16;  // key steps of P V
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int offset = p.sk - p.sq;
+  const int row_lo = q0 + 64 * wg;             // the warpgroup's first row
+  const int row_a = row_lo + 16 * warp + g;    // the thread's rows: row_a and row_a + 8
+  // Row r sees keys below lim(r); tiles [0, n_plain) are seen whole by every
+  // row of the warpgroup, tiles from n_seen on by none.
+  const int lim_a = p.causal ? min(p.sk, row_a + offset + 1) : p.sk;
+  const int lim_b = p.causal ? min(p.sk, row_a + 8 + offset + 1) : p.sk;
+  int n_plain = 0, n_seen = 0;
+  if (row_lo < p.sq) {
+    const int first = p.causal ? min(p.sk, row_lo + offset + 1) : p.sk;
+    const int last = p.causal ? min(p.sk, min(row_lo + 63, p.sq - 1) + offset + 1) : p.sk;
+    n_plain = max(first, 0) / C::BK;
+    n_seen = min(n_tiles, (max(last, 0) + C::BK - 1) / C::BK);
+  }
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // Q's rows of this warpgroup, K-major; a k16 step moves 32 bytes within a
+  // 128-byte column block, four steps move to the next block.
+  const uint64_t q_desc = gmma_desc(qs + wg * 64 * 128, 16, 1024);
+
+  // Issue S = Q K^T of tile n (committed, not waited for).
+  auto issue_qk = [&](int n, float (&s)[NS]) {
+    const int st = n % C::STAGES;
+    mbar_wait(&bar.k_full[st], (n / C::STAGES) & 1);
+    const uint64_t k_desc = gmma_desc(ks + st * C::KV_BYTES, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint64_t da = q_desc + (((kk >> 2) * C::BQ * 128 + (kk & 3) * 32) >> 4);
+      const uint64_t db = k_desc + (((kk >> 2) * C::BK * 128 + (kk & 3) * 32) >> 4);
+      if constexpr (C::BK == 128) {
+        wgmma_ss_n128(s, da, db, kk > 0);
+      } else {
+        wgmma_ss_n64(s, da, db, kk > 0);
       }
     }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    wgmma_commit();
+  };
+  // Issue O += P V of tile n. V [key][d] lies in 64-column blocks of BK rows:
+  // an MN-major B operand; a k16 step moves 16 rows; LBO: from one column
+  // block to the next; SBO: 8 keys.
+  auto issue_pv = [&](int n, uint32_t (&pa)[KS][4]) {
+    const int st = n % C::STAGES;
+    mbar_wait(&bar.v_full[st], (n / C::STAGES) & 1);
+    const uint64_t v_desc = gmma_desc(vs + st * C::KV_BYTES, C::BK * 128, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint64_t db = v_desc + ((kk * 16 * 128) >> 4);
+      if constexpr (DH == 64) {
+        wgmma_rs_n64(o, pa[kk], db);
+      } else if constexpr (DH == 128) {
+        wgmma_rs_n128(o, pa[kk], db);
+      } else {
+        wgmma_rs_n256(o, pa[kk], db);
+      }
+    }
+    wgmma_commit();
+  };
+  // Softmax of tile n's S in place (S becomes P in float32).
+  auto softmax = [&](int n, float (&s)[NS], float (&alpha)[2]) {
+    if (n >= n_plain) {
+      online_softmax<true, SOFTCAP>(s, m, l, alpha, p, n * C::BK, t, lim_a, lim_b);
+    } else {
+      online_softmax<false, SOFTCAP>(s, m, l, alpha, p, n * C::BK, t, lim_a, lim_b);
+    }
+  };
+  // P in bf16: the accumulators of S tiles 2kk, 2kk+1 are the A fragment of
+  // key step kk.
+  auto pack = [&](const float (&s)[NS], uint32_t (&pa)[KS][4]) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+  auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+  };
+
+  // No register that an issued wgmma reads or writes is written by other
+  // instructions before the wait that completes it: P is packed and O
+  // rescaled only once the P V product that uses them has landed.
+  mbar_wait(&bar.q_full, 0);
+  if (n_seen > 0) {
+    float s[NS], alpha[2];
+    uint32_t pa[KS][4];
+    issue_qk(0, s);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(&bar.k_empty[0]);
+    softmax(0, s, alpha);  // O is still 0: rescaling it by alpha changes nothing
+    pack(s, pa);
+    for (int n = 1; n < n_seen; ++n) {
+      issue_qk(n, s);
+      rescale(alpha);  // O of tiles < n-1, to tile n-1's running max
+      issue_pv(n - 1, pa);
+      wgmma_wait<1>();  // S of tile n has landed; P V of tile n-1 may still run
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(&bar.k_empty[n % C::STAGES]);
+      softmax(n, s, alpha);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(&bar.v_empty[(n - 1) % C::STAGES]);
+      pack(s, pa);
+    }
+    rescale(alpha);
+    issue_pv(n_seen - 1, pa);
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&bar.v_empty[(n_seen - 1) % C::STAGES]);
+  }
+  // Tiles none of the warpgroup's rows sees: only released.
+  for (int n = n_seen; n < n_tiles; ++n) {
+    const int st = n % C::STAGES;
+    const uint32_t parity = (n / C::STAGES) & 1;
+    mbar_wait(&bar.k_full[st], parity);
+    mbar_wait(&bar.v_full[st], parity);
+    if (lane == 0) {
+      mbar_arrive(&bar.k_empty[st]);
+      mbar_arrive(&bar.v_empty[st]);
+    }
+  }
+
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(const_cast<void*>(p.o.ptr)) +
+                      q_base(p.o, bh, p.hq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+    const int row = row_a + 8 * r;
+    if (row >= p.sq) continue;
+    __nv_bfloat16* orow = og + static_cast<int64_t>(row) * p.o.ss;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c < p.dh)
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(MmaCfg<DH>::kThreads)
-flash_mma_kernel(Params p, int vec) {
-  using C = MmaCfg<DH>;
-  constexpr int NT = C::BK / 8;   // n8 tiles of S a warp
-  constexpr int ND = DH / 8;      // n8 tiles of O a warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + C::BQ * C::LD;
-  __nv_bfloat16* vs = ks + C::BK * C::LD;
+// One block per (128 query rows, bh): all bh of the longest causal row
+// range first, then the next (a KV row's query heads side by side).
+template <int DH, bool SOFTCAP>
+__global__ void __launch_bounds__(FwdCfg<DH>::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, Params p) {
+  using C = FwdCfg<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ FwdBars<C::STAGES> bar;
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ks = qs + C::Q_BYTES;
+  const uint32_t vs = ks + C::STAGES * C::KV_BYTES;
 
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BQ;  // the longest causal rows start first
+  const int n_qblk = (p.sq + C::BQ - 1) / C::BQ;
+  const int bh = blockIdx.x % p.bhq, qblk = blockIdx.x / p.bhq;
+  const int q0 = (n_qblk - 1 - qblk) * C::BQ;  // the longest causal rows start first
+  int kv_end = p.sk;
+  if (p.causal) kv_end = min(kv_end, min(q0 + C::BQ, p.sq) + p.sk - p.sq);
+  const int n_tiles = kv_end > 0 ? (kv_end + C::BK - 1) / C::BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar.q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&bar.k_full[s], 1);
+      mbar_init(&bar.v_full[s], 1);
+      mbar_init(&bar.k_empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&bar.v_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      const int qb = bh / p.hq, qh = bh - qb * p.hq;
+      const int f = bh / p.group, kb = f / p.hkv, kh = f - kb * p.hkv;
+      mbar_expect_tx(&bar.q_full, C::Q_BYTES);
+      for (int c = 0; c < C::CB; ++c)
+        tma_load(qs + c * C::BQ * 128, &tq, &bar.q_full, c * 64, q0, qh, qb);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int st = n % C::STAGES;
+        const uint32_t parity = (n / C::STAGES - 1) & 1;  // tile n - STAGES released
+        if (n >= C::STAGES) mbar_wait(&bar.k_empty[st], parity);
+        mbar_expect_tx(&bar.k_full[st], C::KV_BYTES);
+        for (int c = 0; c < C::CB; ++c)
+          tma_load(ks + st * C::KV_BYTES + c * C::BK * 128, &tk, &bar.k_full[st], c * 64,
+                   n * C::BK, kh, kb);
+        if (n >= C::STAGES) mbar_wait(&bar.v_empty[st], parity);
+        mbar_expect_tx(&bar.v_full[st], C::KV_BYTES);
+        for (int c = 0; c < C::CB; ++c)
+          tma_load(vs + st * C::KV_BYTES + c * C::BK * 128, &tv, &bar.v_full[st], c * 64,
+                   n * C::BK, kh, kb);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    fwd_consumer<DH, SOFTCAP>(p, qs, ks, vs, bar, bh, q0, n_tiles);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode: split-KV kernel and its merge
+// ---------------------------------------------------------------------------
+
+template <int DH>  // head width padded to 64, 128 or 256
+struct DecCfg {
+  static constexpr int BK = DH <= 128 ? 64 : 32;  // keys a tile (ops.py: DECODE_TILE)
+  static constexpr int LD = DH + 8;  // shared row stride in elements: conflict-free fragments
+  static constexpr int kThreads = 128;  // warp w owns packed rows 16w..16w+15
+  static constexpr size_t smem(int rows16, int stages) {
+    return static_cast<size_t>(rows16 + 2 * stages * BK) * LD * sizeof(__nv_bfloat16);
+  }
+};
+
+// n_valid of ``rows`` rows of a K or V tile into shared memory by cp.async,
+// zero-filled past n_valid and past dh.
+template <int DH>
+__device__ __forceinline__ void stage_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                            int64_t ss, int rows, int n_valid, int dh) {
+  constexpr int LD = DH + 8, CH = DH / 8;
+  for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
+    const int r = i / CH, c = (i - r * CH) * 8;
+    const bool ok = r < n_valid && c < dh;
+    cp_async16(smem_u32(dst + r * LD + c), ok ? src + r * ss + c : src, ok);
+  }
+}
+
+// One block per (split, KV row f): packed row r = (query head f*group + r/sq,
+// query row r % sq), keys [split*split_keys, +split_keys). part_acc == null:
+// one split, the block writes the output.
+template <int DH>
+__global__ void __launch_bounds__(DecCfg<DH>::kThreads)
+flash_decode_kernel(Params p, int rows, int split_keys, int stages, float* part_acc,
+                    float2* part_ml) {
+  using C = DecCfg<DH>;
+  constexpr int NT = C::BK / 8, ND = DH / 8, CH = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows16 = (rows + 15) & ~15;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* kv = qs + rows16 * C::LD;  // stage st: K at kv + 2*st*BK*LD, V after it
+  const int split = blockIdx.x, f = blockIdx.y, nf = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int offset = p.sk - p.sq;
-  const int row0 = q0 + warp * 16;  // this warp's first row; the thread holds row0+g, row0+g+8
-  const bool warp_live = row0 < p.sq;
+  const int k_lo = split * split_keys, k_hi = min(p.sk, k_lo + split_keys);
+  const int n_tiles = (k_hi - k_lo + C::BK - 1) / C::BK;
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q.ptr) + q_base(p.q, bh, p.hq);
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k.ptr) + kv_base(p.k, bh, p);
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v.ptr) + kv_base(p.v, bh, p);
-  stage<DH>(qs, qg + q0 * p.q.ss, p.q.ss, C::BQ, min(C::BQ, p.sq - q0), p.dh, vec);
-
-  int kv_end = p.sk;
-  if (p.causal) kv_end = min(kv_end, min(q0 + C::BQ, p.sq) + offset);
-  const int n_tiles = kv_end > 0 ? (kv_end + C::BK - 1) / C::BK : 0;
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q.ptr);
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k.ptr) + kv_row_base(p.k, f, p.hkv);
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v.ptr) + kv_row_base(p.v, f, p.hkv);
+  for (int i = threadIdx.x; i < rows16 * CH; i += blockDim.x) {
+    const int r = i / CH, c = (i - r * CH) * 8;
+    const bool ok = r < rows && c < p.dh;
+    const __nv_bfloat16* src = qg;
+    if (ok) src += q_base(p.q, f * p.group + r / p.sq, p.hq) + (r % p.sq) * p.q.ss + c;
+    cp_async16(smem_u32(qs + r * C::LD + c), src, ok);
+  }
+  auto issue = [&](int n, int st) {
+    const int k0 = k_lo + n * C::BK, valid = min(C::BK, k_hi - k0);
+    __nv_bfloat16* dst = kv + 2 * st * C::BK * C::LD;
+    stage_async<DH>(dst, kg + k0 * p.k.ss, p.k.ss, C::BK, valid, p.dh);
+    stage_async<DH>(dst + C::BK * C::LD, vg + k0 * p.v.ss, p.v.ss, C::BK, valid, p.dh);
+  };
+  issue(0, 0);
+  cp_async_commit();
 
   float o[ND][4];
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const bool live = warp * 16 < rows;
+  const int ra = warp * 16 + g;  // the thread's packed rows: ra and ra + 8
+  const int lim_a = p.causal ? min(k_hi, ra % p.sq + offset + 1) : k_hi;
+  const int lim_b = p.causal ? min(k_hi, (ra + 8) % p.sq + offset + 1) : k_hi;
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * C::BK;
-    __syncthreads();  // every warp is done with the previous tile
-    const int valid = min(C::BK, p.sk - k0);
-    stage<DH>(ks, kg + k0 * p.k.ss, p.k.ss, C::BK, valid, p.dh, vec);
-    stage<DH>(vs, vg + k0 * p.v.ss, p.v.ss, C::BK, valid, p.dh, vec);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int st = stages == 2 ? (n & 1) : 0;
+    if (stages == 2 && n + 1 < n_tiles) {
+      issue(n + 1, (n + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    // A tile that none of the warp's rows sees leaves m, l and o as they are.
-    if (!warp_live || (p.causal && row0 + 15 + offset < k0)) continue;
-
-    // S = Q K^T for the warp's 16 rows x BK keys.
-    float s[NT][4];
+    if (live) {
+      const __nv_bfloat16* ks = kv + 2 * st * C::BK * C::LD;
+      const __nv_bfloat16* vs = ks + C::BK * C::LD;
+      float s[NT * 4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      for (int i = 0; i < NT * 4; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const __nv_bfloat16* qa = qs + (warp * 16 + g) * C::LD + kk * 16 + 2 * t;
-      const uint32_t a0 = ld_smem32(qa), a1 = ld_smem32(qa + 8 * C::LD);
-      const uint32_t a2 = ld_smem32(qa + 8), a3 = ld_smem32(qa + 8 * C::LD + 8);
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const __nv_bfloat16* qa = qs + (warp * 16 + g) * C::LD + kk * 16 + 2 * t;
+        const uint32_t a0 = ld_smem32(qa), a1 = ld_smem32(qa + 8 * C::LD);
+        const uint32_t a2 = ld_smem32(qa + 8), a3 = ld_smem32(qa + 8 * C::LD + 8);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* kb = ks + (nt * 8 + g) * C::LD + kk * 16 + 2 * t;
-        mma_bf16(s[nt], a0, a1, a2, a3, ld_smem32(kb), ld_smem32(kb + 8));
+        for (int nt = 0; nt < NT; ++nt) {
+          const __nv_bfloat16* kb = ks + (nt * 8 + g) * C::LD + kk * 16 + 2 * t;
+          mma_bf16(s[4 * nt], s[4 * nt + 1], s[4 * nt + 2], s[4 * nt + 3], a0, a1, a2, a3,
+                   ld_smem32(kb), ld_smem32(kb + 8));
+        }
       }
-    }
-
-    // Scale, softcap, mask; the rows' maxima over the tile. Element i of
-    // tile nt is row row0 + g (+8 for i >= 2), key k0 + 8 nt + 2t + (i & 1).
-    uint32_t live = 0u;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = row0 + g + (i >= 2 ? 8 : 0);
-        const int c = k0 + nt * 8 + 2 * t + (i & 1);
-        const bool ok = c < p.sk && (!p.causal || r + offset >= c);
-        const float x = ok ? score(s[nt][i], p) : kNegInf;
-        s[nt][i] = x;
-        live |= static_cast<uint32_t>(ok) << (nt * 4 + i);
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      float alpha[2];
+      if (p.softcap > 0.f) {
+        online_softmax<true, true>(s, m, l, alpha, p, k_lo + n * C::BK, t, lim_a, lim_b);
+      } else {
+        online_softmax<true, false>(s, m, l, alpha, p, k_lo + n * C::BK, t, lim_a, lim_b);
       }
-    }
-    float alpha[2], rowsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // A fully masked row keeps m at -1e30, where exp would give 1: zero it.
-        const float pr = (live >> (nt * 4 + i)) & 1u ? expf(s[nt][i] - m[i >> 1]) : 0.f;
-        s[nt][i] = pr;
-        rowsum[i >> 1] += pr;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rowsum[r];
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      o[nd][0] *= alpha[0];
-      o[nd][1] *= alpha[0];
-      o[nd][2] *= alpha[1];
-      o[nd][3] *= alpha[1];
-    }
-
-    // O += P V: the accumulators of S tiles 2kk, 2kk+1 are P's A fragment.
-#pragma unroll
-    for (int kk = 0; kk < C::BK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vrow = vs + (kk * 16 + (lane & 15)) * C::LD;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vrow + nd * 8);
-        mma_bf16(o[nd], a0, a1, a2, a3, b0, b1);
+        o[nd][0] *= alpha[0];
+        o[nd][1] *= alpha[0];
+        o[nd][2] *= alpha[1];
+        o[nd][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk) {
+        const uint32_t a0 = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        const uint32_t a1 = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        const uint32_t a2 = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        const uint32_t a3 = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        const __nv_bfloat16* vrow = vs + (kk * 16 + (lane & 15)) * C::LD;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          uint32_t b0, b1;
+          ldmatrix_x2_trans(b0, b1, vrow + nd * 8);
+          mma_bf16(o[nd][0], o[nd][1], o[nd][2], o[nd][3], a0, a1, a2, a3, b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the stage before it is refilled
+    if (stages == 1 && n + 1 < n_tiles) {
+      issue(n + 1, 0);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();  // nothing in flight at exit, even with no tile
+
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lsum = quad_sum(l[r]);
+    const int row = ra + 8 * r;
+    if (row >= rows) continue;
+    if (part_acc != nullptr) {
+      const int64_t slot = (static_cast<int64_t>(split) * nf + f) * rows + row;
+      float* dst = part_acc + slot * p.dh;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        const int c = nd * 8 + 2 * t;
+        if (c < p.dh) *reinterpret_cast<float2*>(dst + c) = make_float2(o[nd][2 * r], o[nd][2 * r + 1]);
+      }
+      if (t == 0) part_ml[slot] = make_float2(m[r], lsum);
+    } else {
+      const float inv = 1.f / fmaxf(lsum, 1e-30f);
+      __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(const_cast<void*>(p.o.ptr)) +
+                            q_base(p.o, f * p.group + row / p.sq, p.hq) + (row % p.sq) * p.o.ss;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        const int c = nd * 8 + 2 * t;
+        if (c < p.dh)
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(o[nd][2 * r] * inv, o[nd][2 * r + 1] * inv);
       }
     }
   }
+}
 
-  if (!warp_live) return;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(const_cast<void*>(p.o.ptr)) +
-                      q_base(p.o, bh, p.hq);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = row0 + g + 8 * r;
-    if (row >= p.sq) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow = og + row * p.o.ss;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int c = nd * 8 + 2 * t;
-      const float x0 = o[nd][2 * r] / den, x1 = o[nd][2 * r + 1] / den;
-      if (vec) {
-        if (c < p.dh) *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(x0, x1);
-      } else {
-        if (c < p.dh) orow[c] = __float2bfloat16(x0);
-        if (c + 1 < p.dh) orow[c + 1] = __float2bfloat16(x1);
-      }
+// One warp per (KV row, packed row): the splits' partials merged by
+// log-sum-exp (base 2, as the partials' m).
+__global__ void __launch_bounds__(128)
+flash_merge_kernel(Params p, int rows, int splits, const float* part_acc, const float2* part_ml) {
+  const int nf = p.bhq / p.group;
+  const int idx = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (idx >= nf * rows) return;
+  const int f = idx / rows, row = idx - f * rows;
+  const int64_t first = static_cast<int64_t>(f) * rows + row, step = static_cast<int64_t>(nf) * rows;
+  float mx = kNegInf;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part_ml[first + s * step].x);
+  float den = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float2 ml = part_ml[first + s * step];
+    den += exp2f(ml.x - mx) * ml.y;
+  }
+  const float inv = 1.f / fmaxf(den, 1e-30f);
+  __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(const_cast<void*>(p.o.ptr)) +
+                        q_base(p.o, f * p.group + row / p.sq, p.hq) + (row % p.sq) * p.o.ss;
+  for (int c = 2 * lane; c < p.dh; c += 64) {
+    float a0 = 0.f, a1 = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const int64_t slot = first + s * step;
+      const float w = exp2f(part_ml[slot].x - mx);
+      const float2 a = *reinterpret_cast<const float2*>(part_acc + slot * p.dh + c);
+      a0 += w * a.x;
+      a1 += w * a.y;
     }
+    *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(a0 * inv, a1 * inv);
   }
 }
 
@@ -373,17 +957,102 @@ flash_f32_kernel(Params p) {
   }
 }
 
-template <int DH>
-cudaError_t launch_mma(const Params& p, bool vec, cudaStream_t stream) {
-  using C = MmaCfg<DH>;
-  // The shared-memory opt-in holds per device, so it is set on every launch
-  // (a cheap host call): any card and any thread gets it before it launches.
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::kSmem));
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's tensor-map encoder, looked up once (thread-safe static).
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &got);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                                    cudaEnableDefault, &got);
+#endif
+    return err == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a bf16 operand as (d, s, h, b), read in boxes of 64 columns
+// (128 bytes: the swizzle's width) by ``rows`` rows, 128-byte swizzled,
+// zero-filled out of bounds. TMA wants every stride a multiple of 16 bytes
+// (the wrapper copies other operands aligned); the stride of a
+// dimension of extent 1 is never used and is given as one row's bytes.
+bool encode_operand(CUtensorMap* map, const Operand& op, int dh, int s, int h, int b, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const auto stride = [dh](int64_t elems, int extent) {
+    return static_cast<cuuint64_t>(extent > 1 ? elems * 2 : dh * 2);
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {stride(op.ss, s), stride(op.sh, h), stride(op.sb, b)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(op.ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The shared-memory opt-in holds per device, so each launcher sets it on
+// every launch (a cheap host call): any card and any thread gets it first.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int DH, bool SOFTCAP>
+cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
+  using C = FwdCfg<DH>;
+  const int nf = p.bhq / p.group;
+  CUtensorMap tq, tk, tv;
+  if (!encode_operand(&tq, p.q, p.dh, p.sq, p.hq, p.bhq / p.hq, C::BQ) ||
+      !encode_operand(&tk, p.k, p.dh, p.sk, p.hkv, nf / p.hkv, C::BK) ||
+      !encode_operand(&tv, p.v, p.dh, p.sk, p.hkv, nf / p.hkv, C::BK))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(flash_fwd_kernel<DH, SOFTCAP>, C::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + C::BQ - 1) / C::BQ, p.bhq);
-  flash_mma_kernel<DH><<<grid, C::kThreads, C::kSmem, stream>>>(p, vec ? 1 : 0);
+  const int64_t blocks = static_cast<int64_t>(p.bhq) * ((p.sq + C::BQ - 1) / C::BQ);
+  flash_fwd_kernel<DH, SOFTCAP><<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_prefill(const Params& p, cudaStream_t stream) {
+  return p.softcap > 0.f ? launch_fwd<DH, true>(p, stream) : launch_fwd<DH, false>(p, stream);
+}
+
+template <int DH>
+cudaError_t launch_decode(const Params& p, int splits, int split_keys, float* part_acc,
+                          float2* part_ml, cudaStream_t stream) {
+  using C = DecCfg<DH>;
+  const int rows = p.sq * p.group, nf = p.bhq / p.group;
+  if (rows > 64 || splits < 1 || split_keys < 1 ||
+      static_cast<int64_t>(splits) * split_keys < p.sk || (splits > 1 && part_acc == nullptr))
+    return cudaErrorInvalidValue;
+  const int stages = split_keys > C::BK ? 2 : 1;
+  cudaError_t err = allow_smem(flash_decode_kernel<DH>, C::smem(64, 2));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(splits, nf);
+  flash_decode_kernel<DH><<<grid, C::kThreads, C::smem((rows + 15) & ~15, stages), stream>>>(
+      p, rows, split_keys, stages, splits > 1 ? part_acc : nullptr, part_ml);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  flash_merge_kernel<<<(nf * rows + 3) / 4, 128, 0, stream>>>(p, rows, splits, part_acc, part_ml);
   return cudaGetLastError();
 }
 
@@ -395,26 +1064,26 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
+enum Form { kFormF32 = 0, kFormPrefill = 1, kFormDecode = 2 };  // ops.py: FORMS
 
 }  // namespace
 
 // q, k, v, o: device pointers; strides: 12 host int64 values, (sb, sh, ss)
-// of q, k, v and o in elements. dtype 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t (0 on success).
+// of q, k, v and o in elements. form: one of Form (ops.py picks it). Decode
+// only: ``splits`` key splits of ``split_keys`` keys and, when splits > 1,
+// float32 scratch part_acc [splits, BHq/group, Sq*group, Dh] and part_ml
+// [splits, BHq/group, Sq*group, 2]. Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const int64_t* strides, int bhq, int hq, int hkv,
                                       int group, int sq, int sk, int dh, float scale,
-                                      float softcap, int causal, int dtype, void* stream) {
+                                      float softcap, int causal, int form, int splits,
+                                      int split_keys, void* part_acc, void* part_ml,
+                                      void* stream) {
   Params p;
   const void* ptrs[4] = {q, k, v, o};
   Operand* ops[4] = {&p.q, &p.k, &p.v, &p.o};
-  bool vec = dh % 8 == 0;
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 4; ++i)
     *ops[i] = Operand{ptrs[i], strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-    vec = vec && aligned16(ptrs[i]) && strides[3 * i] % 8 == 0 && strides[3 * i + 1] % 8 == 0 &&
-          strides[3 * i + 2] % 8 == 0;
-  }
   p.bhq = bhq;
   p.hq = hq;
   p.hkv = hkv;
@@ -426,15 +1095,28 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.softcap = softcap;
   p.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (dh <= 64) return launch_mma<64>(p, vec, st);
-    if (dh <= 128) return launch_mma<128>(p, vec, st);
-    if (dh <= 256) return launch_mma<256>(p, vec, st);
-  } else if (dtype == 0) {
-    if (dh <= 32) return launch_f32<1>(p, st);
-    if (dh <= 64) return launch_f32<2>(p, st);
-    if (dh <= 128) return launch_f32<4>(p, st);
-    if (dh <= 256) return launch_f32<8>(p, st);
+  if (dh < 1 || dh > 256) return static_cast<int>(cudaErrorInvalidValue);
+  switch (form) {
+    case kFormPrefill:
+      if (dh % 8) break;
+      if (dh <= 64) return launch_prefill<64>(p, st);
+      if (dh <= 128) return launch_prefill<128>(p, st);
+      return launch_prefill<256>(p, st);
+    case kFormDecode: {
+      if (dh % 8) break;
+      float* acc = static_cast<float*>(part_acc);
+      float2* ml = static_cast<float2*>(part_ml);
+      if (dh <= 64) return launch_decode<64>(p, splits, split_keys, acc, ml, st);
+      if (dh <= 128) return launch_decode<128>(p, splits, split_keys, acc, ml, st);
+      return launch_decode<256>(p, splits, split_keys, acc, ml, st);
+    }
+    case kFormF32:
+      if (dh <= 32) return launch_f32<1>(p, st);
+      if (dh <= 64) return launch_f32<2>(p, st);
+      if (dh <= 128) return launch_f32<4>(p, st);
+      return launch_f32<8>(p, st);
+    default:
+      break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

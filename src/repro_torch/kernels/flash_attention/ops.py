@@ -20,15 +20,26 @@ valid prefix without a copy; for 4-D inputs on the card the output is a
 ``[B, Hq, Sq, Dh]`` view of a ``[B, Sq, Hq, Dh]`` tensor, which the model
 flattens back without a copy.
 
-``launches["flash_attention"]`` counts the kernel's launches
-(``reset_launches`` zeroes it), so a run can show that it went through the
-kernel.
+The kernel has three forms, and ``kernel_form`` picks one from the dtype and
+the shape alone: ``prefill`` (bf16, more than 64 query rows a KV head: the
+warp-specialised wgmma kernel), ``decode`` (bf16, Sq·group ≤ 64: split-KV
+blocks, then a merge; ``decode_splits`` sizes the splits) and ``f32``
+(float32, on the CUDA cores). The bf16 forms read with TMA and 16-byte
+copies; a bf16 operand that ``aligned16`` refuses (Dh % 8 ≠ 0, or a pointer or
+stride off 16 bytes) is handed to them as an aligned copy, zero-padded to a
+Dh that is a multiple of 8, and the output is sliced back to Dh.
+
+``launches["flash_attention"]`` counts the calls that ran the kernel, one
+each whatever the launches inside (``reset_launches`` zeroes it), so a run
+can show that it went through the kernel; ``launches_by_form`` splits that
+count by form.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -37,12 +48,16 @@ from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv
 
 MAX_HEAD_DIM = 256  # the kernel's widest head (gemma2's)
-MAX_GRID_Y = 65535  # one grid row of blocks per query row bh
+MAX_GRID_Y = 65535  # grid rows: the decode form's KV rows (at most the query rows bh)
+FORMS = ("f32", "prefill", "decode")  # the kernel's codes: csrc's enum Form
+DECODE_ROWS = 64  # the decode form packs a KV head's Sq·group query rows into one tile
+BLOCKS_PER_SM = 4  # the decode form's splits aim at this many blocks on each SM
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_launch.argtypes = [p, p, p, p, p] + [i32] * 7 + [f32, f32, i32, i32, p]
+    lib.flash_attention_launch.argtypes = ([p, p, p, p, p] + [i32] * 7 + [f32, f32]
+                                           + [i32] * 4 + [p, p, p])
     lib.flash_attention_launch.restype = ctypes.c_int
 
 
@@ -50,13 +65,41 @@ LIB = CudaLibrary("flash_attention",
                   Path(__file__).resolve().parent / "csrc" / "flash_attention.cu", _declare)
 
 launches: Dict[str, int] = {"flash_attention": 0}
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+launches_by_form: Dict[str, int] = {form: 0 for form in FORMS}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, launches_by_form):
+        for name in counts:
+            counts[name] = 0
+
+
+def kernel_form(dtype: torch.dtype, sq: int, group: int) -> str:
+    """The kernel's form for a call, from the dtype and shape alone."""
+    if dtype == torch.float32:
+        return "f32"
+    return "decode" if sq * group <= DECODE_ROWS else "prefill"
+
+
+def decode_tile(dh: int) -> int:
+    """Keys a tile of the decode form (csrc's DecCfg::BK)."""
+    return 64 if dh <= 128 else 32
+
+
+def decode_splits(kv_rows: int, sk: int, dh: int, sms: int) -> Tuple[int, int]:
+    """(splits, keys a split) of the decode form: whole tiles a split, as
+    many splits as give about ``BLOCKS_PER_SM`` blocks (one per KV row and
+    split) on each of ``sms`` SMs, and no empty split."""
+    tile = decode_tile(dh)
+    tiles = -(-sk // tile)
+    want = -(-BLOCKS_PER_SM * sms // kv_rows)
+    per = -(-tiles // min(tiles, want))
+    return -(-tiles // per), per * tile
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def attention_chunked(q, k, v, *, causal: bool = True, softcap: float | None = None,
@@ -122,6 +165,26 @@ def _check_shapes(q, k, v) -> None:
                          f"v={tuple(v.shape)}")
 
 
+def aligned16(*operands: torch.Tensor) -> bool:
+    """Whether 16-byte copies and TMA can read the bf16 operands: Dh % 8 == 0
+    and every pointer and (batch, head, sequence) stride a multiple of 16
+    bytes (of 8 bf16 values)."""
+    return all(x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0
+               and all(s % 8 == 0 for s in _strides(x)) for x in operands)
+
+
+def _aligned_copy(x: torch.Tensor, dh: int) -> torch.Tensor:
+    """``x`` as the bf16 forms can read it: itself if ``aligned16`` and
+    ``dh`` wide, else a new dense copy zero-padded to ``dh`` columns (zero
+    columns of q and k add nothing to a score; those of v give output columns
+    that are sliced off)."""
+    if x.shape[-1] == dh and aligned16(x):
+        return x
+    out = x.new_zeros((*x.shape[:-1], dh))
+    out[..., : x.shape[-1]] = x
+    return out
+
+
 def _strides(x: torch.Tensor):
     """(batch, head, sequence) strides of a 3-D or 4-D operand."""
     if x.ndim == 3:
@@ -155,26 +218,46 @@ def attention(q, k, v, *, causal: bool = True, softcap: float | None = None,
     if bhq > MAX_GRID_Y:
         raise KernelFault(f"flash_attention kernel takes at most {MAX_GRID_Y} query rows "
                           f"(batch x heads), got {bhq}", op="flash_attention")
-    if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in _DTYPE_CODE:
+    if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention: q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    width = dh  # the kernel's Dh: a multiple of 8 in bf16
+    if q.dtype == torch.bfloat16:
+        width = -(-dh // 8) * 8
+        q, k, v = (_aligned_copy(x, width) for x in (q, k, v))
     if q.ndim == 3:
-        out = torch.empty((bhq, sq, dh), dtype=q.dtype, device=q.device)
+        out = torch.empty((bhq, sq, width), dtype=q.dtype, device=q.device)
         hq = hkv = 1
     else:
         b, hq = q.shape[:2]
         hkv = k.shape[1]
-        out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out) for s in _strides(x)))
+        out = torch.empty((b, sq, hq, width), dtype=q.dtype, device=q.device).transpose(1, 2)
+    operands = (q, k, v, out)
+    strides = [s for x in operands for s in _strides(x)]
     group = q.shape[-3] // k.shape[-3]
+    form = kernel_form(q.dtype, sq, group)
+    splits, split_keys, part_acc, part_ml = 1, sk, None, None
+    if form == "decode":
+        kv_rows = bhq // group
+        splits, split_keys = decode_splits(kv_rows, sk, width, _sm_count(q.device.index or 0))
+        if splits > 1:  # float32 partials (acc; m and l) of each split, merged by the kernel
+            part_acc = torch.empty((splits, kv_rows, sq * group, width), dtype=torch.float32,
+                                   device=q.device)
+            part_ml = torch.empty((splits, kv_rows, sq * group, 2), dtype=torch.float32,
+                                  device=q.device)
+    stride_arr = (ctypes.c_int64 * 12)(*strides)  # bound: it must outlive the call
     rc = LIB.load().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
-        bhq, hq, hkv, group, sq, sk, dh, 1.0 / (dh ** 0.5),
-        0.0 if softcap is None else float(softcap), int(bool(causal)), _DTYPE_CODE[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(stride_arr),
+        bhq, hq, hkv, group, sq, sk, width, 1.0 / (dh ** 0.5),
+        0.0 if softcap is None else float(softcap), int(bool(causal)), FORMS.index(form),
+        splits, split_keys, None if part_acc is None else part_acc.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise KernelFault(f"flash_attention launch failed: cudaError {rc}", op="flash_attention")
+        raise KernelFault(f"flash_attention launch failed ({form} form): cudaError {rc}",
+                          op="flash_attention")
     launches["flash_attention"] += 1
-    return out
+    launches_by_form[form] += 1
+    return out if width == dh else out[..., :dh]

@@ -7,6 +7,10 @@ attention: query row ``bh`` reads KV row ``bh // (BHq // BHkv)``) → out
 soft-capped, and under ``causal`` query i sees key j iff ``i + Sk − Sq ≥ j``.
 A query row that sees no key gets the softmax of a row of −1e30s here (the
 mean of v), as in the JAX twin; the kernel and the chunked path give 0 there.
+
+``attention_split_ref`` is the plain version of the kernel's decode form:
+partial (m, l, acc) per split of the keys, merged by log-sum-exp. It gives 0
+on a row that sees no key, as the kernel does.
 """
 from __future__ import annotations
 
@@ -40,3 +44,42 @@ def attention_ref(q, k, v, *, causal: bool = True, softcap: float | None = None)
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.to(f32)).to(q.dtype)
+
+
+def attention_split_ref(q, k, v, split: int, *, causal: bool = True,
+                        softcap: float | None = None):
+    """Attention over the keys cut into splits of ``split`` keys (the last
+    may be shorter): each split's row max m, sum l = Σ exp(s − m) and
+    acc = Σ exp(s − m)·v in float32, then out = Σ w·acc / Σ w·l with
+    w = exp(m − max m). A split in which a row sees no key has m = −1e30 and
+    l = 0, so it weighs nothing; a row that sees no key at all gives 0."""
+    if split < 1:
+        raise ValueError(f"attention_split_ref: split must be positive, got {split}")
+    dh = q.shape[-1]
+    k, v = expand_kv(q, k, v)
+    f32 = torch.float32
+    sq, sk = q.shape[1], k.shape[1]
+    qf = q.to(f32) / (dh ** 0.5)
+    q_pos = torch.arange(sq, device=q.device)
+    parts = []
+    for k0 in range(0, sk, split):
+        kb, vb = k[:, k0 : k0 + split].to(f32), v[:, k0 : k0 + split].to(f32)
+        s = torch.einsum("bqd,bkd->bqk", qf, kb)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        mask = torch.ones((sq, kb.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            k_pos = k0 + torch.arange(kb.shape[1], device=q.device)
+            mask = q_pos[:, None] + (sk - sq) >= k_pos[None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(s - m), 0.0)
+        parts.append((m, p.sum(dim=-1, keepdim=True), torch.einsum("bqk,bkd->bqd", p, vb)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    den = torch.zeros_like(m_all)
+    acc = torch.zeros(q.shape, dtype=f32, device=q.device)
+    for m, l, a in parts:
+        w = torch.exp(m - m_all)
+        den = den + w * l
+        acc = acc + w * a
+    return (acc / torch.clamp(den, min=1e-30)).to(q.dtype)

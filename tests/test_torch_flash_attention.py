@@ -20,7 +20,7 @@ from repro.kernels.flash_attention.flash_attention import flash_attention_kernel
 from repro.kernels.flash_attention.ops import attention_chunked as jax_chunked
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import attention_ref, expand_kv
+from repro_torch.kernels.flash_attention.ref import attention_ref, attention_split_ref, expand_kv
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SHAPES = [  # bh, sq, sk, dh, causal, softcap, scale of q
@@ -147,3 +147,131 @@ def test_wrapper_checks_shapes_and_devices():
     with pytest.raises(ValueError):
         ops.attention(q, q, q.to("meta"))
     assert ops.launches["flash_attention"] == 0  # the CPU path never launches the kernel
+
+
+# Decode shapes for the split-KV plain version: (bhq, bhkv, sq, sk, split,
+# causal, softcap). Rows i of a causal case see keys j <= i + Sk - Sq.
+SPLIT_CASES = [
+    (8, 2, 1, 1, 64, True, None),      # one key
+    (8, 2, 1, 40, 64, True, None),     # Sk below one split
+    (8, 2, 1, 129, 64, True, None),    # Sk = 2 splits x 64 + 1
+    (8, 2, 4, 65, 16, True, None),     # the last split (key 64) is seen by row 3 only
+    (8, 2, 4, 70, 32, False, None),    # Sk not a multiple of the split, no mask
+    (8, 8, 3, 50, 8, True, None),      # group 1
+    (16, 2, 2, 100, 32, True, 30.0),   # group 8, softcap (q scaled to reach it)
+    (8, 2, 4, 2, 1, True, None),       # Sk < Sq: rows 0 and 1 see no key at all
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_split_kv_merge_matches_jax(case, dtype):
+    """The decode form's plain version: partial (m, l, acc) per key split,
+    merged by log-sum-exp, against JAX's ``attention_chunked`` on every row
+    (a row that sees no key gives 0 in both) and JAX's ``attention_ref`` on
+    the rows that see a key. Tolerances as above: 2e-5 in float32 (another
+    summation order), 2e-2 in bfloat16 (the output is rounded to bfloat16)."""
+    bhq, bhkv, sq, sk, split, causal, cap = SPLIT_CASES[case]
+    arrs = _inputs(100 + case, bhq, bhkv, sq, sk, 32, dtype)
+    if cap is not None:
+        arrs[0] = (np.asarray(arrs[0], np.float32) * 20.0).astype(arrs[0].dtype)
+    q, k, v = _torch(arrs, dtype)
+    got = attention_split_ref(q, k, v, split, causal=causal, softcap=cap)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    group = bhq // bhkv
+    rep = [np.repeat(np.asarray(a, np.float32), group, axis=0) for a in arrs[1:]]
+    jq, jk, jv = jnp.asarray(arrs[0]), *(jnp.asarray(a.astype(arrs[0].dtype)) for a in rep)
+    chunked = jax_chunked(jq, jk, jv, causal=causal, softcap=cap, chunk=16)
+    assert _err(got, chunked.astype(jnp.float32)) < TOL[dtype]
+    ref = np.asarray(jax_ref(jq, jk, jv, causal=causal, softcap=cap).astype(jnp.float32))
+    seen = slice(max(sq - sk, 0), sq) if causal else slice(0, sq)
+    assert _err(got[:, seen], ref[:, seen]) < TOL[dtype]
+    if causal and sk < sq:
+        assert not got[:, : sq - sk].any()
+    if cap is not None:  # the cap matters here: without it the output is far off
+        assert _err(attention_split_ref(q, k, v, split, causal=causal), ref) > 10 * TOL[dtype]
+
+
+def test_split_kv_merge_equals_one_split():
+    """Any split gives the unsplit result up to float32 summation order."""
+    q, k, v = _torch(_inputs(7, 8, 2, 3, 200, 32, "float32"), "float32")
+    whole = attention_split_ref(q, k, v, 200)
+    for split in (1, 7, 64, 199):
+        assert _err(attention_split_ref(q, k, v, split), whole) < TOL["float32"]
+    with pytest.raises(ValueError):
+        attention_split_ref(q, k, v, 0)
+
+
+@pytest.mark.parametrize("dtype,sq,group,dh,aligned,form", [
+    (torch.bfloat16, 4096, 4, 128, True, "prefill"),   # granite's forward
+    (torch.bfloat16, 512, 4, 128, True, "prefill"),    # granite's serve prefill
+    (torch.bfloat16, 1, 4, 128, True, "decode"),       # granite's decode step
+    (torch.bfloat16, 2048, 2, 256, True, "prefill"),   # gemma2's softcap branch
+    (torch.bfloat16, 16, 4, 128, True, "decode"),      # 64 packed rows: the most it takes
+    (torch.bfloat16, 17, 4, 128, True, "prefill"),
+    (torch.bfloat16, 64, 1, 64, True, "decode"),
+    (torch.bfloat16, 65, 1, 64, True, "prefill"),
+    (torch.bfloat16, 1, 8, 128, True, "decode"),
+    (torch.bfloat16, 1, 4, 36, False, "decode"),       # Dh % 8 != 0: copied aligned first
+    (torch.bfloat16, 4096, 4, 128, False, "prefill"),  # a stride or pointer off 16 bytes
+    (torch.float32, 1, 4, 128, True, "f32"),
+    (torch.float32, 512, 4, 128, True, "f32"),
+])
+def test_kernel_form_is_a_function_of_the_shape(dtype, sq, group, dh, aligned, form):
+    """The form follows the dtype, Sq and the group; neither Dh nor the
+    operands' alignment moves it (the wrapper copies an unaligned bf16
+    operand aligned)."""
+    assert ops.kernel_form(dtype, sq, group) == form
+    assert form in ops.FORMS
+
+
+def test_operands_aligned16():
+    """What makes the wrapper copy a bf16 operand for the kernel: Dh % 8, or
+    a pointer or a stride off 16 bytes. The model's transposed views are
+    aligned, so the model's calls copy nothing."""
+    x = torch.zeros((2, 40, 8, 128), dtype=torch.bfloat16)   # [B, S, H, Dh]
+    assert ops.aligned16(x.transpose(1, 2), x[:, :17].transpose(1, 2))
+    assert ops.aligned16(torch.zeros((4, 9, 64), dtype=torch.bfloat16))
+    assert not ops.aligned16(torch.zeros((4, 9, 36), dtype=torch.bfloat16))
+    wide = torch.zeros((4, 9, 130), dtype=torch.bfloat16)
+    assert not ops.aligned16(wide[..., :128])           # rows 260 bytes apart
+    assert not ops.aligned16(wide.view(-1)[1:1153].view(4, 9, 32))  # pointer off 16 bytes
+
+
+def test_aligned_copy_pads_dh_and_realigns():
+    """What the bf16 forms are handed: the operand itself where it is
+    aligned, else a new dense copy with the same values, zero-padded in Dh."""
+    x = torch.randn((2, 40, 8, 128)).to(torch.bfloat16).transpose(1, 2)
+    assert ops._aligned_copy(x, 128) is x
+    odd = torch.randn((4, 9, 36)).to(torch.bfloat16)
+    got = ops._aligned_copy(odd, 40)
+    assert got.shape == (4, 9, 40) and got.is_contiguous() and ops.aligned16(got)
+    assert torch.equal(got[..., :36], odd) and not got[..., 36:].any()
+    base = torch.randn(4 * 9 * 32 + 1).to(torch.bfloat16)
+    off = base[1:].view(4, 9, 32)
+    got = ops._aligned_copy(off, 32)
+    assert got.data_ptr() != off.data_ptr() and ops.aligned16(got) and torch.equal(got, off)
+
+
+@pytest.mark.parametrize("kv_rows,sk,dh,sms,want", [
+    (64, 544, 128, 132, (9, 64)),     # granite's decode step: 64 KV rows x 9 splits of 64 keys
+    (64, 513, 128, 132, (9, 64)),
+    (2, 577, 128, 132, (10, 64)),     # few KV rows: a split a tile, the last holds one key
+    (64, 4097, 128, 132, (9, 512)),   # long cache: 8 tiles a split, the last one key
+    (64, 1, 128, 132, (1, 64)),
+    (8, 300, 256, 132, (10, 32)),     # Dh 256: 32-key tiles
+    (1024, 544, 128, 132, (1, 576)),  # the KV rows alone fill the card
+])
+def test_decode_splits_fill_the_card(kv_rows, sk, dh, sms, want):
+    splits, keys = ops.decode_splits(kv_rows, sk, dh, sms)
+    assert (splits, keys) == want
+
+
+def test_decode_splits_cover_the_keys_with_no_empty_split():
+    for kv_rows in (1, 3, 64, 500):
+        for sk in (1, 31, 64, 65, 544, 1000, 8193):
+            for dh in (64, 128, 256):
+                splits, keys = ops.decode_splits(kv_rows, sk, dh, 132)
+                assert keys % ops.decode_tile(dh) == 0
+                assert (splits - 1) * keys < sk <= splits * keys
+                assert splits == 1 or splits * kv_rows <= 2 * ops.BLOCKS_PER_SM * 132

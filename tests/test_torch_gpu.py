@@ -15,6 +15,11 @@ within 1e-4 (float32) and 2e-2 (bfloat16, 2.5 units in the last place) of
 that row's max |plain|, since a row's output shrinks as it attends more
 keys. Where a case has a softcap, q is scaled by 20 so that the scores reach
 the cap, and the case checks that dropping the softcap would fail the test.
+The bf16 kernel has two forms, picked from the shape (``kernel_form``):
+prefill (wgmma) and decode (split KV, then a merge); an unaligned operand
+(Dh % 8 != 0, or a pointer or stride off 16 bytes) reaches them as an
+aligned copy. The form tests assert, through ``launches_by_form``, that the
+form the shape names is the one that ran.
 """
 import numpy as np
 import pytest
@@ -349,6 +354,130 @@ def test_flash_attention_kernel_reads_strided_views(cuda, dtype):
     flat = [x.contiguous().reshape(-1, x.shape[2], dh) for x in (qv, kv, vv)]
     want = fa.attention_chunked(*flat, causal=True).reshape(b, h, sq, dh)
     assert _flash_close(got, want, dtype), _flash_errs(got, want)
+
+
+# (bhq, bhkv, sq, sk, dh, causal, softcap, the form kernel_form picks)
+FORM_CASES = [
+    # prefill (Sq·group > 64): Sq and Sk not multiples of BQ = 128 or BK
+    (2, 2, 200, 200, 128, True, None, "prefill"),
+    (4, 1, 300, 300, 64, True, None, "prefill"),     # group 4, Dh 64
+    (8, 1, 130, 517, 128, True, None, "prefill"),    # group 8, 1 < Sq < Sk: shifted diagonal
+    (4, 2, 100, 100, 128, False, None, "prefill"),   # group 2, no mask
+    (3, 3, 150, 37, 128, True, None, "prefill"),     # Sk < Sq: rows before 113 see no key
+    (2, 2, 150, 150, 256, True, 50.0, "prefill"),    # Dh 256 with softcap
+    (1, 1, 4096, 4096, 128, True, None, "prefill"),  # long rows
+    (2, 2, 129, 300, 72, True, None, "prefill"),     # Dh padded to 128
+    # decode (Sq·group <= 64)
+    (8, 2, 1, 1, 128, True, None, "decode"),         # Sk = 1
+    (8, 2, 1, 40, 128, True, None, "decode"),        # Sk below one split
+    (8, 2, 1, 577, 128, True, None, "decode"),       # one-tile splits, the last holds one key
+    (256, 64, 1, 4097, 128, True, None, "decode"),   # 8-tile splits (double-buffered), last 1 key
+    (4, 4, 1, 300, 128, True, None, "decode"),       # group 1
+    (8, 4, 1, 300, 128, True, None, "decode"),       # group 2
+    (16, 2, 1, 300, 64, True, None, "decode"),       # group 8, Dh 64
+    (8, 2, 2, 300, 128, True, None, "decode"),       # Sq = 2
+    (8, 2, 3, 300, 128, True, None, "decode"),       # Sq = 3
+    (8, 2, 4, 70, 128, True, None, "decode"),        # Sq = 4
+    (8, 1, 8, 100, 128, True, None, "decode"),       # 64 packed rows
+    (8, 2, 2, 300, 256, True, 50.0, "decode"),       # Dh 256 with softcap
+    (8, 2, 4, 2, 128, True, None, "decode"),         # Sk < Sq: rows 0, 1 see no key
+    (8, 2, 3, 130, 128, False, None, "decode"),      # no mask
+    # Dh % 8 != 0: the operands are copied, zero-padded to Dh 40
+    (6, 2, 33, 97, 36, False, None, "prefill"),
+    (6, 2, 200, 97, 36, True, None, "prefill"),
+    (8, 2, 3, 97, 36, True, None, "decode"),
+]
+
+
+def _form_ran(before, form):
+    """Whether exactly one call ran, in ``form``, since the counts ``before``."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    return {f: n - before[f] for f, n in fa.launches_by_form.items()} == \
+        {f: int(f == form) for f in fa.launches_by_form}
+
+
+@pytest.mark.parametrize("bhq,bhkv,sq,sk,dh,causal,cap,form", FORM_CASES)
+def test_flash_attention_forms_match_plain(cuda, bhq, bhkv, sq, sk, dh, causal, cap, form):
+    """Each form of the bf16 kernel against the plain chunked version, and
+    the form that ran is the one ``kernel_form`` names for the shape."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dtype = torch.bfloat16
+    q, k, v = _qkv(bhq, bhkv, sq, sk, dh, dtype, cuda, seed=sq * 7 + sk + dh)
+    if cap is not None:
+        q = (q.float() * SOFTCAP_Q_SCALE).to(dtype)
+    assert fa.kernel_form(dtype, sq, bhq // bhkv) == form
+    before = dict(fa.launches_by_form)
+    got = fa.attention(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert _form_ran(before, form)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.attention_chunked(q, k, v, causal=causal, softcap=cap, chunk=96)
+    assert _flash_close(got, want, dtype), _flash_errs(got, want)
+    if cap is not None:  # the scores reach the cap: without it the check fails
+        uncapped = fa.attention_chunked(q, k, v, causal=causal, chunk=96)
+        assert not _flash_close(uncapped, want, dtype), _flash_errs(uncapped, want)
+    if causal and sk < sq:
+        assert not got[:, : sq - sk].any()  # rows that see no key give 0
+
+
+@pytest.mark.parametrize("sq,form", [(1, "decode"), (3, "decode"), (200, "prefill")])
+def test_flash_attention_forms_read_cache_views(cuda, sq, form):
+    """The model's operands in both new forms: [B, S, H, Dh] projections and
+    the valid prefix of a [B, max_len, KV, Dh] cache, as [B, H, S, Dh] views."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    b, h, kvh, length, max_len, dh = 2, 8, 2, 300, 320, 128
+    g = torch.Generator(device=cuda).manual_seed(12 + sq)
+    q = torch.randn((b, sq, h, dh), generator=g, device=cuda).to(torch.bfloat16)
+    kc = torch.randn((b, max_len, kvh, dh), generator=g, device=cuda).to(torch.bfloat16)
+    vc = torch.randn((b, max_len, kvh, dh), generator=g, device=cuda).to(torch.bfloat16)
+    qv, kv, vv = q.transpose(1, 2), kc[:, :length].transpose(1, 2), vc[:, :length].transpose(1, 2)
+    before = dict(fa.launches_by_form)
+    got = fa.attention(qv, kv, vv, causal=True)
+    torch.cuda.synchronize()
+    assert _form_ran(before, form)
+    assert got.shape == (b, h, sq, dh) and got.transpose(1, 2).is_contiguous()
+    flat = [x.contiguous().reshape(-1, x.shape[2], dh) for x in (qv, kv, vv)]
+    want = fa.attention_chunked(*flat, causal=True).reshape(b, h, sq, dh)
+    assert _flash_close(got, want, torch.bfloat16), _flash_errs(got, want)
+
+
+@pytest.mark.parametrize("sq,form", [(1, "decode"), (200, "prefill")])
+def test_flash_attention_forms_copy_unaligned_operands(cuda, sq, form):
+    """Operands whose pointers lie one element (2 bytes) off 16 bytes, in
+    both forms: the wrapper copies them aligned and the answer is the plain
+    version's."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    bhq, bhkv, sk, dh = 8, 2, 300, 128
+    g = torch.Generator(device=cuda).manual_seed(13 + sq)
+    sizes = ((bhq, sq, dh), (bhkv, sk, dh), (bhkv, sk, dh))
+    q, k, v = (torch.randn(int(np.prod(n)) + 1, generator=g, device=cuda)
+               .to(torch.bfloat16)[1:].view(n) for n in sizes)
+    assert not any(fa.aligned16(x) for x in (q, k, v))
+    before = dict(fa.launches_by_form)
+    got = fa.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _form_ran(before, form)
+    want = fa.attention_chunked(q, k, v, causal=True, chunk=96)
+    assert _flash_close(got, want, torch.bfloat16), _flash_errs(got, want)
+
+
+def test_flash_attention_decode_form_merges_splits(cuda):
+    """The decode form at granite's decode shape splits the keys (9 splits of
+    64 on a 132-SM card) and matches the plain split-KV version."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_split_ref
+
+    q, k, v = _qkv(256, 64, 1, 544, 128, torch.bfloat16, cuda, seed=5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, split_keys = fa.decode_splits(64, 544, 128, sms)
+    assert splits > 1
+    got = fa.attention(q, k, v, causal=True)
+    want = attention_split_ref(q, k, v, split_keys, causal=True)
+    assert _flash_close(got, want, torch.bfloat16), _flash_errs(got, want)
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
