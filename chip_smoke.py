@@ -18,7 +18,7 @@ Phases (each prints its results; any failure exits non-zero):
    run;
 6. the RWKV6 kernel against its plain version at the LM path's shapes
    (forward, serve prefill with the state, a ragged tail), with its times and
-   its bound;
+   its bound, then untimed at the decay edges;
 7. rwkv6-7b at full width: ``loss_fn`` and ``forward`` on 4 x 4096 tokens
    (32 kernel launches a pass), a profiled forward, and ``prefill`` +
    ``decode_step`` against the forward's logits, in bf16 and with the
@@ -27,11 +27,12 @@ Phases (each prints its results; any failure exits non-zero):
    tokens and 32 new tokens on 8 slots;
 9. the flash attention kernel against its plain version at granite's
    forward, serve-prefill and decode shapes, gemma2's softcap branch (bf16,
-   scores scaled to reach the cap) and the float32 check's prefill shape,
-   over all outputs and row by row, with the readings of faults put into
-   the plain version (to show the check can fail), the kernel form that
-   ran, its times, achieved TFLOP/s and GB/s, its bound, and SDPA's time
-   (at the softcap shape, a compiled flex_attention's); then the serve-prefill
+   scores scaled to reach the cap) and the float32 check's prefill and
+   decode shapes, over all outputs and row by row, with the readings of
+   faults put into the plain version (to show the check can fail), the
+   kernel form that ran, its times, achieved TFLOP/s and GB/s, its bound,
+   and SDPA's time (at the softcap shape, a compiled flex_attention's);
+   then the serve-prefill
    and decode shapes (the latter at Dh = 36) on views off 16 bytes, which the
    wrapper copies aligned for the bf16 forms;
 10. granite-3-8b at full width, as phase 7 (40 kernel launches a pass and a
@@ -99,6 +100,12 @@ LOGITS_TOL_BF16 = 0.10
 RWKV_SHAPES = (("forward B=4", 4 * 64, 4096, False),
                ("serve prefill B=8", 8 * 64, 512, True),
                ("ragged tail B=8", 8 * 64, 37, True))
+# Decays at and past the model's edges, held untimed in phase 6 at the
+# serve-prefill shape: w = exp(-exp(logdecay)) at the model's clamp bounds
+# of logdecay, w = 1.0 exactly (bf16's rounding of exp(-exp(-8))), w = 1e-12
+# (the kernel's clamp), and all of them mixed.
+RWKV_EDGES = {"logdecay -8": math.exp(-math.exp(-8.0)), "logdecay 1.2": math.exp(-math.exp(1.2)),
+              "w 1.0": 1.0, "w 1e-12": 1e-12, "mixed": None}
 LM_FORWARD = (4, 4096, 512, 3)
 LM_SERVE = (16, 512, 32, 8)
 # The flash kernel's shapes: (what, B, Hq, Hkv, Sq, Sk, Dh, softcap, dtype),
@@ -110,6 +117,7 @@ FLASH_SHAPES = (
     ("granite decode B=8", 8, 32, 8, 1, 544, 128, None, torch.bfloat16),
     ("gemma2 softcap B=4", 4, 16, 8, 2048, 2048, 256, 50.0, torch.bfloat16),
     ("granite float32 check B=2", 2, 32, 8, 512, 512, 128, None, torch.float32),
+    ("granite float32 decode B=8", 8, 32, 8, 1, 544, 128, None, torch.float32),
 )
 # Shapes that reach the bf16 forms through the wrapper's aligned copy: (what,
 # B, Hq, Hkv, Sq, Sk, Dh), causal, every operand read through a view one
@@ -588,7 +596,36 @@ def phase_rwkv6_kernel(rk):
             f"(bytes {nbytes} -> {bytes_ms:.4f} ms at 3.35 TB/s; {flops} flop -> "
             f"{ops_ms:.4f} ms at 67 TFLOP/s f32) | library: none")
         del args, got, want_o, want_s, pairs
+    out["edges"] = rwkv_edge_checks(rk, rwkv6_ref, gen)
     return out
+
+
+def rwkv_edge_checks(rk, rwkv6_ref, gen):
+    """The kernel against its plain version at each of ``RWKV_EDGES`` (every
+    w set to it, or drawn from all of them), at the serve-prefill shape with
+    the state out, untimed. Returns each edge's relative error."""
+    _, bh, t, _ = RWKV_SHAPES[1]
+    levels = torch.tensor([x for x in RWKV_EDGES.values() if x is not None], device=DEV)
+    errs = {}
+    for edge, value in RWKV_EDGES.items():
+        args = rwkv_inputs(bh, t, gen)
+        shape = args[3].shape
+        w = (levels[torch.randint(0, len(levels), shape, generator=gen, device=DEV)]
+             if value is None else torch.full(shape, value, device=DEV))
+        args[3] = w.to(args[3].dtype)
+        got_o, got_s = rk.rwkv6(*args, return_state=True)
+        want_o, want_s = rwkv6_ref(*args, return_state=True)
+        torch.cuda.synchronize()
+        scale = max(float(want_o.abs().max()), float(want_s.abs().max()))
+        err = max(float((got_o - want_o).abs().max()), float((got_s - want_s).abs().max()))
+        rel = err / max(1.0, scale)
+        errs[edge] = rel
+        log(f"  rwkv6 [decay edge {edge}: BH={bh} T={t} K=V=64 bf16 +state]: max_abs_err="
+            f"{err:.3e} (max |plain| {scale:.3f}, relative {rel:.2e}, tolerance {RWKV_TOL:g}), "
+            f"finite: {bool(torch.isfinite(got_o).all() and torch.isfinite(got_s).all())}")
+        assert rel < RWKV_TOL and bool(torch.isfinite(got_o).all()), (edge, err, scale)
+        del args, got_o, got_s, want_o, want_s
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -664,14 +701,14 @@ def flex_softcap(q4, k4, v4, cap):
 
 def phase_flash_kernel(fa):
     """The kernel at granite's forward, serve-prefill and decode shapes and at
-    gemma2's softcap branch (bf16, the tensor-core kernel), and at the float32
-    check's prefill shape (the float32 kernel), each against the plain
+    gemma2's softcap branch (bf16, the tensor-core forms), and at the float32
+    check's prefill and decode shapes (the f32 form), each against the plain
     version (the wrapper's CPU path, run on the card), with the readings of
     faults put into the plain version beside it, and timed beside SDPA where
     one SDPA call computes the same function (every shape but the softcap's,
     where a compiled flex_attention stands in). Kernel and library are timed
     the same way, by ``queued_ms``; the form the kernel ran is read from its
-    per-form launch counts."""
+    per-form launch counts and must be the one ``kernel_form`` names."""
     from repro_torch.kernels.flash_attention.ops import attention_chunked
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -688,6 +725,7 @@ def phase_flash_kernel(fa):
         before = dict(fa.launches_by_form)
         got = fa.attention(q, k, v, causal=True, softcap=cap)
         (form,) = [f for f, n in fa.launches_by_form.items() if n > before[f]]
+        assert form == fa.kernel_form(dtype, sq, hq // hkv), (what, form)
         want = attention_chunked(q, k, v, causal=True, softcap=cap)
         torch.cuda.synchronize()
         err, row_err = flash_errs(got, want)

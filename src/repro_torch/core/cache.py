@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.graph.storage import INVALID
 
 _INT32_MAX = INVALID
@@ -54,7 +55,10 @@ class LRBUState:
 
 
 def make_cache(capacity: int, ways: int = 4, d_pad: int | None = None,
-               device: str | torch.device = "cpu") -> LRBUState:
+               device: str | torch.device | None = None) -> LRBUState:
+    """One cache; ``d_pad`` adds the value slabs. ``device``: as
+    :func:`repro_torch.device.resolve_device` (``None`` is the card)."""
+    device = resolve_device(device)
     sets = max(1, capacity // ways)
     values = degs = None
     if d_pad is not None:
@@ -70,8 +74,10 @@ def make_cache(capacity: int, ways: int = 4, d_pad: int | None = None,
 
 
 def make_stacked_cache(num_caches: int, capacity: int, ways: int,
-                       device: str | torch.device = "cpu") -> LRBUState:
-    """``num_caches`` independent stats caches (one per simulated machine)."""
+                       device: str | torch.device | None = None) -> LRBUState:
+    """``num_caches`` independent stats caches (one per simulated machine);
+    ``device`` as in :func:`make_cache`."""
+    device = resolve_device(device)
     sets = max(1, capacity // ways)
     return LRBUState(
         keys=torch.full((num_caches, sets, ways), INVALID, dtype=torch.int32, device=device),

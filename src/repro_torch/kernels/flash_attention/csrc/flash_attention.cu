@@ -65,9 +65,23 @@
 //   split a row sees nothing of has m = -1e30 and l = 0 and weighs nothing; a
 //   row that sees no key at all still gives 0). A single split writes the
 //   output itself. The rows are few, so mma.sync m16n8k16 serves.
-// * f32: float32 -> flash_f32_kernel, on the CUDA cores (the tensor cores
-//   would round float32 to tf32). One warp per query row; each lane holds
-//   Dh/32 of q and of the accumulator; a key's score is a warp-wide sum.
+// * f32: float32 -> flash_f32_kernel, on the CUDA cores in float32 FMA (the
+//   tensor cores would round float32 to tf32, about 3 digits, against the
+//   2e-5 tolerance). Bound by those operations: 4*Dh per visible (query, key)
+//   pair at 67 TFLOP/s. A block takes 64 packed query rows of one KV head
+//   (query head f*group + r/Sq, row r % Sq, as in the decode form), so a KV
+//   head's keys are staged once for its whole group, and walks 32-key tiles
+//   (64 at Dh = 256) of K and V in shared memory, each refilled by cp.async
+//   as soon as its last reader is past a barrier, so one tile's loads run
+//   under the other's products. A thread holds a 4 x 4 tile of S = Q K^T
+//   (float4 reads of Q and K, Q stored in an order that puts a warp's rows
+//   in distinct banks) and a 4 x (Dh/8) tile of O; the online softmax runs
+//   in base 2 with the row max over the threads that share a row taken by
+//   shuffles; P goes through shared memory. Tiles that every row sees whole
+//   skip the mask; tiles no row sees are never loaded. When those blocks
+//   alone would leave SMs idle (decode), the keys are split as in the decode
+//   form and flash_merge_kernel<float> merges the splits. Times against
+//   SDPA float32 at the model's shapes are in PERF.md (H100 80GB HBM3, 700 W).
 //
 // Times, bounds and the library's times at the model's shapes are in
 // PERF.md (chip_smoke.py phase 9, H100 80GB HBM3 at 700 W).
@@ -84,6 +98,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -115,16 +131,6 @@ __device__ __forceinline__ int64_t q_base(const Operand& op, int bh, int hq) {
 __device__ __forceinline__ int64_t kv_row_base(const Operand& op, int f, int hkv) {
   const int b = f / hkv, h = f - b * hkv;
   return static_cast<int64_t>(b) * op.sb + static_cast<int64_t>(h) * op.sh;
-}
-
-__device__ __forceinline__ int64_t kv_base(const Operand& op, int bh, const Params& p) {
-  return kv_row_base(op, bh / p.group, p.hkv);
-}
-
-__device__ __forceinline__ float score(float dot, const Params& p) {
-  float s = dot * p.scale;
-  if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-  return s;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -865,7 +871,9 @@ flash_decode_kernel(Params p, int rows, int split_keys, int stages, float* part_
 }
 
 // One warp per (KV row, packed row): the splits' partials merged by
-// log-sum-exp (base 2, as the partials' m).
+// log-sum-exp (base 2, as the partials' m), into an output of type T (the
+// bf16 forms' or the float32 form's).
+template <typename T>
 __global__ void __launch_bounds__(128)
 flash_merge_kernel(Params p, int rows, int splits, const float* part_acc, const float2* part_ml) {
   const int nf = p.bhq / p.group;
@@ -881,79 +889,280 @@ flash_merge_kernel(Params p, int rows, int splits, const float* part_acc, const 
     den += exp2f(ml.x - mx) * ml.y;
   }
   const float inv = 1.f / fmaxf(den, 1e-30f);
-  __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(const_cast<void*>(p.o.ptr)) +
-                        q_base(p.o, f * p.group + row / p.sq, p.hq) + (row % p.sq) * p.o.ss;
-  for (int c = 2 * lane; c < p.dh; c += 64) {
-    float a0 = 0.f, a1 = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const int64_t slot = first + s * step;
-      const float w = exp2f(part_ml[slot].x - mx);
-      const float2 a = *reinterpret_cast<const float2*>(part_acc + slot * p.dh + c);
-      a0 += w * a.x;
-      a1 += w * a.y;
+  T* orow = static_cast<T*>(const_cast<void*>(p.o.ptr)) +
+            q_base(p.o, f * p.group + row / p.sq, p.hq) + (row % p.sq) * p.o.ss;
+  if constexpr (std::is_same<T, float>::value) {  // any Dh: one column a lane
+    for (int c = lane; c < p.dh; c += 32) {
+      float a = 0.f;
+      for (int s = 0; s < splits; ++s) {
+        const int64_t slot = first + s * step;
+        a += exp2f(part_ml[slot].x - mx) * part_acc[slot * p.dh + c];
+      }
+      orow[c] = a * inv;
     }
-    *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(a0 * inv, a1 * inv);
+  } else {  // Dh % 8 == 0: two columns a lane
+    for (int c = 2 * lane; c < p.dh; c += 64) {
+      float a0 = 0.f, a1 = 0.f;
+      for (int s = 0; s < splits; ++s) {
+        const int64_t slot = first + s * step;
+        const float w = exp2f(part_ml[slot].x - mx);
+        const float2 a = *reinterpret_cast<const float2*>(part_acc + slot * p.dh + c);
+        a0 += w * a.x;
+        a1 += w * a.y;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(a0 * inv, a1 * inv);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores, one warp per query row
+// float32: CUDA cores, K/V tiles in shared memory, register micro-tiles
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Threads = 256;
+template <int DH>  // head width padded to 32, 64, 128 or 256
+struct F32Cfg {
+  static constexpr int BQ = 64;                   // packed query rows a block
+  static constexpr int BK = DH == 256 ? 64 : 32;  // keys a tile (ops.py: f32_tile)
+  static constexpr int KG = BK / 4;               // threads sharing a row, 4 keys of a tile each
+  static constexpr int kThreads = BQ / 4 * KG;    // 16 row groups of 4 rows: 128 (256 at Dh 256)
+  static constexpr int NC = DH / BK;              // float4 columns of O a thread holds
+  static constexpr int LQ = DH + 4;               // Q and K row strides (floats): conflict-free
+  static constexpr int LP = BQ + 4;               // P^T row stride
+  static constexpr int kMinBlocks = DH == 256 ? 1 : 3;  // blocks an SM holds (shared memory)
+  static constexpr size_t kSmem = static_cast<size_t>(BQ * LQ + BK * LQ + BK * DH + BK * LP) *
+                                  sizeof(float);
+};
 
-template <int NPL>  // values a lane holds: Dh <= 32 * NPL
-__global__ void __launch_bounds__(kF32Threads)
-flash_f32_kernel(Params p) {
-  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kF32Threads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= static_cast<int64_t>(p.bhq) * p.sq) return;
-  const int bh = static_cast<int>(row / p.sq);
-  const int qi = static_cast<int>(row - static_cast<int64_t>(bh) * p.sq);
-  const float* qr = static_cast<const float*>(p.q.ptr) + q_base(p.q, bh, p.hq) + qi * p.q.ss;
-  const float* kg = static_cast<const float*>(p.k.ptr) + kv_base(p.k, bh, p);
-  const float* vg = static_cast<const float*>(p.v.ptr) + kv_base(p.v, bh, p);
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
 
-  float qv[NPL], acc[NPL];
-#pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    const int d = lane + 32 * j;
-    qv[j] = d < p.dh ? qr[d] : 0.f;
-    acc[j] = 0.f;
+// Element (r, c) of a tile of ``rows`` x DH floats into dst[r * ld + c] by
+// cp.async, from row(r) + c; zero-filled where !ok(r) and past dh. ``vec``:
+// 16-byte copies (dh % 4 == 0 and every row 16-byte aligned), else 4 bytes.
+template <int DH, typename RowPtr, typename RowOk>
+__device__ __forceinline__ void stage_f32(float* dst, int ld, int rows, int dh, bool vec,
+                                          RowPtr row, RowOk ok) {
+  const float* any = row(0);  // a valid address for the zero-filling copies
+  if (vec) {
+    constexpr int CH = DH / 4;
+    for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
+      const int r = i / CH, c = (i - r * CH) * 4;
+      const bool on = ok(r) && c < dh;
+      cp_async16(smem_u32(dst + r * ld + c), on ? row(r) + c : any, on);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * DH; i += blockDim.x) {
+      const int r = i / DH, c = i - r * DH;
+      const bool on = ok(r) && c < dh;
+      cp_async4(smem_u32(dst + r * ld + c), on ? row(r) + c : any, on);
+    }
   }
-  // Keys past the row's diagonal are masked: their p is 0 and they leave the
-  // running max alone, so the walk stops there.
-  const int n_keys = p.causal ? min(p.sk, qi + (p.sk - p.sq) + 1) : p.sk;
-  float m = kNegInf, l = 0.f;
-  for (int key = 0; key < n_keys; ++key) {
-    const float* kr = kg + key * p.k.ss;
-    float part = 0.f;
+}
+
+// One block per (64 packed rows of KV row f, key split): packed row r = (query
+// head f*group + r / sq, query row r % sq), as in the decode form, so a KV
+// head's keys are staged once for its whole group. The thread (rg, kg) owns
+// rows 4rg..4rg+3 and keys kg + KG*j (j < 4) of each tile: a 4 x 4 block of
+// S = Q K^T in registers, from float4 reads of Q (stored in row order
+// (r % 4) * 16 + r / 4, so the four row groups of a warp hit four banks) and
+// of K; its rows' max and sum over the KG threads that share them by
+// shuffles; P through shared memory as P^T; and a 4 x 4*NC block of O
+// (columns 4kg + BK*c). K and V have one buffer each, refilled by cp.async
+// as soon as the previous tile's last reader is past a barrier: tile n+1's K
+// loads during tile n's softmax and P V, tile n+1's V during tile n+1's
+// Q K^T. Tiles every row sees whole skip the mask, tiles no row sees are
+// never loaded. part_acc == null: one split, the block writes the output;
+// else float32 partials (acc; m, l) per row for flash_merge_kernel<float>.
+template <int DH, bool SOFTCAP>
+__global__ void __launch_bounds__(F32Cfg<DH>::kThreads, F32Cfg<DH>::kMinBlocks)
+flash_f32_kernel(Params p, int rows, int split_keys, int vec, float* part_acc, float2* part_ml) {
+  using C = F32Cfg<DH>;
+  constexpr int KG = C::KG, NC = C::NC, BK = C::BK, LQ = C::LQ, LP = C::LP;
+  extern __shared__ __align__(16) float smf[];
+  float* qs = smf;                // [BQ][LQ]
+  float* ks = qs + C::BQ * LQ;    // [BK][LQ]
+  float* vs = ks + BK * LQ;       // [BK][DH]
+  float* pt = vs + BK * DH;       // P^T: [BK][LP]
+
+  const int nf = p.bhq / p.group, split = blockIdx.y;
+  const int row_tiles = (rows + C::BQ - 1) / C::BQ;
+  const int idx = blockIdx.x / nf, f = blockIdx.x - idx * nf;
+  int tile = row_tiles - 1 - idx;  // the longest causal row ranges first
+  if (p.sq % C::BQ == 0) {         // tiles lie within a head: its last tile first, every head
+    const int per_head = p.sq / C::BQ;
+    tile = (idx % p.group) * per_head + per_head - 1 - idx / p.group;
+  }
+  const int r0 = tile * C::BQ, r1 = min(rows, r0 + C::BQ);
+  const int kg = threadIdx.x % KG, rg = threadIdx.x / KG;
+  const int offset = p.sk - p.sq;
+  const int k_lo = split * split_keys, k_hi = min(p.sk, k_lo + split_keys);
+
+  // Keys [k_lo, lim[i]) are seen by the thread's row i; hi and lo: the most
+  // and the fewest any row of the block sees.
+  int lim[4];
 #pragma unroll
-    for (int j = 0; j < NPL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < p.dh) part = fmaf(qv[j], kr[d], part);
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 4 * rg + i;
+    lim[i] = r >= rows ? k_lo : p.causal ? min(k_hi, r % p.sq + offset + 1) : k_hi;
+  }
+  int hi = k_hi, lo = k_hi;
+  if (p.causal) {
+    const bool wraps = r0 / p.sq != (r1 - 1) / p.sq;
+    hi = min(k_hi, (wraps ? p.sq - 1 : (r1 - 1) % p.sq) + offset + 1);
+    lo = min(k_hi, (wraps ? 0 : r0 % p.sq) + offset + 1);
+  }
+  const int n_tiles = hi > k_lo ? (hi - k_lo + BK - 1) / BK : 0;
+  const int n_plain = lo > k_lo ? (lo - k_lo) / BK : 0;
+
+  const float* qg = static_cast<const float*>(p.q.ptr);
+  const float* kg0 = static_cast<const float*>(p.k.ptr) + kv_row_base(p.k, f, p.hkv);
+  const float* vg0 = static_cast<const float*>(p.v.ptr) + kv_row_base(p.v, f, p.hkv);
+  stage_f32<DH>(
+      qs, LQ, C::BQ, p.dh, vec,
+      [&](int r) {  // stored row r -> packed row r0 + 4 * (r % 16) + r / 16
+        const int pr = min(rows - 1, r0 + 4 * (r & 15) + (r >> 4));
+        return qg + q_base(p.q, f * p.group + pr / p.sq, p.hq) + (pr % p.sq) * p.q.ss;
+      },
+      [&](int r) { return r0 + 4 * (r & 15) + (r >> 4) < rows; });
+  auto issue = [&](float* dst, int ld, const float* base, int64_t ss, int n) {
+    const int k0 = k_lo + n * BK, valid = min(BK, k_hi - k0);
+    stage_f32<DH>(dst, ld, BK, p.dh, vec, [&](int r) { return base + (k0 + r) * ss; },
+                  [&](int r) { return r < valid; });
+  };
+  if (n_tiles > 0) issue(ks, LQ, kg0, p.k.ss, 0);
+  cp_async_commit();  // Q and K_0
+  if (n_tiles > 0) issue(vs, DH, vg0, p.v.ss, 0);
+  cp_async_commit();  // V_0
+
+  float o[4][NC][4], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) o[i][c][0] = o[i][c][1] = o[i][c][2] = o[i][c][3] = 0.f;
+  }
+  // A score in base 2: the scale and log2 e folded into one multiply.
+  const float to_log2 = SOFTCAP ? kLog2e : p.scale * kLog2e;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    cp_async_wait<1>();  // K_n has landed (V_n may still be in flight)
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DH; d += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qs + (16 * i + rg) * LQ + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(ks + (kg + KG * j) * LQ + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with K_n: refill it with K_{n+1}
+    if (n + 1 < n_tiles) issue(ks, LQ, kg0, p.k.ss, n + 1);
+    cp_async_commit();
+
+    const int k0 = k_lo + n * BK;
+    const bool masked = n >= n_plain;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j];
+        if (SOFTCAP) x = p.softcap * tanhf(x * p.scale / p.softcap);
+        x *= to_log2;
+        if (masked && k0 + kg + KG * j >= lim[i]) x = kNegInf;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < KG; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float alpha = exp2f(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool seen = !masked || k0 + kg + KG * j < lim[i];
+        s[i][j] = seen ? exp2f(s[i][j] - mx) : 0.f;
+        sum += s[i][j];
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        o[i][c][0] *= alpha;
+        o[i][c][1] *= alpha;
+        o[i][c][2] *= alpha;
+        o[i][c][3] *= alpha;
+      }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    const float s = score(part, p);
-    const float m_new = fmaxf(m, s);
-    const float alpha = expf(m - m_new), pr = expf(s - m_new);
-    l = l * alpha + pr;
-    const float* vr = vg + key * p.v.ss;
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(pt + (kg + KG * j) * LP + 4 * rg) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    cp_async_wait<1>();  // V_n has landed (K_{n+1} may still be in flight)
+    __syncthreads();     // and P^T is written
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      const float4 pj = *reinterpret_cast<const float4*>(pt + j * LP + 4 * rg);
+      const float pr[4] = {pj.x, pj.y, pj.z, pj.w};
 #pragma unroll
-    for (int j = 0; j < NPL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < p.dh) acc[j] = fmaf(pr, vr[d], acc[j] * alpha);
+      for (int c = 0; c < NC; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(vs + j * DH + 4 * kg + BK * c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][c][0] = fmaf(pr[i], vv.x, o[i][c][0]);
+          o[i][c][1] = fmaf(pr[i], vv.y, o[i][c][1]);
+          o[i][c][2] = fmaf(pr[i], vv.z, o[i][c][2]);
+          o[i][c][3] = fmaf(pr[i], vv.w, o[i][c][3]);
+        }
+      }
     }
-    m = m_new;
+    __syncthreads();  // every thread is done with V_n and P^T: refill V with V_{n+1}
+    if (n + 1 < n_tiles) issue(vs, DH, vg0, p.v.ss, n + 1);
+    cp_async_commit();
   }
-  float* orow = static_cast<float*>(const_cast<void*>(p.o.ptr)) + q_base(p.o, bh, p.hq) +
-                qi * p.o.ss;
-  const float den = fmaxf(l, 1e-30f);
+  cp_async_wait<0>();  // nothing in flight at exit, even with no tile
+
 #pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    const int d = lane + 32 * j;
-    if (d < p.dh) orow[d] = acc[j] / den;
+  for (int i = 0; i < 4; ++i) {
+    float lsum = l[i];
+#pragma unroll
+    for (int off = 1; off < KG; off <<= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+    const int r = r0 + 4 * rg + i;
+    if (r >= rows) continue;
+    float* dst;
+    float scale = 1.f;
+    if (part_acc != nullptr) {
+      const int64_t slot = (static_cast<int64_t>(split) * nf + f) * rows + r;
+      dst = part_acc + slot * p.dh;
+      if (kg == 0) part_ml[slot] = make_float2(m[i], lsum);
+    } else {
+      dst = static_cast<float*>(const_cast<void*>(p.o.ptr)) +
+            q_base(p.o, f * p.group + r / p.sq, p.hq) + (r % p.sq) * p.o.ss;
+      scale = 1.f / fmaxf(lsum, 1e-30f);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 4 * kg + BK * c + e;
+        if (col < p.dh) dst[col] = o[i][c][e] * scale;
+      }
+    }
   }
 }
 
@@ -1052,16 +1261,43 @@ cudaError_t launch_decode(const Params& p, int splits, int split_keys, float* pa
       p, rows, split_keys, stages, splits > 1 ? part_acc : nullptr, part_ml);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  flash_merge_kernel<<<(nf * rows + 3) / 4, 128, 0, stream>>>(p, rows, splits, part_acc, part_ml);
+  flash_merge_kernel<__nv_bfloat16><<<(nf * rows + 3) / 4, 128, 0, stream>>>(p, rows, splits,
+                                                                             part_acc, part_ml);
   return cudaGetLastError();
 }
 
-template <int NPL>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const int64_t threads = static_cast<int64_t>(p.bhq) * p.sq * 32;
-  const unsigned blocks = static_cast<unsigned>((threads + kF32Threads - 1) / kF32Threads);
-  flash_f32_kernel<NPL><<<blocks, kF32Threads, 0, stream>>>(p);
+template <int DH, bool SOFTCAP>
+cudaError_t launch_f32_form(const Params& p, int splits, int split_keys, float* part_acc,
+                            float2* part_ml, cudaStream_t stream) {
+  using C = F32Cfg<DH>;
+  const int rows = p.sq * p.group, nf = p.bhq / p.group;
+  const int64_t blocks = static_cast<int64_t>(nf) * ((rows + C::BQ - 1) / C::BQ);
+  if (splits < 1 || splits > 65535 || split_keys < 1 || blocks > 0x7fffffff ||
+      static_cast<int64_t>(splits) * split_keys < p.sk || (splits > 1 && part_acc == nullptr))
+    return cudaErrorInvalidValue;
+  // 16-byte copies where every operand row allows them; else 4-byte copies.
+  bool vec = p.dh % 4 == 0;
+  for (const Operand* op : {&p.q, &p.k, &p.v})
+    vec = vec && reinterpret_cast<uintptr_t>(op->ptr) % 16 == 0 && op->sb % 4 == 0 &&
+          op->sh % 4 == 0 && op->ss % 4 == 0;
+  cudaError_t err = allow_smem(flash_f32_kernel<DH, SOFTCAP>, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(blocks), splits);
+  flash_f32_kernel<DH, SOFTCAP><<<grid, C::kThreads, C::kSmem, stream>>>(
+      p, rows, split_keys, vec, splits > 1 ? part_acc : nullptr, part_ml);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  flash_merge_kernel<float><<<(nf * rows + 3) / 4, 128, 0, stream>>>(p, rows, splits, part_acc,
+                                                                     part_ml);
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_f32(const Params& p, int splits, int split_keys, float* part_acc,
+                       float2* part_ml, cudaStream_t stream) {
+  return p.softcap > 0.f
+             ? launch_f32_form<DH, true>(p, splits, split_keys, part_acc, part_ml, stream)
+             : launch_f32_form<DH, false>(p, splits, split_keys, part_acc, part_ml, stream);
 }
 
 enum Form { kFormF32 = 0, kFormPrefill = 1, kFormDecode = 2 };  // ops.py: FORMS
@@ -1110,11 +1346,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       if (dh <= 128) return launch_decode<128>(p, splits, split_keys, acc, ml, st);
       return launch_decode<256>(p, splits, split_keys, acc, ml, st);
     }
-    case kFormF32:
-      if (dh <= 32) return launch_f32<1>(p, st);
-      if (dh <= 64) return launch_f32<2>(p, st);
-      if (dh <= 128) return launch_f32<4>(p, st);
-      return launch_f32<8>(p, st);
+    case kFormF32: {
+      float* acc = static_cast<float*>(part_acc);
+      float2* ml = static_cast<float2*>(part_ml);
+      if (dh <= 32) return launch_f32<32>(p, splits, split_keys, acc, ml, st);
+      if (dh <= 64) return launch_f32<64>(p, splits, split_keys, acc, ml, st);
+      if (dh <= 128) return launch_f32<128>(p, splits, split_keys, acc, ml, st);
+      return launch_f32<256>(p, splits, split_keys, acc, ml, st);
+    }
     default:
       break;
   }

@@ -24,10 +24,13 @@ The kernel has three forms, and ``kernel_form`` picks one from the dtype and
 the shape alone: ``prefill`` (bf16, more than 64 query rows a KV head: the
 warp-specialised wgmma kernel), ``decode`` (bf16, Sq·group ≤ 64: split-KV
 blocks, then a merge; ``decode_splits`` sizes the splits) and ``f32``
-(float32, on the CUDA cores). The bf16 forms read with TMA and 16-byte
-copies; a bf16 operand that ``aligned16`` refuses (Dh % 8 ≠ 0, or a pointer or
-stride off 16 bytes) is handed to them as an aligned copy, zero-padded to a
-Dh that is a multiple of 8, and the output is sliced back to Dh.
+(float32, on the CUDA cores: blocks of 64 packed query rows of a KV head
+over K/V tiles in shared memory; the keys are split, and the splits merged,
+only where the blocks alone would leave SMs idle: ``f32_splits``). The bf16
+forms read with TMA and 16-byte copies; a bf16 operand that ``aligned16``
+refuses (Dh % 8 ≠ 0, or a pointer or stride off 16 bytes) is handed to them
+as an aligned copy, zero-padded to a Dh that is a multiple of 8, and the
+output is sliced back to Dh.
 
 ``launches["flash_attention"]`` counts the calls that ran the kernel, one
 each whatever the launches inside (``reset_launches`` zeroes it), so a run
@@ -51,7 +54,8 @@ MAX_HEAD_DIM = 256  # the kernel's widest head (gemma2's)
 MAX_GRID_Y = 65535  # grid rows: the decode form's KV rows (at most the query rows bh)
 FORMS = ("f32", "prefill", "decode")  # the kernel's codes: csrc's enum Form
 DECODE_ROWS = 64  # the decode form packs a KV head's Sq·group query rows into one tile
-BLOCKS_PER_SM = 4  # the decode form's splits aim at this many blocks on each SM
+BLOCKS_PER_SM = 4  # the decode and f32 forms' splits aim at this many blocks on each SM
+F32_ROWS = 64  # packed query rows of a KV head an f32-form block takes (csrc's F32Cfg::BQ)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -86,15 +90,36 @@ def decode_tile(dh: int) -> int:
     return 64 if dh <= 128 else 32
 
 
-def decode_splits(kv_rows: int, sk: int, dh: int, sms: int) -> Tuple[int, int]:
-    """(splits, keys a split) of the decode form: whole tiles a split, as
-    many splits as give about ``BLOCKS_PER_SM`` blocks (one per KV row and
-    split) on each of ``sms`` SMs, and no empty split."""
-    tile = decode_tile(dh)
+def _splits(blocks: int, sk: int, tile: int, sms: int) -> Tuple[int, int]:
+    """(splits, keys a split): whole tiles a split, as many splits as give
+    about ``BLOCKS_PER_SM`` blocks (``blocks`` per split) on each of ``sms``
+    SMs, and no empty split."""
     tiles = -(-sk // tile)
-    want = -(-BLOCKS_PER_SM * sms // kv_rows)
+    want = -(-BLOCKS_PER_SM * sms // blocks)
     per = -(-tiles // min(tiles, want))
     return -(-tiles // per), per * tile
+
+
+def decode_splits(kv_rows: int, sk: int, dh: int, sms: int) -> Tuple[int, int]:
+    """(splits, keys a split) of the decode form: one block per KV row and
+    split."""
+    return _splits(kv_rows, sk, decode_tile(dh), sms)
+
+
+def f32_tile(dh: int) -> int:
+    """Keys a tile of the f32 form (csrc's F32Cfg::BK)."""
+    return 64 if dh > 128 else 32
+
+
+def f32_splits(kv_rows: int, rows: int, sk: int, dh: int, sms: int) -> Tuple[int, int]:
+    """(splits, keys a split) of the f32 form, whose blocks take ``F32_ROWS``
+    of a KV row's ``rows`` = Sq·group packed query rows: one split where
+    those blocks alone are as many as the SMs (prefill), else as many as
+    give about ``BLOCKS_PER_SM`` blocks on each SM (decode)."""
+    blocks = kv_rows * -(-rows // F32_ROWS)
+    if blocks >= sms:
+        return 1, sk
+    return _splits(blocks, sk, f32_tile(dh), sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,9 +263,10 @@ def attention(q, k, v, *, causal: bool = True, softcap: float | None = None,
     group = q.shape[-3] // k.shape[-3]
     form = kernel_form(q.dtype, sq, group)
     splits, split_keys, part_acc, part_ml = 1, sk, None, None
-    if form == "decode":
-        kv_rows = bhq // group
-        splits, split_keys = decode_splits(kv_rows, sk, width, _sm_count(q.device.index or 0))
+    if form != "prefill":
+        kv_rows, sms = bhq // group, _sm_count(q.device.index or 0)
+        splits, split_keys = (decode_splits(kv_rows, sk, width, sms) if form == "decode"
+                              else f32_splits(kv_rows, sq * group, sk, width, sms))
         if splits > 1:  # float32 partials (acc; m and l) of each split, merged by the kernel
             part_acc = torch.empty((splits, kv_rows, sq * group, width), dtype=torch.float32,
                                    device=q.device)

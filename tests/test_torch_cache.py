@@ -58,7 +58,7 @@ def test_stats_cache_sequence_matches_reference(policy, cap, ways, vmax):
     fn_p = {"lrbu": pt.fetch_update, "lru": pt.fetch_update_lru,
             "direct": pt.fetch_update_direct}[policy]
     sr = ref.make_cache(cap, ways=ways)
-    sp = pt.make_cache(cap, ways=ways)
+    sp = pt.make_cache(cap, ways=ways, device="cpu")
     for vids in seeded_batches(cap + ways, 12, 12, vmax):
         sr, hr = fn_r(sr, jnp.asarray(vids))
         sp, hp = fn_p(sp, torch.from_numpy(vids))
@@ -70,7 +70,7 @@ def test_value_cache_sequence_matches_reference():
     d = 16
     rng = np.random.default_rng(3)
     sr = ref.make_cache(16, ways=4, d_pad=d)
-    sp = pt.make_cache(16, ways=4, d_pad=d)
+    sp = pt.make_cache(16, ways=4, d_pad=d, device="cpu")
     for vids in seeded_batches(9, 10, 16, 60):
         rows = np.sort(rng.integers(0, 100, (16, d)), axis=1).astype(np.int32)
         degs = rng.integers(0, d, 16).astype(np.int32)
@@ -97,7 +97,7 @@ def test_duplicate_targets_resolve_to_the_last_writer():
     rows = np.arange(8 * 4, dtype=np.int32).reshape(8, 4)
     degs = np.arange(8, dtype=np.int32)
     sr = ref.make_cache(8, ways=2, d_pad=4)
-    sp = pt.make_cache(8, ways=2, d_pad=4)
+    sp = pt.make_cache(8, ways=2, d_pad=4, device="cpu")
     sr, hr = ref.fetch_update_values(sr, jnp.asarray(vids), jnp.asarray(rows), jnp.asarray(degs))
     sp, hp = pt.fetch_update_values(sp, torch.from_numpy(vids), torch.from_numpy(rows),
                                     torch.from_numpy(degs))
@@ -116,7 +116,7 @@ def test_duplicate_targets_resolve_to_the_last_writer():
 ])
 def test_sealed_overflow_cases_match_reference(batches):
     sr = ref.make_cache(8, ways=2)
-    sp = pt.make_cache(8, ways=2)
+    sp = pt.make_cache(8, ways=2, device="cpu")
     for b in batches:
         vids = padded(b, 4)
         sr, hr = ref.fetch_update(sr, jnp.asarray(vids))
@@ -138,7 +138,7 @@ def test_stacked_per_machine_caches_match_vmapped_reference(policy):
         epoch=jnp.full((m, sets, ways), -1, jnp.int32),
         current_epoch=jnp.zeros((m,), jnp.int32),
     )
-    sp = pt.make_stacked_cache(m, sets * ways, ways)
+    sp = pt.make_stacked_cache(m, sets * ways, ways, device="cpu")
     upd = jax.vmap(fn_r)
     for i, seed in enumerate(range(8)):
         reqs = np.stack(seeded_batches(seed * 7 + i, m, 10, 50))
@@ -146,3 +146,18 @@ def test_stacked_per_machine_caches_match_vmapped_reference(policy):
         sp, hp = pt.fetch_update_stacked(sp, torch.from_numpy(reqs), policy)
         np.testing.assert_array_equal(hp.numpy(), np.asarray(hr))
         same_state(sp, sr)
+
+
+@pytest.mark.parametrize("make", [lambda **kw: pt.make_cache(8, ways=2, d_pad=4, **kw),
+                                  lambda **kw: pt.make_stacked_cache(3, 8, 2, **kw)],
+                         ids=["make_cache", "make_stacked_cache"])
+def test_cache_defaults_to_the_card(make):
+    """Like every entry point of the port, the caches default to the card
+    (``resolve_device(None)``): without one they raise rather than carry on
+    on the CPU; the CPU is used only when asked for."""
+    assert make(device="cpu").keys.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert make().keys.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()

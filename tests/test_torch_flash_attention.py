@@ -275,3 +275,27 @@ def test_decode_splits_cover_the_keys_with_no_empty_split():
                 assert keys % ops.decode_tile(dh) == 0
                 assert (splits - 1) * keys < sk <= splits * keys
                 assert splits == 1 or splits * kv_rows <= 2 * ops.BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("kv_rows,rows,sk,dh,sms,want", [
+    (16, 2048, 512, 128, 132, (1, 512)),   # the float32 check's prefill: 512 blocks, no split
+    (16, 2060, 515, 128, 132, (1, 515)),   # granite's float32 forward of 2 x 515 tokens
+    (64, 4, 544, 128, 132, (9, 64)),       # granite's float32 decode: 64 blocks x 9 splits
+    (16, 4, 515, 128, 132, (17, 32)),      # a float32 decode step of two sequences
+    (8, 4, 300, 256, 132, (5, 64)),        # Dh 256: 64-key tiles
+    (1, 64, 1, 64, 132, (1, 32)),          # one key
+])
+def test_f32_splits_fill_the_card(kv_rows, rows, sk, dh, sms, want):
+    assert ops.f32_splits(kv_rows, rows, sk, dh, sms) == want
+
+
+def test_f32_splits_cover_the_keys_with_no_empty_split():
+    for kv_rows in (1, 3, 16, 64, 500):
+        for rows in (1, 4, 64, 65, 2048):
+            for sk in (1, 31, 64, 65, 544, 8193):
+                for dh in (36, 128, 256):
+                    splits, keys = ops.f32_splits(kv_rows, rows, sk, dh, 132)
+                    blocks = kv_rows * -(-rows // ops.F32_ROWS)
+                    assert (splits - 1) * keys < sk <= splits * keys
+                    assert splits == 1 or (keys % ops.f32_tile(dh) == 0 and blocks < 132
+                                           and splits * blocks <= 2 * ops.BLOCKS_PER_SM * 132)

@@ -19,8 +19,13 @@ The bf16 kernel has two forms, picked from the shape (``kernel_form``):
 prefill (wgmma) and decode (split KV, then a merge); an unaligned operand
 (Dh % 8 != 0, or a pointer or stride off 16 bytes) reaches them as an
 aligned copy. The form tests assert, through ``launches_by_form``, that the
-form the shape names is the one that ran.
+form the shape names is the one that ran; the float32 form's tests sit at
+its tile edges (64 packed query rows, 32-key tiles). The RWKV6 kernel walks
+16-step chunks with decay factors as products; its tests sit at the decay
+edges (logdecay -8 and 1.2, w = 1.0, w = 1e-12) and the chunk edges.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -229,6 +234,60 @@ def test_rwkv6_kernel_takes_transposed_views_and_odd_widths(cuda):
     assert not views[0].is_contiguous()
     got_o, got_s = rk.rwkv6(*views, return_state=True)
     want_o, want_s = rwkv6_ref(*base, return_state=True)
+    assert _rel(got_o, want_o) < RWKV_TOL and _rel(got_s, want_s) < RWKV_TOL
+
+
+# Decays at and past the model's edges (w = exp(-exp(logdecay)), logdecay in
+# [-8, 1.2]), w = 1.0 exactly (bf16's rounding of exp(-exp(-8))), w = 1e-12,
+# and all of them mixed: the chunked kernel's decay factors must stay finite
+# and exact at each.
+RWKV_EDGES = {
+    "logdecay -8": lambda n, g, dev: torch.full(n, math.exp(-math.exp(-8.0)), device=dev),
+    "logdecay 1.2": lambda n, g, dev: torch.full(n, math.exp(-math.exp(1.2)), device=dev),
+    "w 1.0": lambda n, g, dev: torch.ones(n, device=dev),
+    "w 1e-12": lambda n, g, dev: torch.full(n, 1e-12, device=dev),
+    "mixed": lambda n, g, dev: torch.tensor(
+        [math.exp(-math.exp(-8.0)), math.exp(-math.exp(1.2)), 1.0, 1e-12, 0.5],
+        device=dev)[torch.randint(0, 5, n, generator=g, device=dev)],
+}
+
+
+def _rwkv_edge_inputs(bh, t, kd, vd, edge, dtype, dev, seed=0):
+    args = _rwkv_inputs(bh, t, kd, vd, torch.float32, dev, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    args[3] = RWKV_EDGES[edge]((bh, t, kd), g, dev)
+    return [x.to(dtype) for x in args[:4]] + [args[4]]
+
+
+@pytest.mark.parametrize("edge", list(RWKV_EDGES))
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 37, 100])
+@pytest.mark.parametrize("kv", [16, 64])
+def test_rwkv6_kernel_at_decay_edges_and_chunk_edges(cuda, edge, t, kv):
+    """The chunked kernel (16-step chunks, 32-column blocks) at the decay
+    edges and at T below, at and past a chunk, in bf16 with the state out."""
+    args = _rwkv_edge_inputs(4, t, kv, kv, edge, torch.bfloat16, cuda, seed=t + kv)
+    before = rk.launches["rwkv6"]
+    got_o, got_s = rk.rwkv6(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert rk.launches["rwkv6"] == before + 1
+    want_o, want_s = rwkv6_ref(*args, return_state=True)
+    assert torch.isfinite(got_o).all() and torch.isfinite(got_s).all()
+    assert _rel(got_o, want_o) < RWKV_TOL and _rel(got_s, want_s) < RWKV_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kd,vd", [(64, 16), (16, 64), (24, 40), (17, 33), (64, 64)])
+def test_rwkv6_kernel_widths_on_transposed_views(cuda, kd, vd, dtype):
+    """V = 16 and 64 (one and two column blocks), widths that are not
+    multiples of 8 (odd ones copied 4 bytes at a time) and a last column
+    block of 1 column, all from transposed views, at mixed decays."""
+    bh, t = 6, 37
+    base = _rwkv_edge_inputs(bh, t, kd, vd, "mixed", dtype, cuda, seed=kd * vd)
+    views = [x.transpose(0, 1).contiguous().transpose(0, 1) for x in base[:4]] + [base[4]]
+    assert not views[0].is_contiguous()
+    got_o, got_s = rk.rwkv6(*views, return_state=True)
+    want_o, want_s = rwkv6_ref(*base, return_state=True)
+    assert got_o.shape == (bh, t, vd) and got_s.shape == (bh, kd, vd)
     assert _rel(got_o, want_o) < RWKV_TOL and _rel(got_s, want_s) < RWKV_TOL
 
 
@@ -463,6 +522,87 @@ def test_flash_attention_forms_copy_unaligned_operands(cuda, sq, form):
     assert _form_ran(before, form)
     want = fa.attention_chunked(q, k, v, causal=True, chunk=96)
     assert _flash_close(got, want, torch.bfloat16), _flash_errs(got, want)
+
+
+# The float32 form at its tile edges (64 packed query rows a block, 32 keys a
+# tile, 64 at Dh 256): (bhq, bhkv, sq, sk, dh, causal, softcap).
+F32_CASES = [
+    (2, 2, 63, 63, 64, True, None),
+    (2, 2, 64, 64, 64, True, None),
+    (2, 2, 65, 65, 64, True, None),
+    (2, 2, 1, 1, 64, True, None),         # one query row, one key
+    (2, 2, 1, 65, 64, True, None),
+    (2, 2, 65, 1, 64, True, None),        # Sk < Sq: rows before 64 see no key
+    (4, 2, 63, 65, 128, True, None),      # a shifted diagonal
+    (4, 2, 64, 63, 128, True, None),      # Sk < Sq: row 0 sees no key
+    (3, 3, 100, 37, 128, True, None),
+    (4, 4, 50, 50, 32, True, None),       # Dh 32
+    (6, 2, 33, 97, 36, False, None),      # Dh 36, no mask
+    (6, 2, 70, 70, 36, True, None),
+    (2, 2, 40, 45, 17, True, None),       # Dh odd: 4-byte copies
+    (2, 2, 130, 130, 256, True, None),    # Dh 256: 64-key tiles
+    (2, 2, 65, 65, 128, True, 30.0),      # softcap (q scaled to reach it)
+    (2, 2, 70, 70, 256, True, 50.0),
+    (32, 8, 1, 544, 128, True, None),     # granite's decode: 4 query heads packed, split keys
+    (64, 8, 3, 300, 128, True, None),     # group 8, Sq 3: 24 packed rows, a diagonal each
+    (8, 1, 16, 100, 128, True, None),     # 128 packed rows: two tiles of four heads each
+    (8, 2, 20, 90, 64, True, None),       # tiles straddle two heads
+    (64, 16, 256, 256, 128, True, None),  # the blocks fill the card: one split
+    (16, 8, 128, 128, 128, False, None),  # no mask, split keys
+]
+
+
+@pytest.mark.parametrize("bhq,bhkv,sq,sk,dh,causal,cap", F32_CASES)
+def test_flash_attention_f32_form_matches_plain(cuda, bhq, bhkv, sq, sk, dh, causal, cap):
+    """The float32 form against the plain chunked version at its tile edges;
+    the form that ran is ``f32``."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dtype = torch.float32
+    q, k, v = _qkv(bhq, bhkv, sq, sk, dh, dtype, cuda, seed=sq * 5 + sk + dh)
+    if cap is not None:
+        q = q * SOFTCAP_Q_SCALE
+    assert fa.kernel_form(dtype, sq, bhq // bhkv) == "f32"
+    before = dict(fa.launches_by_form)
+    got = fa.attention(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert _form_ran(before, "f32")
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.attention_chunked(q, k, v, causal=causal, softcap=cap, chunk=96)
+    assert _flash_close(got, want, dtype), _flash_errs(got, want)
+    if cap is not None:  # the scores reach the cap: without it the check fails
+        uncapped = fa.attention_chunked(q, k, v, causal=causal, chunk=96)
+        assert not _flash_close(uncapped, want, dtype), _flash_errs(uncapped, want)
+    if causal and sk < sq:
+        assert not got[:, : sq - sk].any()  # rows that see no key give 0
+
+
+@pytest.mark.parametrize("sq", [1, 3, 70])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flash_attention_f32_form_reads_views(cuda, sq, offset):
+    """The model's operands in the float32 form: [B, S, H, Dh] projections
+    and the valid prefix of a [B, max_len, KV, Dh] cache as [B, H, S, Dh]
+    views; with ``offset`` every operand lies one element (4 bytes) off 16
+    bytes, which the form reads with 4-byte copies."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    b, h, kvh, length, max_len, dh = 2, 8, 2, 130, 160, 128
+    g = torch.Generator(device=cuda).manual_seed(21 + sq + offset)
+
+    def buf(*shape):
+        n = int(np.prod(shape))
+        return torch.randn(n + offset, generator=g, device=cuda)[offset:].view(shape)
+
+    q, kc, vc = buf(b, sq, h, dh), buf(b, max_len, kvh, dh), buf(b, max_len, kvh, dh)
+    qv, kv, vv = q.transpose(1, 2), kc[:, :length].transpose(1, 2), vc[:, :length].transpose(1, 2)
+    before = dict(fa.launches_by_form)
+    got = fa.attention(qv, kv, vv, causal=True)
+    torch.cuda.synchronize()
+    assert _form_ran(before, "f32")
+    assert got.shape == (b, h, sq, dh)
+    flat = [x.contiguous().reshape(-1, x.shape[2], dh) for x in (qv, kv, vv)]
+    want = fa.attention_chunked(*flat, causal=True).reshape(b, h, sq, dh)
+    assert _flash_close(got, want, torch.float32), _flash_errs(got, want)
 
 
 def test_flash_attention_decode_form_merges_splits(cuda):

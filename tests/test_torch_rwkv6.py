@@ -7,7 +7,11 @@ decode step. Everything computes in float32 (bfloat16 inputs are widened
 exactly), so the tolerances are float32 rounding ones, relative to the
 largest value compared (at least 1): 1e-5 for the same algorithm in another
 summation order, and 1e-3, the bound of the JAX package's own tests, where a
-chunked form is held against the sequential one.
+chunked form is held against the sequential one. The CUDA kernel's own
+arithmetic (``rwkv6_chunk_ref``: chunks of 16 steps, decay factors as
+products anchored between the two steps, value columns in blocks of 32) is
+held to 1e-5 of every other version, at the decays the model can produce
+and past them.
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -19,7 +23,7 @@ from repro.kernels.rwkv6 import ops as jops
 from repro.kernels.rwkv6.ref import rwkv6_ref as jax_rwkv6_ref
 from repro.kernels.rwkv6.rwkv6 import rwkv6_kernel as jax_rwkv6_kernel
 from repro_torch.kernels.rwkv6 import ops
-from repro_torch.kernels.rwkv6.ref import rwkv6_ref
+from repro_torch.kernels.rwkv6.ref import CHUNK, COLS, rwkv6_chunk_ref, rwkv6_ref
 
 TOL = 1e-5        # same algorithm, float32, another summation order
 TOL_FORM = 1e-3   # another algorithm (chunked / factored vs sequential)
@@ -137,3 +141,83 @@ def test_chunked_path_needs_whole_chunks_like_jax():
     arrs = _torch(_inputs(2, 1, 67, 16, 16), "float32")
     with pytest.raises(ValueError, match="multiple of chunk"):
         ops.rwkv6(*arrs, chunk=64)
+
+
+# Decays at and past the model's edges: w = exp(-exp(logdecay)) with
+# logdecay clamped to [-8, 1.2] by the model, w = 1.0 exactly (what bf16
+# rounding makes of exp(-exp(-8))), w at the kernel's clamp 1e-12, and all of
+# them mixed with the model's typical range.
+DECAY_EDGES = {
+    "logdecay -8": lambda rng, shape: np.full(shape, np.exp(-np.exp(-8.0))),
+    "logdecay 1.2": lambda rng, shape: np.full(shape, np.exp(-np.exp(1.2))),
+    "w 1.0": lambda rng, shape: np.ones(shape),
+    "w 1e-12": lambda rng, shape: np.full(shape, 1e-12),
+    "mixed": lambda rng, shape: rng.choice(
+        [np.exp(-np.exp(-8.0)), np.exp(-np.exp(1.2)), 1.0, 1e-12, 0.5], shape),
+}
+
+
+def _edge_inputs(seed, bh, t, kd, vd, edge, dtype="float32"):
+    arrs = _inputs(seed, bh, t, kd, vd)
+    rng = np.random.default_rng(seed + 1)
+    arrs[3] = DECAY_EDGES[edge](rng, (bh, t, kd))
+    np_dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    return [np.asarray(a, np.float32).astype(np_dt) for a in arrs[:4]] + [arrs[4]]
+
+
+@pytest.mark.parametrize("edge", list(DECAY_EDGES))
+@pytest.mark.parametrize("t", [1, CHUNK - 1, CHUNK, CHUNK + 1, 37])
+def test_kernel_arithmetic_matches_jax_and_sequential(edge, t):
+    """The kernel's arithmetic in plain PyTorch against JAX's ``rwkv6_ref``
+    and the port's sequential ``rwkv6_ref``: outputs and the final state, at
+    the decay edges, with T below, at and past one chunk and ragged."""
+    arrs = _edge_inputs(t, 3, t, 16, 40, edge)
+    want = np.asarray(jax_rwkv6_ref(*[jnp.asarray(a) for a in arrs]))
+    got_o, got_s = rwkv6_chunk_ref(*_torch(arrs, "float32"), return_state=True)
+    assert got_o.dtype == torch.float32 and got_o.shape == (3, t, 40)
+    assert _err(got_o, want) < TOL
+    plain_o, plain_s = rwkv6_ref(*_torch(arrs, "float32"), return_state=True)
+    assert _err(got_o, plain_o) < TOL and _err(got_s, plain_s) < TOL
+
+
+@pytest.mark.parametrize("edge", list(DECAY_EDGES))
+def test_kernel_arithmetic_matches_jax_pallas_kernel_interpreted(edge):
+    """Against the TPU kernel itself (interpret mode) at its chunk of 16,
+    which it needs T to be a multiple of. bf16 inputs: w = 1.0 exactly where
+    bf16 rounds exp(-exp(-8))."""
+    arrs = _edge_inputs(7, 2, 2 * CHUNK, 16, 16, edge, "bfloat16")
+    want = jax_rwkv6_kernel(*[jnp.asarray(a) for a in arrs], chunk=CHUNK, interpret=True)
+    got = rwkv6_chunk_ref(*_torch(arrs, "bfloat16"))
+    assert np.isfinite(np.asarray(want)).all()
+    assert _err(got, want) < TOL
+
+
+@pytest.mark.parametrize("vd", [64, 40, 33])
+def test_kernel_column_split_reproduces_the_whole(vd):
+    """Value columns in blocks of 32, as the kernel's column groups take
+    them: outputs and state equal the sequential form's over all columns at
+    once, and each block computed alone equals its columns of the whole."""
+    arrs = _torch(_edge_inputs(4, 2, 37, 24, vd, "mixed"), "float32")
+    got_o, got_s = rwkv6_chunk_ref(*arrs, return_state=True)
+    want_o, want_s = rwkv6_ref(*arrs, return_state=True)
+    assert _err(got_o, want_o) < TOL and _err(got_s, want_s) < TOL
+    for c0 in range(0, vd, COLS):
+        part = [*arrs[:2], arrs[2][..., c0 : c0 + COLS], *arrs[3:]]
+        part_o, part_s = rwkv6_chunk_ref(*part, return_state=True)
+        assert _err(part_o, got_o[..., c0 : c0 + COLS]) < TOL
+        assert _err(part_s, got_s[..., c0 : c0 + COLS]) < TOL
+
+
+def test_chunked_path_overflows_at_the_decay_bound_where_the_kernel_arithmetic_does_not():
+    """Every decay at the model's bound (logdecay 1.2, w = 0.036) over a
+    64-step chunk: the factored form's centring at c_C/2 needs e^106, past
+    float32, in the JAX package's ``rwkv6_chunked`` (the model's CPU path,
+    chunk 64) and in the port's copy of it alike; the kernel's products of
+    decays and the sequential form stay finite and agree."""
+    arrs = _edge_inputs(8, 2, 64, 16, 16, "logdecay 1.2")
+    jax_out = np.asarray(jops.rwkv6_chunked(*[jnp.asarray(a) for a in arrs], chunk=64))
+    port_out = ops.rwkv6_chunked(*_torch(arrs, "float32"), chunk=64)
+    assert not np.isfinite(jax_out).all() and not torch.isfinite(port_out).all()
+    got = rwkv6_chunk_ref(*_torch(arrs, "float32"))
+    want = rwkv6_ref(*_torch(arrs, "float32"))
+    assert torch.isfinite(got).all() and _err(got, want) < TOL
