@@ -8,7 +8,8 @@ Phases (each prints its results; any failure exits non-zero):
    the shapes of the full-width run (bit-equal outputs), with device times
    (``queued_ms``: median and spread of 5 windows of calls queued behind a
    sleep kernel), CUDA-event call times and the byte bound of each
-   configuration;
+   configuration; then untimed at the edges of the redesigned kernels (the
+   graph's longest rows as slabs, unpadded key tables);
 3. the table4 workload: q1-q3 under ``huge`` on powerlaw_graph(4096, 8.0,
    seed=7), fused, with the reference's match counts;
 4. verify and join: q3/rads, q1/seed, q2/seed (fused) and q3/huge through the
@@ -381,12 +382,15 @@ def walk_rows(adj, deg, b, k, gen):
     return torch.stack(cols, dim=1).to(torch.int32).contiguous()
 
 
-def slab_inputs(adj, deg, b, e, k, cache_rows, gen):
+def slab_inputs(adj, deg, b, e, k, cache_rows, gen, hubs=None):
     """(tab0, tab1, idx, sel, ok, rows) as the engine builds them: tab0 is a
-    value-cache table holding the batch's slabs among ``cache_rows`` rows."""
+    value-cache table holding the batch's slabs among ``cache_rows`` rows.
+    ``hubs``: vertex ids that the slab columns of every row are drawn from."""
     dev = adj.device
     v = adj.shape[0]
     rows = walk_rows(adj, deg, b, k, gen)
+    if hubs is not None:
+        rows[:, :e] = hubs[torch.randint(0, hubs.numel(), (b, e), generator=gen, device=dev)]
     rows[::4, 1:e] = rows[::4, :1]  # a quarter of the rows intersect a slab with itself,
     vids = rows[:, :e].long()       # so that E >= 2 has members (the graph has few triangles)
     need = torch.unique(vids)
@@ -403,6 +407,9 @@ def slab_inputs(adj, deg, b, e, k, cache_rows, gen):
 
 
 def phase_kernels(graph, ik, ref):
+    """Each intersect kernel against its plain version at the full-width
+    shapes, with its times; beside them a plain fill of fused_extend's output
+    bytes and the latency floor of lex_bounds' rounds (``load_latency``)."""
     adj, deg = graph.padded.adj, graph.padded.deg
     d = adj.shape[1]
     gen = torch.Generator(device=adj.device).manual_seed(0)
@@ -414,15 +421,22 @@ def phase_kernels(graph, ik, ref):
     torch.cuda.synchronize()
     log(f"  first touch of the {adj.numel() * 4 / 1e9:.2f} GB adjacency: "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    # What a plain write of fused_extend's output bytes (cands int32 and mask
+    # bytes, B*D*5) takes on this card: one fill_ of as many bytes.
+    fill = torch.empty(b * d * 5, dtype=torch.uint8, device=adj.device)
+    fill_ms = queued_ms(lambda: fill.fill_(0xFF))[0]
+    log(f"  plain fill of fused_extend's {fill.numel()} output bytes: queued={fill_ms:.4f} ms")
+    del fill
+    lat = load_latency()
 
-    def keep(name, shape, err, kernel, plain, nbytes, library=None, note=""):
+    def keep(name, shape, err, kernel, plain, nbytes, library=None, note="", **extra):
         (call, (ms, lo, hi)), (plain_call, plain_dev) = kernel, plain
         cfg = dict(shape=shape, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_dev[0],
                    bound_ms=bound_ms(nbytes), bound_bytes=nbytes,
                    library_ms=library[1][0] if library else None,
                    call_ms=call[0], call_ms_min=call[1], call_ms_max=call[2],
                    plain_call_ms=plain_call[0],
-                   library_call_ms=library[0][0] if library else None)
+                   library_call_ms=library[0][0] if library else None, **extra)
         log(f"  {name} [{shape}{note}]: max_abs_err={err} "
             f"kernel queued={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) "
             f"call={call[0]:.4f} ms (min {call[1]:.4f}, max {call[2]:.4f}) | "
@@ -447,7 +461,7 @@ def phase_kernels(graph, ik, ref):
              timed(lambda: ref.fused_extend_ref(tab0, tab1, idx, sel, ok, rows, lt=lt, gt=gt),
                    plain=True),
              extend_bytes(tab0, tab1, idx, sel, ok, rows, lt, gt, ref),
-             note=f" B={b} D={d}, {int(m_r.sum())} matches")
+             note=f" B={b} D={d}, {int(m_r.sum())} matches", fill_ms=fill_ms)
 
         vrows = rows.clone()
         vrows[::2, k - 1] = torch.where(  # half the targets are true members
@@ -506,10 +520,130 @@ def phase_kernels(graph, ik, ref):
             hi_l = torch.searchsorted(k1, q1, right=True)
             assert torch.equal(lo_l.to(torch.int32), lo_k) and torch.equal(hi_l.to(torch.int32), hi_k)
             library = timed(lambda: (torch.searchsorted(k1, q1), torch.searchsorted(k1, q1, right=True)))
+        # The design's latency floor: the query's load, then one load a round
+        # (32-way splits: ceil(log2(CAP) / 5) rounds while the two bounds'
+        # ranges are one), each at L2's latency, after the launch's own time.
+        rounds = math.ceil(math.log2(cap) / 5)
+        floor_ms = lat["launch_ms"] + (1 + rounds) * lat["l2_ns"] / 1e6
+        log(f"  lex_bounds [KK={kk}] latency floor: {lat['launch_ms']:.4f} ms launch + "
+            f"(1 + {rounds} rounds) x {lat['l2_ns']:.1f} ns = {floor_ms:.4f} ms")
         keep("lex_bounds", f"KK={kk}", err, timed(lambda: ik.lex_bounds(keys, q)),
              timed(lambda: ref.lex_bounds_ref(keys, q), plain=True), lex_bytes(keys, q, ref),
-             library=library, note=f" CAP={cap} B={b}")
+             library=library, note=f" CAP={cap} B={b}", rounds=rounds, floor_ms=floor_ms,
+             load_l2_ns=lat["l2_ns"], load_hbm_ns=lat["hbm_ns"], launch_ms=lat["launch_ms"])
+    intersect_edge_checks(graph, ik, ref, gen)
     return rec
+
+
+# A chain of dependent loads: one thread follows nxt from *pos for `steps`
+# loads (through L2, not L1) and leaves where it stopped in *pos. A probe of
+# the card's load latency for lex_bounds' floor, not a kernel of the port.
+CHASE_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__global__ void chase_kernel(const int32_t* nxt, int32_t* pos, int steps) {
+  int32_t i = *pos;
+  for (int s = 0; s < steps; ++s) i = __ldcg(nxt + i);
+  *pos = i;
+}
+
+extern "C" int chase_launch(const int32_t* nxt, int32_t* pos, int steps, void* stream) {
+  chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(nxt, pos, steps);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+CHASE_STEPS = 1 << 13
+
+
+def chase_library():
+    """The probe's library, its source written under the build directory."""
+    import ctypes
+
+    from repro_torch.kernels.build import BUILD_DIR, CudaLibrary
+
+    src = BUILD_DIR.parent / "probe" / "chase.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    if not src.exists() or src.read_text() != CHASE_CU:
+        src.write_text(CHASE_CU)
+
+    def declare(lib):
+        p = ctypes.c_void_p
+        lib.chase_launch.argtypes = [p, p, ctypes.c_int, p]
+        lib.chase_launch.restype = ctypes.c_int
+
+    return CudaLibrary("chase_probe", src, declare)
+
+
+def load_latency():
+    """One dependent load's latency on this card, from ``CHASE_CU``: the
+    queued time of CHASE_STEPS loads less that of the same launch with none,
+    over a random cycle through 2^20 int32 (4 MB, read whole first so it sits
+    in L2, as lex_bounds' key table does across calls) and through 2^26
+    int32 (256 MB, where the chain meets each entry once: device memory).
+    Returns {"l2_ns", "hbm_ns", "launch_ms"} (launch_ms: the launch with no
+    load, queued)."""
+    lib = chase_library().load()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def run(nxt, steps):
+        rc = lib.chase_launch(nxt.data_ptr(), pos.data_ptr(), steps,
+                              torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"chase_launch failed ({rc})"
+
+    out = {}
+    for key, n in (("l2_ns", 1 << 20), ("hbm_ns", 1 << 26)):
+        perm = torch.randperm(n, generator=gen, device="cuda")
+        nxt = torch.empty(n, dtype=torch.int32, device="cuda")
+        nxt[perm] = perm.roll(-1).to(torch.int32)
+        del perm
+        if key == "l2_ns":
+            run(nxt, n)  # the whole cycle once: the table is in L2 from here
+            out["launch_ms"] = queued_ms(lambda: run(nxt, 0))[0]
+        ms = queued_ms(lambda: run(nxt, CHASE_STEPS), iters=4, repeats=3)[0]
+        out[key] = (ms - out["launch_ms"]) / CHASE_STEPS * 1e6
+        del nxt
+    log(f"  dependent load latency (chase of {CHASE_STEPS}): L2 {out['l2_ns']:.1f} ns, "
+        f"device memory {out['hbm_ns']:.1f} ns; empty launch queued {out['launch_ms']:.4f} ms")
+    return out
+
+
+def intersect_edge_checks(graph, ik, ref, gen):
+    """Untimed, bit-equal checks where the redesigned kernels change path:
+    fused_extend on the graph's longest rows (prefixes past the 4096 int32
+    staged in shared memory, candidates past a 1024-slot tile), and
+    lex_bounds on unpadded tables whose last key is queried and passed (the
+    bound equal to CAP, which the plain version's halving reads as CAP + 1
+    where it steps past it)."""
+    adj, deg = graph.padded.adj, graph.padded.deg
+    hubs = torch.topk(deg, 16).indices
+    for e, k in ((2, 3), (3, 4)):
+        tab0, tab1, idx, sel, ok, rows = slab_inputs(adj, deg, 256, e, k, 1 << 10, gen, hubs=hubs)
+        c_k, m_k = ik.fused_extend(tab0, tab1, idx, sel, ok, rows, lt=(k - 1,))
+        c_r, m_r = ref.fused_extend_ref(tab0, tab1, idx, sel, ok, rows, lt=(k - 1,))
+        torch.cuda.synchronize()
+        err = max(max_abs_err(c_k, c_r), max_abs_err(m_k, m_r))
+        log(f"  fused_extend [hub slabs E={e} K={k}, degrees {int(deg[hubs].min())}-"
+            f"{int(deg[hubs].max())}, {int(m_r.sum())} matches]: max_abs_err={err}")
+        assert err == 0, f"fused_extend on hub slabs E={e} disagrees with its plain version"
+    src = graph.nbrs
+    for cap, kk in ((77, 2), (1024, 1), (1 << 20, 1), (1 << 20, 2)):
+        pick = torch.randint(0, src.numel(), (cap, kk), generator=gen, device=src.device)
+        keys = src[pick].to(torch.int64)
+        comb = keys[:, 0] * (1 << 31) + (keys[:, 1] if kk == 2 else 0)
+        keys = keys[torch.sort(comb, stable=True).indices].to(torch.int32).contiguous()
+        last, beyond = keys[-1:].clone(), keys[-1:].clone()
+        beyond[0, -1] += 1
+        q = torch.cat([keys[torch.randint(0, cap, (61,), generator=gen, device=src.device)],
+                       last, beyond, torch.full_like(last, INVALID - 1)])
+        lo_k, hi_k = ik.lex_bounds(keys, q)
+        lo_r, hi_r = ref.lex_bounds_ref(keys, q)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(lo_k, lo_r), max_abs_err(hi_k, hi_r))
+        log(f"  lex_bounds [unpadded CAP={cap} KK={kk}; last key -> hi={int(hi_r[-3])}, "
+            f"past it -> lo={int(lo_r[-2])}]: max_abs_err={err}")
+        assert err == 0, f"lex_bounds on an unpadded table CAP={cap} disagrees with its plain version"
 
 
 # ---------------------------------------------------------------------------
@@ -1111,7 +1245,7 @@ def main() -> int:
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = (ik.LIB, rk.LIB, fa.LIB)
+    libs = (ik.LIB, rk.LIB, fa.LIB, chase_library())
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, started together
         list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:

@@ -141,13 +141,17 @@ def _victims(epoch, cur, sets, miss, lru: bool):
 
 
 def _insert(state_tensors, srcs, slots, miss):
-    """Write item ``i``'s ``srcs`` into slot ``slots[i]`` of each state tensor
+    """Write item ``i``'s source into slot ``slots[i]`` of each state tensor
     for every miss, the last occurrence winning a slot.
 
     ``state_tensors[j]`` is viewed as ``[M*S*W, ...]``; ``slots`` are flat
-    indices into it. Items that do not insert are pointed at slot 0 with the
-    value slot 0 ends up holding, so the single scatter per tensor has no
-    conflicting writers and the result is deterministic."""
+    indices into it. ``srcs[j]`` is a ``(table, ids)`` pair: item ``i``'s
+    value is ``table[ids[i]]``, or ``table[i]`` where ``ids`` is None; each
+    item's row is gathered once, straight from the table, by its slot's
+    winner. Items that do not insert are pointed at slot 0 with slot 0's
+    winner's value, so every slot has one value among its writers and the
+    single scatter per tensor is deterministic. Where slot 0 has no winner
+    they write item 0's value, and slot 0 then gets its old value back."""
     total = state_tensors[0].shape[0]
     item = torch.arange(slots.numel(), device=slots.device)
     winner = torch.full((total,), -1, dtype=torch.int64, device=slots.device)
@@ -155,17 +159,18 @@ def _insert(state_tensors, srcs, slots, miss):
                            "amax", include_self=True)
     tgt = torch.where(miss, slots, 0)
     src_item = winner[tgt]  # a miss is its slot's winner or loses to a later one
-    has = src_item >= 0
     src_item = src_item.clamp(min=0)
-    for dst, src in zip(state_tensors, srcs):
-        new = src[src_item]
-        cond = has.view(-1, *([1] * (new.ndim - 1)))
-        dst[tgt] = torch.where(cond, new, dst[0].expand_as(new))
+    for dst, (table, ids) in zip(state_tensors, srcs):
+        old0 = dst[0].clone()
+        dst[tgt] = table[src_item if ids is None else ids[src_item]]
+        dst[0] = torch.where(winner[0] < 0, old0, dst[0])
 
 
-def _fetch_update(state: LRBUState, vids: torch.Tensor, rows=None, degs=None,
+def _fetch_update(state: LRBUState, vids: torch.Tensor, values=None,
                   lru: bool = False) -> torch.Tensor:
-    """Stacked fetch stage: seal hits, insert misses, Release. In place."""
+    """Stacked fetch stage: seal hits, insert misses, Release. In place.
+    ``values``: the value cache's ``(slabs, degrees)`` sources, each a
+    ``(table, ids)`` pair over the flattened ``vids`` (see :func:`_insert`)."""
     m, s, w = state.keys.shape
     sets, way, hit = _locate(state.keys, vids)
     cur = state.current_epoch
@@ -176,11 +181,11 @@ def _fetch_update(state: LRBUState, vids: torch.Tensor, rows=None, degs=None,
     slots = (base + sets * w + victim).reshape(-1)
     n = vids.shape[1]
     dsts = [state.keys.view(m * s * w), state.epoch.view(m * s * w)]
-    srcs = [vids.reshape(-1), cur[:, None].expand(m, n).reshape(-1)]
-    if rows is not None:
+    srcs = [(vids.reshape(-1), None), (cur[:, None].expand(m, n).reshape(-1), None)]
+    if values is not None:
         d = state.values.shape[-1]
         dsts += [state.values.view(m * s * w, d), state.degs.view(m * s * w)]
-        srcs += [rows.reshape(m * n, d), degs.reshape(-1)]
+        srcs += list(values)
     _insert(dsts, srcs, slots, miss.reshape(-1))
     state.current_epoch += 1  # Release(): the next batch outranks everything
     return hit
@@ -204,7 +209,7 @@ def _fetch_update_direct(state: LRBUState, vids: torch.Tensor):
     m = keys0.shape[0]
     slots = (torch.arange(m, device=vids.device)[:, None] * s + sets).reshape(-1)
     flat_keys = keys0.contiguous().view(-1)
-    _insert([flat_keys], [vids.reshape(-1)], slots, miss.reshape(-1))
+    _insert([flat_keys], [(vids.reshape(-1), None)], slots, miss.reshape(-1))
     state.keys[:, :, 0] = flat_keys.view(m, s)
     state.current_epoch += 1
     return state, hit
@@ -234,8 +239,22 @@ def fetch_update(state: LRBUState, vids: torch.Tensor):
 
 def fetch_update_values(state: LRBUState, vids: torch.Tensor, rows: torch.Tensor,
                         degs: torch.Tensor):
-    """Value-cache variant: also store the fetched adjacency slabs of misses."""
-    hit = _fetch_update(_stack(state), vids[None], rows[None], degs[None])
+    """Value-cache variant: also store the fetched adjacency slabs of misses
+    (``rows[N, D]``, ``degs[N]``, one per requested vid)."""
+    d = rows.shape[-1]
+    hit = _fetch_update(_stack(state), vids[None],
+                        ((rows.reshape(-1, d), None), (degs.reshape(-1), None)))
+    return state, hit[0]
+
+
+def fetch_update_adjacency(state: LRBUState, vids: torch.Tensor, adj: torch.Tensor,
+                           deg: torch.Tensor):
+    """:func:`fetch_update_values` with each miss's slab and degree read
+    straight from the padded adjacency ``adj[V, D]`` and ``deg[V]`` by its
+    vertex id (clamped into the table, as the engine clamps it): the slabs
+    are gathered once, for the inserts alone, not first for every request."""
+    ids = vids.clamp(0, adj.shape[0] - 1).long()
+    hit = _fetch_update(_stack(state), vids[None], ((adj, ids), (deg, ids)))
     return state, hit[0]
 
 

@@ -634,9 +634,7 @@ class HugeEngine:
         if self._vcache is not None:
             flat = torch.where(ok, vids, INVALID).reshape(-1)
             uniq = ops_mod.dedup_pad(flat)
-            safe = uniq.clamp(0, v - 1).long()
-            degs = torch.where(uniq != INVALID, self.deg[safe], 0)
-            lrbu.fetch_update_values(self._vcache, uniq, self.adj[safe], degs)
+            lrbu.fetch_update_adjacency(self._vcache, uniq, self.adj, self.deg)
             idx0, hit = lrbu.probe_indices(self._vcache, flat)
             tab0 = self._vcache.values.view(-1, self.d_pad)
             idx0 = idx0.view(vids.shape)

@@ -142,7 +142,9 @@ def fused_extend(
     gt: Tuple[int, ...] = (),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Slab gather → multiway intersect → injectivity/order filters.
-    Returns (cands[B, D], mask[B, D]); row validity is not applied."""
+    Returns (cands[B, D], mask[B, D]); row validity is not applied. Slab rows
+    must be sorted ascending and INVALID-padded (the kernel reads only their
+    valid prefixes)."""
     if not _on_cuda("fused_extend", tab0, tab1, idx, sel, ok, rows):
         return fused_extend_ref(tab0, tab1, idx, sel, ok, rows, lt=lt, gt=gt)
     b, e, k, d = _check_slabs("fused_extend", tab0, tab1, idx, sel, ok, rows)
@@ -187,7 +189,9 @@ def fused_verify(
 
 
 def lex_bounds(sorted_keys: torch.Tensor, queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Equal-range (lo, hi) of queries[B, KK] in sorted_keys[CAP, KK]."""
+    """Equal-range (lo, hi) of queries[B, KK] in sorted_keys[CAP, KK], which
+    must be sorted lexicographically; a bound equal to CAP reads as the plain
+    version's fixed-count halving gives it (CAP or CAP + 1, by CAP alone)."""
     if not _on_cuda("lex_bounds", sorted_keys, queries):
         return lex_bounds_ref(sorted_keys, queries)
     cap, kk = sorted_keys.shape

@@ -108,6 +108,40 @@ def test_duplicate_targets_resolve_to_the_last_writer():
         assert sp.values[0, w].tolist() == rows[i].tolist() and int(sp.degs[0, w]) == degs[i]
 
 
+@pytest.mark.parametrize("cap,ways,n,vmax", [
+    (16, 4, 16, 60),   # the engine's shape of request: deduped, INVALID-padded
+    (8, 2, 12, 24),    # more misses than ways in a set: duplicate targets
+    (4, 4, 8, 9),      # one set: every insert meets slot 0
+])
+def test_adjacency_route_matches_reference(cap, ways, n, vmax):
+    """The fused prologue's route (``fetch_update_adjacency``: each miss's
+    slab and degree read from the adjacency by vertex id, gathered once)
+    against the JAX package's ``fetch_update_values`` given the gathered
+    slabs and degrees as its engine builds them: the full state and the hits
+    after every batch, and the probe the kernels read."""
+    d = 16
+    rng = np.random.default_rng(cap * ways + n)
+    adj = np.full((vmax, d), INVALID, np.int32)
+    deg = rng.integers(0, d + 1, vmax).astype(np.int32)
+    for v in range(vmax):
+        adj[v, : deg[v]] = np.sort(rng.choice(4 * d, deg[v], replace=False))
+    sr = ref.make_cache(cap, ways=ways, d_pad=d)
+    sp = pt.make_cache(cap, ways=ways, d_pad=d, device="cpu")
+    for vids in seeded_batches(cap + n, 10, n, vmax):
+        safe = np.clip(vids, 0, vmax - 1)
+        degs = np.where(vids != INVALID, deg[safe], 0).astype(np.int32)
+        sr, hr = ref.fetch_update_values(sr, jnp.asarray(vids), jnp.asarray(adj[safe]),
+                                         jnp.asarray(degs))
+        sp, hp = pt.fetch_update_adjacency(sp, torch.from_numpy(vids), torch.from_numpy(adj),
+                                           torch.from_numpy(deg))
+        np.testing.assert_array_equal(hp.numpy(), np.asarray(hr))
+        same_state(sp, sr)
+        ir, hr2 = ref.probe_indices(sr, jnp.asarray(vids))
+        ip, hp2 = pt.probe_indices(sp, torch.from_numpy(vids))
+        np.testing.assert_array_equal(ip.numpy(), np.asarray(ir))
+        np.testing.assert_array_equal(hp2.numpy(), np.asarray(hr2))
+
+
 @pytest.mark.parametrize("batches", [
     [[0, 4, 8], [0, 4, 8]],              # all ways sealed → bounded overflow
     [[0], [4], [8], [4, 8, 0]],          # evict the least recent batch

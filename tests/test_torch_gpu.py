@@ -22,7 +22,10 @@ aligned copy. The form tests assert, through ``launches_by_form``, that the
 form the shape names is the one that ran; the float32 form's tests sit at
 its tile edges (64 packed query rows, 32-key tiles). The RWKV6 kernel walks
 16-step chunks with decay factors as products; its tests sit at the decay
-edges (logdecay -8 and 1.2, w = 1.0, w = 1e-12) and the chunk edges.
+edges (logdecay -8 and 1.2, w = 1.0, w = 1e-12) and the chunk edges. The
+fused extend kernel reads only each slab's valid prefix (slabs are sorted and
+INVALID-padded) and lex_bounds searches a sorted key table 32 ways at a
+time; their tests sit at those designs' edges (``-k "extend or lex"``).
 """
 import math
 
@@ -184,6 +187,125 @@ def test_engine_on_card_equals_cpu_port(cuda, qname, space, launched):
               "peak_queue_rows", "batches", "rows_emitted"):
         assert getattr(r_gpu.stats, f) == getattr(r_cpu.stats, f), f
     assert np.array_equal(r_gpu.matches, r_cpu.matches)
+
+
+def _edge_extend_inputs(seed, b, e, k, d, len0, other_lens, ok0, dev):
+    """Fused-extend inputs with set valid lengths (as in
+    test_torch_intersect.py): slab (b, e) is row b*E+e of tab0, tab1 holds the
+    rows reversed and ``sel`` picks either; slab 0 has ``len0`` values (None:
+    random), the others ``other_lens`` (None: random), sorted, INVALID-padded,
+    drawn from [0, 2D); ``ok`` is 1 but ``ok0`` on slab 0."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, d + 1, (b, e))
+    if len0 is not None:
+        lens[:, 0] = len0
+    if other_lens is not None:
+        lens[:, 1:] = other_lens
+    tab0 = np.full((b * e, d), INVALID, np.int32)
+    for r, n in enumerate(lens.reshape(-1)):
+        tab0[r, :n] = np.sort(rng.choice(2 * d, n, replace=False))
+    pos = np.arange(b * e).reshape(b, e)
+    idx = np.stack([pos, b * e - 1 - pos]).astype(np.int32)
+    sel = rng.integers(0, 2, (b, e)).astype(np.int32)
+    ok = np.ones((b, e), np.int32)
+    ok[:, 0] = ok0
+    rows = rng.integers(0, 2 * d, (b, k)).astype(np.int32)
+    rows[rng.random((b, k)) < 0.1] = INVALID
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (tab0, tab0[::-1], idx, sel, ok, rows)]
+
+
+# (what, E, K, D, slab 0's valid length, the other slabs', ok on slab 0, lt, gt)
+# at the edges of fused_extend's design: the first probe of 128 slots, tiles
+# of 1024 candidates, 16-byte stores against a ragged width, and the 4096
+# int32 of shared memory that stage the other slabs' prefixes.
+EXTEND_EDGES = [
+    ("slab 0 empty", 3, 4, 4608, 0, None, 1, (), ()),
+    ("slab 0 full", 3, 4, 4608, 4608, None, 1, (0,), (2,)),
+    *[(f"slab 0 of {n}", 3, 4, 4608, n, None, 1, (), (1,)) for n in (1, 127, 128, 129, 4095)],
+    ("ok 0 on slab 0", 3, 4, 4608, 200, None, 0, (), ()),
+    *[(f"E={e}", e, 4, 4608, None, None, 1, (), ()) for e in (1, 2, 3, 4)],
+    ("K=32", 3, 32, 4608, None, None, 1, (5,), (31,)),
+    ("D=130", 3, 4, 130, None, None, 1, (), ()),
+    ("D=130, full", 3, 4, 130, 130, (130, 130), 1, (), ()),
+    ("one other past the stage", 2, 3, 4608, 300, (4608,), 1, (), ()),
+    ("second other past the stage", 3, 4, 4608, 300, (4000, 4608), 1, (), ()),
+    ("third other past the stage", 4, 4, 4608, 2000, (2000, 2000, 2000), 1, (), ()),
+]
+
+
+@pytest.mark.parametrize("what,e,k,d,len0,others,ok0,lt,gt", EXTEND_EDGES,
+                         ids=[c[0] for c in EXTEND_EDGES])
+def test_fused_extend_kernel_at_design_edges(cuda, what, e, k, d, len0, others, ok0, lt, gt):
+    """Bit for bit against the plain version at every edge of the kernel's
+    design (test_torch_intersect.py holds the plain version to the JAX twin
+    and the Pallas kernel at the same edges)."""
+    args = _edge_extend_inputs(len(what) * 31 + e, 16, e, k, d, len0, others, ok0, cuda)
+    before = ik.launches["fused_extend"]
+    c_k, m_k = ik.fused_extend(*args, lt=lt, gt=gt)
+    torch.cuda.synchronize()
+    assert ik.launches["fused_extend"] == before + 1
+    c_r, m_r = fused_extend_ref(*args, lt=lt, gt=gt)
+    assert torch.equal(c_k, c_r) and torch.equal(m_k, m_r)
+    if len0 == 0 or ok0 == 0:
+        assert (c_r == INVALID).all() and not m_r.any()
+    elif len0 is not None and len0 >= 128:
+        assert m_r.any() and not m_r.all()
+
+
+def _lex_edge_inputs(cap, kk, padded, dev, seed=0):
+    """A sorted key table with duplicates (INVALID rows last where
+    ``padded``) and queries at its edges (as in test_torch_intersect.py):
+    keys of the table, random keys, the last key, one past it, INVALID - 1."""
+    rng = np.random.default_rng(seed + cap * 7 + kk)
+    nk = int(cap * 0.8) if padded else cap
+    keys = np.full((cap, kk), INVALID, np.int32)
+    span = max(4, cap // 8)
+    filled = rng.integers(0, span, (nk, kk)).astype(np.int32)
+    keys[:nk] = filled[np.lexsort(filled[:, ::-1].T)]
+    last = keys[nk - 1] if nk else np.zeros(kk, np.int32)
+    beyond = last.copy()
+    beyond[-1] += 1
+    q = np.concatenate([
+        keys[rng.integers(0, nk, 8)] if nk else np.zeros((8, kk), np.int32),
+        rng.integers(0, span + 1, (8, kk)).astype(np.int32),
+        np.stack([last, beyond, np.full(kk, INVALID - 1, np.int32)]),
+    ]).astype(np.int32)
+    return torch.from_numpy(keys).to(dev), torch.from_numpy(q).to(dev)
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+@pytest.mark.parametrize("kk", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("cap", [1, 2, 3, 4, 77, 1023, 1024, 1025, 1 << 20])
+def test_lex_bounds_kernel_at_cap_edges(cuda, cap, kk, padded):
+    """Bit for bit against the plain version at the CAP edges of the
+    fixed-count halving the kernel reproduces (a bound equal to CAP reads
+    CAP + 1 where the halving steps past it), padded and unpadded. Widths 1-3
+    take the kernel's forms with the key in registers, 4 and 5 the form that
+    compares in place."""
+    keys, q = _lex_edge_inputs(cap, kk, padded, cuda)
+    lo_k, hi_k = ik.lex_bounds(keys, q)
+    torch.cuda.synchronize()
+    lo_r, hi_r = lex_bounds_ref(keys, q)
+    assert torch.equal(lo_k, lo_r) and torch.equal(hi_k, hi_r)
+
+
+def test_value_cache_adjacency_route_on_card(cuda):
+    """The fused prologue's insert straight from the adjacency gives the
+    card the same cache state and hits as the CPU."""
+    from repro_torch.core import cache as lrbu
+
+    rng = np.random.default_rng(5)
+    adj = torch.from_numpy(np.sort(rng.integers(0, 50, (40, 8)), axis=1).astype(np.int32))
+    deg = torch.from_numpy(rng.integers(0, 9, 40).astype(np.int32))
+    states = [lrbu.make_cache(8, ways=2, d_pad=8, device=dev) for dev in ("cpu", cuda)]
+    for _ in range(6):
+        vids = torch.from_numpy(np.unique(rng.integers(0, 40, 12)).astype(np.int32))
+        hits = [lrbu.fetch_update_adjacency(st, vids.to(st.keys.device), adj.to(st.keys.device),
+                                            deg.to(st.keys.device))[1] for st in states]
+        assert torch.equal(hits[1].cpu(), hits[0])
+        for name in ("keys", "epoch", "current_epoch", "values", "degs"):
+            assert torch.equal(getattr(states[1], name).cpu(), getattr(states[0], name)), name
 
 
 # ---------------------------------------------------------------------------

@@ -127,6 +127,127 @@ def test_lex_bounds_on_unpadded_table_follows_the_twin():
     assert hi_p.tolist() == [5, 5, 0]
 
 
+def edge_extend_inputs(seed, b, e, k, d, len0, other_lens=None, ok0=1):
+    """Fused-extend inputs with set valid lengths: slab (b, e) is row b*E+e
+    of tab0 (tab1 holds the rows reversed, and ``sel`` picks either), slab 0
+    with ``len0`` values (None: random), the others ``other_lens`` (None:
+    random), each sorted and INVALID-padded, drawn from [0, 2D) so that slabs
+    share about half their values; ``ok`` is 1 but ``ok0`` on slab 0."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, d + 1, (b, e))
+    if len0 is not None:
+        lens[:, 0] = len0
+    if other_lens is not None:
+        lens[:, 1:] = other_lens
+    tab0 = np.full((b * e, d), INVALID, np.int32)
+    for r, n in enumerate(lens.reshape(-1)):
+        tab0[r, :n] = np.sort(rng.choice(2 * d, n, replace=False))
+    pos = np.arange(b * e).reshape(b, e)
+    idx = np.stack([pos, b * e - 1 - pos]).astype(np.int32)
+    sel = rng.integers(0, 2, (b, e)).astype(np.int32)
+    ok = np.ones((b, e), np.int32)
+    ok[:, 0] = ok0
+    rows = rng.integers(0, 2 * d, (b, k)).astype(np.int32)
+    rows[rng.random((b, k)) < 0.1] = INVALID
+    return tab0, tab0[::-1].copy(), idx, sel, ok, rows
+
+
+# (what, E, K, D, slab 0's valid length, the other slabs', ok on slab 0, lt, gt):
+# the edges of the card kernel's design at a width the CPU holds (the card
+# tests take the same edges at D = 4608).
+EXTEND_EDGES = [
+    ("slab 0 empty", 3, 4, 512, 0, None, 1, (), ()),
+    ("slab 0 full", 3, 4, 512, 512, None, 1, (0,), (2,)),
+    *[(f"slab 0 of {n}", 3, 4, 512, n, None, 1, (), (1,)) for n in (1, 127, 128, 129, 511)],
+    ("ok 0 on slab 0", 3, 4, 512, 200, None, 0, (), ()),
+    *[(f"E={e}", e, 4, 512, None, None, 1, (), ()) for e in (1, 2, 3, 4)],
+    ("K=32", 3, 32, 512, None, None, 1, (5,), (31,)),
+    ("D=130", 3, 4, 130, None, None, 1, (), ()),
+    ("others full", 3, 4, 512, 300, (512, 512), 1, (), ()),
+]
+
+
+@pytest.mark.parametrize("what,e,k,d,len0,others,ok0,lt,gt", EXTEND_EDGES,
+                         ids=[c[0] for c in EXTEND_EDGES])
+def test_fused_extend_edges_match_twin_and_pallas(what, e, k, d, len0, others, ok0, lt, gt):
+    """The plain version, the JAX twin and the interpreted Pallas kernel
+    agree at the edges the card kernel's design meets: empty and full slabs,
+    valid lengths about its 128-slot first probe, a forced-INVALID slab 0,
+    E = 1..4, K = 32 and a width that is not a multiple of 16."""
+    b = 8
+    args = edge_extend_inputs(len(what) * 31 + e, b, e, k, d, len0, others, ok0)
+    c_p, m_p = plain.fused_extend_ref(*map(t, args), lt=lt, gt=gt)
+    jargs = [jnp.asarray(a) for a in args]
+    for c_r, m_r in (twin.fused_extend_ref(*jargs, lt=lt, gt=gt),
+                     pallas.fused_extend_kernel(*jargs, lt=lt, gt=gt, interpret=True)):
+        np.testing.assert_array_equal(c_p.numpy(), np.asarray(c_r))
+        np.testing.assert_array_equal(m_p.numpy(), np.asarray(m_r))
+    if len0 == 0 or ok0 == 0:
+        assert (c_p == INVALID).all() and not m_p.any()
+    elif len0 is not None and len0 >= 128:
+        assert m_p.any() and not m_p.all()
+
+
+def lex_edge_inputs(cap, kk, padded, seed=0):
+    """A sorted key table with duplicates (INVALID rows last where
+    ``padded``) and queries at its edges: keys of the table, random keys,
+    the last key, one past it, and the join's invalid query INVALID - 1
+    (never INVALID itself, which the join does not send and the Pallas
+    kernel's own INVALID padding would count)."""
+    rng = np.random.default_rng(seed + cap * 7 + kk)
+    nk = int(cap * 0.8) if padded else cap
+    keys = np.full((cap, kk), INVALID, np.int32)
+    span = max(4, cap // 8)
+    filled = rng.integers(0, span, (nk, kk)).astype(np.int32)
+    keys[:nk] = filled[np.lexsort(filled[:, ::-1].T)]
+    last = keys[nk - 1] if nk else np.zeros(kk, np.int32)
+    beyond = last.copy()
+    beyond[-1] += 1
+    q = np.concatenate([
+        keys[rng.integers(0, nk, 8)] if nk else np.zeros((8, kk), np.int32),
+        rng.integers(0, span + 1, (8, kk)).astype(np.int32),
+        np.stack([last, beyond, np.full(kk, INVALID - 1, np.int32)]),
+    ]).astype(np.int32)
+    return keys, q
+
+
+LEX_CAPS = (1, 2, 3, 4, 77, 1023, 1024, 1025)
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+@pytest.mark.parametrize("kk", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("cap", LEX_CAPS)
+def test_lex_bounds_edges_match_twin_and_pallas(cap, kk, padded):
+    """The plain version equals the JAX twin at every CAP edge, padded or
+    not; the interpreted Pallas kernel gives the true bounds, which differ
+    from the twin's only where a bound is CAP and the twin's fixed-count
+    halving steps past it (ROADMAP, Queue 3)."""
+    keys, q = lex_edge_inputs(cap, kk, padded)
+    lo_p, hi_p = plain.lex_bounds_ref(t(keys), t(q))
+    lo_t, hi_t = twin.lex_bounds_ref(jnp.asarray(keys), jnp.asarray(q))
+    np.testing.assert_array_equal(lo_p.numpy(), np.asarray(lo_t))
+    np.testing.assert_array_equal(hi_p.numpy(), np.asarray(hi_t))
+    lo_k, hi_k = pallas.lex_bounds_kernel(jnp.asarray(keys), jnp.asarray(q), interpret=True)
+    np.testing.assert_array_equal(np.minimum(lo_p.numpy(), cap), np.asarray(lo_k))
+    np.testing.assert_array_equal(np.minimum(hi_p.numpy(), cap), np.asarray(hi_k))
+
+
+@pytest.mark.parametrize("cap,want", [(1, 1), (2, 3), (3, 3), (4, 5), (77, 78), (1023, 1023),
+                                      (1024, 1025), (1025, 1026), (1 << 20, (1 << 20) + 1)])
+def test_lex_bounds_past_cap_depends_on_cap_alone(cap, want):
+    """A bound equal to CAP reads what the fixed-count halving gives when
+    every step goes right: CAP + 1 where it reaches CAP in fewer than
+    bit_length(CAP) steps. The card kernel computes the true bound and this
+    one value per launch."""
+    keys = np.arange(cap, dtype=np.int32)[:, None]
+    q = np.asarray([[cap], [cap - 1], [INVALID - 1]], np.int32)
+    lo, hi = plain.lex_bounds_ref(t(keys), t(q))
+    assert lo.tolist() == [want, cap - 1, want] and hi.tolist() == [want, want, want]
+    if cap <= 1025:
+        lo_t, hi_t = twin.lex_bounds_ref(jnp.asarray(keys), jnp.asarray(q))
+        assert np.asarray(lo_t).tolist() == lo.tolist() and np.asarray(hi_t).tolist() == hi.tolist()
+
+
 @pytest.mark.parametrize("b,e,d", [(8, 1, 128), (13, 2, 256), (8, 3, 384), (3, 0, 128)])
 def test_multiway_membership_plain_matches_twin_and_pallas(b, e, d):
     rng = np.random.default_rng(b + e)
