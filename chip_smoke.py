@@ -8,8 +8,11 @@ Phases (each prints its results; any failure exits non-zero):
    the shapes of the full-width run (bit-equal outputs), with device times
    (``queued_ms``: median and spread of 5 windows of calls queued behind a
    sleep kernel), CUDA-event call times and the byte bound of each
-   configuration; then untimed at the edges of the redesigned kernels (the
-   graph's longest rows as slabs, unpadded key tables);
+   configuration, the latency floors of lex_bounds and fused_verify, and
+   beside fused_extend and multiway_membership a plain write (``fill_``)
+   and a ``torch.ne`` over their bytes; then untimed at the edges of the
+   redesigned kernels (the graph's longest rows as slabs, cands and other
+   rows, unpadded key tables);
 3. the table4 workload: q1-q3 under ``huge`` on powerlaw_graph(4096, 8.0,
    seed=7), fused, with the reference's match counts;
 4. verify and join: q3/rads, q1/seed, q2/seed (fused) and q3/huge through the
@@ -332,6 +335,54 @@ def verify_bytes(tab0, tab1, idx, sel, ok, rows, vpos, ref) -> int:
     return sorted_rows_bytes(slabs, slab_row_ids(tab0, idx, sel), need) + small + b
 
 
+def warp_find_rounds(row, lo, hi, x):
+    """(found, rounds) of intersect.cu's warp_find for each row of row[n, D]
+    over [lo, hi): 32 probes a round, the search ending at a probe equal to
+    x or when the range is split to nothing."""
+    lane = torch.arange(32, device=row.device)
+    found = torch.zeros(row.shape[0], dtype=torch.bool, device=row.device)
+    rounds = torch.zeros(row.shape[0], dtype=torch.int64, device=row.device)
+    live = lo < hi
+    while bool(live.any()):
+        n = hi - lo
+        step = n // 33
+        small = n <= 32
+        pos = torch.where(small[:, None], lo[:, None] + lane, lo[:, None] + (lane + 1) * step[:, None])
+        probe = lane < n[:, None]
+        v = torch.where(probe, row.gather(1, pos.clamp(max=row.shape[1] - 1)), INVALID)
+        hit = (v == x[:, None]).any(1) & live
+        c = (v < x[:, None]).sum(1)
+        rounds += live.long()
+        found |= hit
+        lo, hi = (torch.where(live, torch.where(small, lo + c, torch.where(c > 0, lo + c * step + 1, lo)), lo),
+                  torch.where(live, torch.where(small, lo + c, torch.where(c < 32, lo + (c + 1) * step, hi)), hi))
+        live &= ~hit & (lo < hi)
+    return found, rounds
+
+
+def verify_rounds(tab0, tab1, idx, sel, ok, rows, vpos, ref) -> int:
+    """The most rounds past the slabs' heads that fused_verify's warp makes
+    for any row of these inputs: slab by slab while the row still matches,
+    a slab whose first 128 entries neither hold the target nor reach it is
+    searched by ``warp_find_rounds`` over [128, D)."""
+    slabs = ref.gather_slabs(tab0, tab1, idx, sel, ok)
+    b, e, d = slabs.shape
+    t = rows[:, vpos]
+    alive = t != INVALID
+    rounds = torch.zeros(b, dtype=torch.int64, device=rows.device)
+    for j in range(e):
+        s = slabs[:, j]
+        live = alive & (ok[:, j] == 1)
+        alive = live & (s[:, :128] == t[:, None]).any(1)
+        if d > 128:
+            ids = (live & ~alive & (s[:, 127] < t)).nonzero().squeeze(1)
+            lo = torch.full_like(ids, 128)
+            found, r = warp_find_rounds(s[ids], lo, torch.full_like(ids, d), t[ids])
+            rounds[ids] += r
+            alive[ids] = found
+    return int(rounds.max()) if b else 0
+
+
 def membership_bytes(cands, others) -> int:
     """cands read and the mask written in full; each others row searched by
     the candidates still alive."""
@@ -409,7 +460,8 @@ def slab_inputs(adj, deg, b, e, k, cache_rows, gen, hubs=None):
 def phase_kernels(graph, ik, ref):
     """Each intersect kernel against its plain version at the full-width
     shapes, with its times; beside them a plain fill of fused_extend's output
-    bytes and the latency floor of lex_bounds' rounds (``load_latency``)."""
+    bytes, a ``torch.ne`` over multiway_membership's and the latency floors
+    of fused_verify's and lex_bounds' rounds (``load_latency``)."""
     adj, deg = graph.padded.adj, graph.padded.deg
     d = adj.shape[1]
     gen = torch.Generator(device=adj.device).manual_seed(0)
@@ -473,12 +525,21 @@ def phase_kernels(graph, ik, ref):
         torch.cuda.synchronize()
         err = max_abs_err(v_k, v_r)
         assert err == 0, f"fused_verify E={e} K={k} disagrees with its plain version"
+        # The design's latency floor: the addressing round (the target's load
+        # with it), a round of the slabs' heads for each group of 4 slabs,
+        # then the most rounds past the heads that a row of these inputs
+        # needs, each at L2's latency, after the launch's own time.
+        rounds, heads = verify_rounds(tab0, tab1, idx, sel, ok, vrows, vpos, ref), -(-e // 4)
+        floor_ms = lat["launch_ms"] + (1 + heads + rounds) * lat["l2_ns"] / 1e6
+        log(f"  fused_verify [E={e} K={k}] latency floor: {lat['launch_ms']:.4f} ms launch + "
+            f"(1 + {heads} + {rounds} rounds) x {lat['l2_ns']:.1f} ns = {floor_ms:.4f} ms")
         keep("fused_verify", f"E={e} K={k}", err,
              timed(lambda: ik.fused_verify(tab0, tab1, idx, sel, ok, vrows, vpos=vpos)),
              timed(lambda: ref.fused_verify_ref(tab0, tab1, idx, sel, ok, vrows, vpos=vpos),
                    plain=True),
              verify_bytes(tab0, tab1, idx, sel, ok, vrows, vpos, ref),
-             note=f" B={b} D={d}, {int(v_r.sum())} kept")
+             note=f" B={b} D={d}, {int(v_r.sum())} kept", rounds=rounds, floor_ms=floor_ms,
+             load_l2_ns=lat["l2_ns"], launch_ms=lat["launch_ms"])
 
         if e >= 2:
             cands = adj[rows[:, 0].long()]
@@ -488,11 +549,17 @@ def phase_kernels(graph, ik, ref):
             torch.cuda.synchronize()
             err = max_abs_err(w_k, w_r)
             assert err == 0, f"multiway_membership E={e} disagrees with its plain version"
+            # A yardstick of bytes, not of function: one torch.ne reads the
+            # same cands and writes as many mask bytes.
+            m = torch.empty(cands.shape, dtype=torch.bool, device=cands.device)
+            ne_ms = queued_ms(lambda: torch.ne(cands, INVALID, out=m))[0]
+            log(f"  multiway_membership [{e - 1} others] yardstick: torch.ne over the same "
+                f"{cands.numel() * 5} bytes queued={ne_ms:.4f} ms")
             keep("multiway_membership", f"E={e}", err,
                  timed(lambda: ik.multiway_membership(cands, others)),
                  timed(lambda: ref.multiway_membership_ref(cands, others), plain=True),
                  membership_bytes(cands, others),
-                 note=f" B={b} D={d}, {e - 1} others")
+                 note=f" B={b} D={d}, {e - 1} others", ne_ms=ne_ms)
 
     cap = 1 << 20
     src = graph.nbrs
@@ -610,23 +677,52 @@ def load_latency():
 
 
 def intersect_edge_checks(graph, ik, ref, gen):
-    """Untimed, bit-equal checks where the redesigned kernels change path:
-    fused_extend on the graph's longest rows (prefixes past the 4096 int32
-    staged in shared memory, candidates past a 1024-slot tile), and
-    lex_bounds on unpadded tables whose last key is queried and passed (the
-    bound equal to CAP, which the plain version's halving reads as CAP + 1
-    where it steps past it)."""
+    """Untimed, bit-equal checks where the redesigned kernels change path, on
+    the graph's longest rows: fused_extend (prefixes past the 4096 int32
+    staged in shared memory, candidates past a 1024-slot tile),
+    fused_verify (slabs that end past their 128-entry heads, half the
+    targets at a random position of slab 0's prefix) and
+    multiway_membership (cands with long prefixes, other rows past the
+    stage); then lex_bounds on unpadded tables whose last key is queried and
+    passed (the bound equal to CAP, which the plain version's halving reads
+    as CAP + 1 where it steps past it)."""
     adj, deg = graph.padded.adj, graph.padded.deg
     hubs = torch.topk(deg, 16).indices
+    degrees = f"degrees {int(deg[hubs].min())}-{int(deg[hubs].max())}"
     for e, k in ((2, 3), (3, 4)):
         tab0, tab1, idx, sel, ok, rows = slab_inputs(adj, deg, 256, e, k, 1 << 10, gen, hubs=hubs)
         c_k, m_k = ik.fused_extend(tab0, tab1, idx, sel, ok, rows, lt=(k - 1,))
         c_r, m_r = ref.fused_extend_ref(tab0, tab1, idx, sel, ok, rows, lt=(k - 1,))
         torch.cuda.synchronize()
         err = max(max_abs_err(c_k, c_r), max_abs_err(m_k, m_r))
-        log(f"  fused_extend [hub slabs E={e} K={k}, degrees {int(deg[hubs].min())}-"
-            f"{int(deg[hubs].max())}, {int(m_r.sum())} matches]: max_abs_err={err}")
+        log(f"  fused_extend [hub slabs E={e} K={k}, {degrees}, {int(m_r.sum())} matches]: "
+            f"max_abs_err={err}")
         assert err == 0, f"fused_extend on hub slabs E={e} disagrees with its plain version"
+
+        slab0 = torch.where((sel[:, 0] == 1)[:, None], tab0[idx[0, :, 0].long()],
+                            tab1[idx[1, :, 0].long()])
+        at = (torch.rand(rows.shape[0], generator=gen, device=adj.device)
+              * (slab0 != INVALID).sum(1)).long()
+        vrows = rows.clone()
+        vrows[::2, k - 1] = slab0.gather(1, at[:, None])[::2, 0]
+        v_k = ik.fused_verify(tab0, tab1, idx, sel, ok, vrows, vpos=k - 1)
+        v_r = ref.fused_verify_ref(tab0, tab1, idx, sel, ok, vrows, vpos=k - 1)
+        torch.cuda.synchronize()
+        err = max_abs_err(v_k, v_r)
+        rounds = verify_rounds(tab0, tab1, idx, sel, ok, vrows, k - 1, ref)
+        log(f"  fused_verify [hub slabs E={e} K={k}, {degrees}, {int(v_r.sum())} kept, "
+            f"at most {rounds} rounds past the heads]: max_abs_err={err}")
+        assert err == 0, f"fused_verify on hub slabs E={e} disagrees with its plain version"
+
+        cands = adj[rows[:, 0].long()]
+        others = torch.stack([adj[rows[:, c].long()] for c in range(1, e)], dim=1).contiguous()
+        w_k = ik.multiway_membership(cands, others)
+        w_r = ref.multiway_membership_ref(cands, others)
+        torch.cuda.synchronize()
+        err = max_abs_err(w_k, w_r)
+        log(f"  multiway_membership [hub rows, {e - 1} others, {degrees}, {int(w_r.sum())} "
+            f"members]: max_abs_err={err}")
+        assert err == 0, f"multiway_membership on hub rows E={e} disagrees with its plain version"
     src = graph.nbrs
     for cap, kk in ((77, 2), (1024, 1), (1 << 20, 1), (1 << 20, 2)):
         pick = torch.randint(0, src.numel(), (cap, kk), generator=gen, device=src.device)

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from intersect_edge_inputs import membership_inputs, verify_inputs
 from repro_torch.graph.storage import INVALID
 from repro_torch.kernels.intersect import ops as ik
 from repro_torch.kernels.rwkv6 import ops as rk
@@ -288,6 +289,122 @@ def test_lex_bounds_kernel_at_cap_edges(cuda, cap, kk, padded):
     torch.cuda.synchronize()
     lo_r, hi_r = lex_bounds_ref(keys, q)
     assert torch.equal(lo_k, lo_r) and torch.equal(hi_k, hi_r)
+
+
+def _edge_verify_inputs(seed, b, e, k, d, lens, pos, ok_off, dev):
+    """``intersect_edge_inputs.verify_inputs`` on the device ``dev``."""
+    return [torch.from_numpy(a).to(dev)
+            for a in verify_inputs(seed, b, e, k, d, lens, pos, ok_off)]
+
+
+# (what, E, K, D, B, every slab's valid length, the target's position, the
+# slab with ok = 0) at the edges of fused_verify's design: the head of 128
+# entries loaded in one round, the 32-way splits past it, slab groups of 4,
+# warps of a row each, 4 a block.
+VERIFY_EDGES = [
+    ("target INVALID", 3, 4, 4608, 16, None, "invalid", None),
+    *[(f"target at {p}", 3, 4, 4608, 16, 4608, p, None) for p in (0, 127, 128, 129)],
+    ("target at the last valid entry", 3, 4, 4608, 16, None, "last", None),
+    ("target past the valid prefix", 3, 4, 4608, 16, None, "past", None),
+    *[(f"slabs of {n}", 3, 4, 4608, 16, n, "last", None) for n in (0, 1, 127, 128, 129, 4095, 4608)],
+    ("slabs of 2000, target anywhere", 3, 4, 4608, 16, 2000, None, None),
+    ("ok 0 on one slab", 3, 4, 4608, 16, None, None, 1),
+    *[(f"E={e}", e, 4, 4608, 16, None, None, None) for e in (1, 2, 3, 4, 5)],
+    ("E=5, slabs of 300", 5, 4, 4608, 16, 300, None, None),
+    ("K=2", 2, 2, 4608, 16, None, None, None),
+    ("K=32", 3, 32, 4608, 16, None, None, None),
+    ("D=130", 3, 4, 130, 16, None, None, None),
+    ("D=130, full", 3, 4, 130, 16, 130, "last", None),
+    ("B=1", 3, 4, 4608, 1, None, None, None),
+    ("B=37", 3, 4, 4608, 37, None, None, None),
+]
+
+
+@pytest.mark.parametrize("what,e,k,d,b,lens,pos,ok_off", VERIFY_EDGES,
+                         ids=[c[0] for c in VERIFY_EDGES])
+def test_fused_verify_kernel_at_design_edges(cuda, what, e, k, d, b, lens, pos, ok_off):
+    """Bit for bit against the plain version at every edge of the kernel's
+    design (test_torch_intersect.py holds the plain version to the JAX twin
+    and the Pallas kernel at the same edges)."""
+    args = _edge_verify_inputs(len(what) * 17 + e, b, e, k, d, lens, pos, ok_off, cuda)
+    before = ik.launches["fused_verify"]
+    got = ik.fused_verify(*args, vpos=k // 2)
+    torch.cuda.synchronize()
+    assert ik.launches["fused_verify"] == before + 1
+    want = fused_verify_ref(*args, vpos=k // 2)
+    assert torch.equal(got, want)
+    if pos == "invalid" or ok_off is not None or lens == 0:
+        assert not want.any()
+    elif lens is not None and pos not in (None, "past"):
+        assert want[::2].all() and not want[1::2].any()  # present in every slab, or absent
+
+
+def _edge_membership_inputs(seed, b, n_other, d, lens, kind, dev, offset=0):
+    """``intersect_edge_inputs.membership_inputs`` on the device ``dev``;
+    ``offset``: cands is a contiguous view that starts that many int32 into
+    its storage."""
+    cands, others = membership_inputs(seed, b, n_other, d, lens, kind)
+    flat = torch.full((b * d + offset,), -1, dtype=torch.int32, device=dev)
+    c = flat[offset:].view(b, d)
+    c.copy_(torch.from_numpy(cands))
+    return c, torch.from_numpy(others).to(dev)
+
+
+# (what, other rows, D, their valid lengths, cands) at the edges of
+# multiway_membership's design: the 128-entry heads, a warp an other row
+# (8 a block), the 2048 int32 of shared memory that stage the longer
+# prefixes or their samples (and past them a search in place), 16-byte loads
+# against a ragged width, rows of more than 1152 vectors (a second pass),
+# no other row at all.
+MEMBERSHIP_EDGES = [
+    *[(f"others of {n}", 2, 4608, n, "unsorted") for n in (0, 1, 127, 128, 129, 4095, 4608)],
+    ("unsorted cands", 2, 4608, None, "unsorted"),
+    ("sorted cands", 2, 4608, None, "sorted"),
+    ("all-INVALID cands", 2, 4608, None, "invalid"),
+    *[(f"E-1={n}", n, 4608, None, "unsorted") for n in (0, 1, 2, 3, 4)],
+    ("D=130", 2, 130, None, "unsorted"),
+    ("D=130, full", 3, 130, 130, "sorted"),
+    ("one other past the stage", 1, 4608, (4608,), "unsorted"),
+    ("second other past the stage", 2, 4608, (4000, 4608), "unsorted"),
+    ("third other past the stage", 3, 4608, (2000, 2000, 2000), "unsorted"),
+    ("nine others past the stage", 9, 4608, 4608, "unsorted"),
+    ("D=5000, a second pass", 2, 5000, None, "unsorted"),
+]
+
+
+@pytest.mark.parametrize("what,n_other,d,lens,kind", MEMBERSHIP_EDGES,
+                         ids=[c[0] for c in MEMBERSHIP_EDGES])
+def test_multiway_membership_kernel_at_design_edges(cuda, what, n_other, d, lens, kind):
+    """Bit for bit against the plain version at every edge of the kernel's
+    design (test_torch_intersect.py holds the plain version to the JAX twin
+    and the Pallas kernel at the same edges)."""
+    cands, others = _edge_membership_inputs(len(what) * 13 + n_other, 16, n_other, d, lens,
+                                            kind, cuda)
+    before = ik.launches["multiway_membership"]
+    got = ik.multiway_membership(cands, others)
+    torch.cuda.synchronize()
+    assert ik.launches["multiway_membership"] == before + 1
+    want = multiway_membership_ref(cands, others)
+    assert torch.equal(got, want)
+    if kind == "invalid" or lens == 0:
+        assert not want.any()
+    elif lens is not None and lens != 1:
+        assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("d,offset", [(130, 130), (130, 1), (130, 2), (4608, 1), (4608, 3),
+                                      (5000, 1)])
+def test_multiway_membership_kernel_reads_views_off_16_bytes(cuda, d, offset):
+    """cands as a contiguous view that starts 4, 8 or 12 bytes past a 16-byte
+    boundary (offset 130 is x[1:] of a [B, 130] tensor): the row's 16-byte
+    loads start later and its mask bytes straddle 32-bit words."""
+    cands, others = _edge_membership_inputs(d + offset, 37, 2, d, None, "unsorted", cuda,
+                                            offset=offset)
+    assert cands.is_contiguous() and cands.data_ptr() % 16 != 0
+    got = ik.multiway_membership(cands, others)
+    torch.cuda.synchronize()
+    want = multiway_membership_ref(cands, others)
+    assert torch.equal(got, want) and want.any()
 
 
 def test_value_cache_adjacency_route_on_card(cuda):

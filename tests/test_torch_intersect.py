@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from intersect_edge_inputs import membership_inputs, verify_inputs
 from repro.kernels.intersect import intersect as pallas
 from repro.kernels.intersect import ops as ops_ref
 from repro.kernels.intersect import ref as twin
@@ -262,6 +263,95 @@ def test_multiway_membership_plain_matches_twin_and_pallas(b, e, d):
         np.testing.assert_array_equal(got, np.asarray(ops_ref.multiway_membership(
             jnp.asarray(cands), jnp.asarray(others), force_kernel=True)))
     assert torch.equal(ik.multiway_membership(t(cands), t(others)), torch.from_numpy(got))
+
+
+# (what, E, K, D, B, every slab's valid length, the target's position, the
+# slab with ok = 0): the edges of the card kernel's design (a 128-entry head,
+# 32-way splits past it, slab groups of 4, a warp a row and 4 rows a block)
+# at a width the CPU holds; D = 4608 only for a slab of 4095 (the card tests
+# take every edge at D = 4608).
+VERIFY_EDGES = [
+    ("target INVALID", 3, 4, 512, 8, None, "invalid", None),
+    *[(f"target at {p}", 3, 4, 512, 8, 512, p, None) for p in (0, 127, 128, 129)],
+    ("target at the last valid entry", 3, 4, 512, 8, None, "last", None),
+    ("target past the valid prefix", 3, 4, 512, 8, None, "past", None),
+    *[(f"slabs of {n}", 3, 4, 512, 8, n, "last", None) for n in (0, 1, 127, 128, 129, 512)],
+    ("slabs of 4095", 2, 4, 4608, 4, 4095, "last", None),
+    ("ok 0 on one slab", 3, 4, 512, 8, None, None, 1),
+    *[(f"E={e}", e, 4, 512, 8, None, None, None) for e in (1, 2, 3, 4, 5)],
+    ("K=2", 2, 2, 512, 8, None, None, None),
+    ("K=32", 3, 32, 512, 8, None, None, None),
+    ("D=130", 3, 4, 130, 8, None, None, None),
+    ("D=130, full", 3, 4, 130, 8, 130, "last", None),
+    ("B=1", 3, 4, 512, 1, None, None, None),
+    ("B=5", 3, 4, 512, 5, None, None, None),
+]
+
+
+@pytest.mark.parametrize("what,e,k,d,b,lens,pos,ok_off", VERIFY_EDGES,
+                         ids=[c[0] for c in VERIFY_EDGES])
+def test_fused_verify_edges_match_twin_and_pallas(what, e, k, d, b, lens, pos, ok_off):
+    """The plain version, the JAX twin and the interpreted Pallas kernel
+    agree at the edges the card kernel's design meets: the target INVALID,
+    at positions 0, 127, 128, 129 and the last valid entry of every slab,
+    past the prefix; slabs of 0, 1, 127, 128, 129, 4095 and all valid
+    entries; ok = 0 on one slab; E = 1..5, K = 2 and 32, D = 130; B = 1 and
+    B not a multiple of 4."""
+    args = verify_inputs(len(what) * 17 + e, b, e, k, d, lens, pos, ok_off)
+    got = plain.fused_verify_ref(*map(t, args), vpos=k // 2).numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    np.testing.assert_array_equal(got, np.asarray(twin.fused_verify_ref(*jargs, vpos=k // 2)))
+    np.testing.assert_array_equal(
+        got, np.asarray(pallas.fused_verify_kernel(*jargs, vpos=k // 2, interpret=True)))
+    if pos == "invalid" or ok_off is not None or lens == 0:
+        assert not got.any()
+    elif lens is not None and pos not in (None, "past"):
+        assert got[::2].all() and not got[1::2].any()  # present in every slab, or absent
+
+
+# (what, other rows, D, their valid lengths, cands): the edges of the card
+# kernel's design (the 128-entry heads, the 2048 int32 staging the longer
+# prefixes, the sample of a prefix past them, a second pass past 1152
+# vectors, no other row at all) at a width the CPU holds; D = 4608 and 5000
+# where an edge needs it.
+MEMBERSHIP_EDGES = [
+    *[(f"others of {n}", 2, 512, n, "unsorted") for n in (0, 1, 127, 128, 129, 512)],
+    ("others of 4095", 2, 4608, 4095, "unsorted"),
+    ("unsorted cands", 2, 512, None, "unsorted"),
+    ("sorted cands", 2, 512, None, "sorted"),
+    ("all-INVALID cands", 2, 512, None, "invalid"),
+    *[(f"E-1={n}", n, 512, None, "unsorted") for n in (0, 1, 2, 3, 4)],
+    ("D=130", 2, 130, None, "unsorted"),
+    ("D=130, full", 3, 130, 130, "sorted"),
+    ("one other past the stage", 1, 4608, (4608,), "unsorted"),
+    ("second other past the stage", 2, 4608, (4000, 4608), "unsorted"),
+    ("nine others", 9, 512, 512, "unsorted"),
+    ("D=5000", 2, 5000, None, "unsorted"),
+]
+
+
+@pytest.mark.parametrize("what,n_other,d,lens,kind", MEMBERSHIP_EDGES,
+                         ids=[c[0] for c in MEMBERSHIP_EDGES])
+def test_multiway_membership_edges_match_twin_and_pallas(what, n_other, d, lens, kind):
+    """The plain version, the JAX twin and the Pallas kernel (interpreted,
+    through the JAX wrapper that pads B to a multiple of 8) agree at the
+    edges the card kernel's design meets: unsorted and all-INVALID cands,
+    other rows of 0, 1, 127, 128, 129, 4095 and all valid entries and past
+    the stage, E-1 = 0..4 and 9, D = 130, 4608 and 5000. With no other row
+    the Pallas kernel has no block to read, so that case holds the twin
+    only."""
+    cands, others = membership_inputs(len(what) * 13 + n_other, 5, n_other, d, lens, kind)
+    got = plain.multiway_membership_ref(t(cands), t(others)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(twin.multiway_membership_ref(jnp.asarray(cands), jnp.asarray(others))))
+    if n_other:
+        np.testing.assert_array_equal(got, np.asarray(ops_ref.multiway_membership(
+            jnp.asarray(cands), jnp.asarray(others), force_kernel=True)))
+    assert torch.equal(ik.multiway_membership(t(cands), t(others)), torch.from_numpy(got))
+    if kind == "invalid" or lens == 0:
+        assert not got.any()
+    elif lens is not None and lens != 1:
+        assert got.any() and not got.all()
 
 
 def test_gather_slabs_and_lex_cmp_match_twin():
