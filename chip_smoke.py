@@ -13,13 +13,21 @@ Phases (each prints its results; any failure exits non-zero):
    and a ``torch.ne`` over their bytes; then untimed at the edges of the
    redesigned kernels (the graph's longest rows as slabs, cands and other
    rows, unpadded key tables);
-3. the table4 workload: q1-q3 under ``huge`` on powerlaw_graph(4096, 8.0,
-   seed=7), fused, with the reference's match counts;
+3. the table4 workload through ``repro_torch.launch.table4``: q1-q3 under
+   ``huge`` on powerlaw_graph(4096, 8.0, seed=7), plain then fused, with the
+   reference's match counts and the result rows per simulated machine;
 4. verify and join: q3/rads, q1/seed, q2/seed (fused) and q3/huge through the
    membership kernel on powerlaw_graph(512, 6.0, seed=0);
 5. full width: q3 under ``huge`` on a 875,713-vertex power-law graph shaped
    like web-Google, fused against plain, plus a profiled window of the fused
    run;
+5b. the engine's other paths: every injected fault kind recovered on the
+   table4 graph (the kernels launching again after the restore),
+   ``shortest_path_length`` at full width against scipy, and batches of
+   inserts at full width through a fused and a plain engine's
+   ``apply_updates`` and ``run_delta`` (triangle and diamond), the deltas
+   summed against full counts; with the pre-flight's time in every
+   ``prepare`` of phases 5 and 5b;
 6. the RWKV6 kernel against its plain version at the LM path's shapes
    (forward, serve prefill with the state, a ragged tail), with its times and
    its bound, then untimed at the decay edges;
@@ -48,6 +56,7 @@ The line before the last holds the per-kernel JSON record; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -147,6 +156,17 @@ REPLACES = {
 HEADLINE = {"fused_extend": "E=3 K=4", "fused_verify": "E=3 K=4",
             "lex_bounds": "KK=1", "multiway_membership": "E=2"}
 TABLE4 = {"q1": 110508, "q2": 67887, "q3": 1782}
+# The full-width graph: powerlaw_graph(vertices, average degree, exponent,
+# seed), shaped like SNAP web-Google (exponent 3.0, not 2.5: at 2.5 its padded
+# adjacency would be about 105 GB), and the engine configuration of phases 5
+# and 5b there.
+FULL_GRAPH = (875_713, 9.8, 3.0, 7)
+FULL_CFG = dict(batch_size=1024, queue_capacity=1 << 18, cache_capacity=1 << 14, num_machines=8)
+# Phase 5b's insert stream: batches of wedge-closing edges (the first a
+# warm-up), and the standing queries whose deltas each batch enumerates.
+STREAM_BATCHES, STREAM_EDGES, STREAM_SEED = 4, 64, 11
+STREAM_QUERIES = ("triangle", "q2")
+PATH_PAIRS, PATH_SEED = 8, 5
 
 
 def log(*args):
@@ -759,6 +779,260 @@ def run_counted(ik, launches, fn):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: the single-process engine's other paths (recovery, §6 paths,
+# streaming deltas) and the pre-flight's cost
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def preflight_times():
+    """Time every ``verify_flow`` call the engine's ``prepare`` makes (the
+    engine looks the function up in its module at each call). Yields the
+    list of (query name, ops, seconds) it fills."""
+    from repro_torch.analysis import flowcheck
+
+    times = []
+    verify = flowcheck.verify_flow
+
+    def timed(flow, **kwargs):
+        t0 = time.perf_counter()
+        verify(flow, **kwargs)
+        times.append((flow.query_name, len(flow.ops), time.perf_counter() - t0))
+
+    flowcheck.verify_flow = timed
+    try:
+        yield times
+    finally:
+        flowcheck.verify_flow = verify
+
+
+def log_preflight(phase, times):
+    """One line per flow: its calls, ops and verify_flow's mean and max ms."""
+    by_flow: Dict[str, list] = {}
+    for name, n, sec in times:
+        by_flow.setdefault(f"{name} ({n} ops)", []).append(sec * 1e3)
+    for flow, ms in by_flow.items():
+        log(f"{phase}: verify_flow in prepare, {flow}: {len(ms)} calls, mean "
+            f"{sum(ms) / len(ms):.3f} ms, max {max(ms):.3f} ms")
+    times.clear()
+
+
+def phase_recovery(ik, launches):
+    """Every fault kind the engine injects, on the table4 graph with the
+    fused path: q1/huge for queue-overflow, shard-loss and kernel-fail, q2
+    under starjoin (its joins run the bounds kernel) for join-overflow. The
+    recovered count must be the fault-free one, the recovery counters must
+    name the fault, and the kernels must launch again after the restore."""
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.engine import EngineConfig, HugeEngine
+    from repro_torch.core.faults import FAULT_KINDS, FaultPlan
+    from repro_torch.core.query import PAPER_QUERIES
+    from repro_torch.graph import powerlaw_graph
+    from repro_torch.launch.table4 import GRAPH
+
+    g4k = powerlaw_graph(*GRAPH[:2], seed=GRAPH[2], device=torch.device(DEV))
+    base = dict(batch_size=1024, queue_capacity=1 << 17, cache_capacity=1 << 13,
+                num_machines=8, join_out_capacity=1 << 18, join_buffer_capacity=1 << 21,
+                fused=True)
+    marks = []  # launch counts at each restore
+    restore = engine_mod.EngineSession.restore
+
+    def marked(cls, *args, **kwargs):
+        marks.append(dict(ik.launches))
+        return restore(*args, **kwargs)
+
+    engine_mod.EngineSession.restore = classmethod(marked)
+    try:
+        # The fault-free runs arm a plan that never fires: an armed plan
+        # prices the queues with retry slack, and the slack moves the
+        # scheduler's steps, so only under the same sizing do the launch
+        # counts compare.
+        clean = {}
+        for qname, space, kernel in (("q1", "huge", "fused_extend"), ("q2", "starjoin", "lex_bounds")):
+            res, seen = run_counted(ik, launches, lambda: HugeEngine(
+                g4k, EngineConfig(faults=FaultPlan(), **base)).run(PAPER_QUERIES[qname], space=space))
+            s = res.stats
+            clean[qname] = (res.count, s.wall_time, seen)
+            log(f"phase 5b: recovery baseline {qname}/{space} fused count={res.count} "
+                f"wall={s.wall_time:.3f} s retries={s.retries} launches={seen}")
+            assert res.count == TABLE4[qname] and s.retries == 0, (qname, res.count, s)
+            assert seen[kernel] > 0
+        # (kind, query, space, the kernel that must launch after the restore,
+        # expected retries, restarts, pressure_events, kernel_fallbacks)
+        for kind, qname, space, kernel, want in (
+            ("queue-overflow", "q1", "huge", "fused_extend", (1, 0, 1, 0)),
+            ("shard-loss", "q1", "huge", "fused_extend", (1, 1, 0, 0)),
+            ("kernel-fail", "q1", "huge", "fused_extend", (0, 0, 0, 1)),
+            ("join-overflow", "q2", "starjoin", "lex_bounds", (1, 0, 1, 0)),
+        ):
+            fp = FaultPlan.single(kind, at_step=1)
+            marks.clear()
+            res, seen = run_counted(ik, launches, lambda: HugeEngine(
+                g4k, EngineConfig(faults=fp, **base)).run(PAPER_QUERIES[qname], space=space))
+            s = res.stats
+            got = (s.retries, s.restarts, s.pressure_events, s.kernel_fallbacks)
+            count0, wall0, seen0 = clean[qname]
+            after = seen[kernel] - marks[0][kernel] if marks else None
+            log(f"phase 5b: recovery {kind} on {qname}/{space}: fired {fp.fired} "
+                f"count={res.count} (fault-free {count0}) retries/restarts/pressure/"
+                f"fallbacks={got} wall={s.wall_time:.3f} s (fault-free {wall0:.3f} s) "
+                f"{kernel} launches={seen[kernel]} (fault-free {seen0[kernel]}; "
+                f"after the restore {after})")
+            assert fp.fired_count(kind) == 1 and res.count == count0 and got == want, (kind, got)
+            if kind == "kernel-fail":  # one batch took the plain path, the rest the kernel
+                assert seen[kernel] == seen0[kernel] - 1, (seen, seen0)
+            else:
+                assert len(marks) == 1 and after > 0, (kind, marks, seen)
+        assert set(FAULT_KINDS) - {"queue-overflow", "shard-loss", "kernel-fail",
+                                   "join-overflow"} == {"lease-oom"}
+        log("phase 5b: lease-oom is the multi-tenant service's admission fault; "
+            "the engine injects it nowhere")
+    finally:
+        engine_mod.EngineSession.restore = restore
+
+
+def phase_paths(graph):
+    """``shortest_path_length`` on the full-width graph for seeded vertex
+    pairs, against scipy's breadth-first distances over the same CSR."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+
+    from repro_torch.core.paths import shortest_path_length
+
+    v = graph.num_vertices
+    offsets = graph.offsets.cpu().numpy()
+    nbrs = graph.nbrs.cpu().numpy()
+    csr = sp.csr_matrix((np.ones(nbrs.shape[0], np.int8), nbrs, offsets), shape=(v, v))
+    rng = np.random.default_rng(PATH_SEED)
+    pairs = [tuple(int(x) for x in rng.choice(v, 2, replace=False)) for _ in range(PATH_PAIRS)]
+    t0 = time.perf_counter()
+    want = shortest_path(csr, unweighted=True, indices=[s for s, _ in pairs])
+    scipy_s = time.perf_counter() - t0
+    got, walls = [], []
+    for s, t in pairs:
+        t0 = time.perf_counter()
+        got.append(shortest_path_length(graph, s, t))
+        walls.append(time.perf_counter() - t0)
+    ref = [None if math.isinf(want[i, t]) else int(want[i, t]) for i, (_, t) in enumerate(pairs)]
+    log(f"phase 5b: shortest paths {pairs}: port {got} scipy {ref}; port walls "
+        f"{[round(w, 4) for w in walls]} s, scipy {scipy_s:.3f} s for all {len(pairs)} sources")
+    assert got == ref, (got, ref)
+
+
+def wedge_batches(graph, batches, per_batch, seed):
+    """``batches`` batches of ``per_batch`` new edges, each closing a wedge:
+    two neighbours a, b of a vertex c that are not adjacent (a random edge of
+    a sparse power-law graph seldom makes any match). Every second edge
+    closes two wedges (a and b also share a neighbour d), so that it makes
+    a diamond too: single wedges made no new diamond here."""
+    offsets = graph.offsets.cpu().numpy().astype(np.int64)
+    nbrs = graph.nbrs.cpu().numpy()
+
+    def row(v):
+        return nbrs[offsets[v]:offsets[v + 1]]
+
+    centres = np.flatnonzero(np.diff(offsets) >= 2)
+    rng = np.random.default_rng(seed)
+    chosen = []
+    seen = set()
+    while len(chosen) < batches * per_batch:
+        c = int(rng.choice(centres))
+        a = int(rng.choice(row(c)))
+        if len(chosen) % 2:
+            others = row(a)[row(a) != c]
+            if others.size == 0:
+                continue
+            d = int(rng.choice(others))  # a second wedge a-d-b
+            pool = np.intersect1d(row(c), row(d), assume_unique=True)
+        else:
+            pool = row(c)
+        pool = pool[pool != a]
+        if pool.size == 0:
+            continue
+        b = int(rng.choice(pool))
+        ra = row(a)
+        j = np.searchsorted(ra, b)
+        pair = (min(a, b), max(a, b))
+        if (j < ra.shape[0] and ra[j] == b) or pair in seen:
+            continue
+        seen.add(pair)
+        chosen.append(pair)
+    return np.split(np.array(chosen, dtype=np.int64), batches)
+
+
+def streaming_engines(graph):
+    """The fused and the plain engine of the streaming phase, over one graph."""
+    from repro_torch.core.engine import EngineConfig, HugeEngine
+
+    return (HugeEngine(graph, EngineConfig(fused=True, **FULL_CFG)),
+            HugeEngine(graph, EngineConfig(fused=False, **FULL_CFG)))
+
+
+def phase_streaming(ik, launches, fused_eng, plain_eng):
+    """Batches of inserts at full width through both engines' apply_updates,
+    each followed by run_delta of every standing query: fused and plain delta
+    counts equal batch by batch, and the delta counts of the timed batches
+    add up to the full counts' difference across them (exactly once)."""
+    from repro_torch.core.engine import EngineConfig, HugeEngine
+    from repro_torch.core.query import PAPER_QUERIES, triangle
+    from repro_torch.graph import GraphUpdateBatch
+
+    queries = {name: triangle() if name == "triangle" else PAPER_QUERIES[name]
+               for name in STREAM_QUERIES}
+
+    def full_counts():
+        out = {}
+        for name, q in queries.items():
+            res = HugeEngine(fused_eng.graph, EngineConfig(fused=False, **FULL_CFG)).run(q)
+            out[name] = res.count
+            log(f"phase 5b: full count {name} = {res.count} in {res.stats.wall_time:.2f} s "
+                f"(plain, {res.schedule.steps} steps)")
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    batches = wedge_batches(fused_eng.graph, STREAM_BATCHES, STREAM_EDGES, STREAM_SEED)
+    totals = {name: 0 for name in queries}
+    before = None
+    for k, edges in enumerate(batches):
+        if k == 1:
+            before = full_counts()
+        gc.collect()  # the last runs' sessions, which hold the graph about to be replaced
+        d_pad = fused_eng.d_pad
+        applied = {}
+        for label, eng in (("fused", fused_eng), ("plain", plain_eng)):
+            t0 = time.perf_counter()
+            upd = eng.apply_updates(GraphUpdateBatch(edges))
+            torch.cuda.synchronize()
+            # Keep numbers only: the result holds the new graph, and the
+            # next update must find the old one unreferenced.
+            applied[label] = (upd.num_new_edges, upd.touched.shape[0], time.perf_counter() - t0)
+            del upd
+        (new, touched, upd_s), plain_s = applied["fused"], applied["plain"][2]
+        log(f"phase 5b: batch {k}{' (warm-up)' if k == 0 else ''}: {new} new edges, "
+            f"{touched} touched rows, apply_updates {upd_s * 1e3:.1f} ms fused engine, "
+            f"{plain_s * 1e3:.1f} ms plain engine, d_pad {d_pad} -> {fused_eng.d_pad}"
+            f"{' (grew)' if fused_eng.d_pad != d_pad else ''}, "
+            f"memory_allocated={torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        assert new == STREAM_EDGES and applied["plain"][:2] == (new, touched)
+        for name, q in queries.items():
+            res, seen = run_counted(ik, launches, lambda: fused_eng.run_delta(q))
+            plain = plain_eng.run_delta(q)
+            log(f"phase 5b: batch {k} {name}: run_delta fused {res.stats.wall_time * 1e3:.1f} ms "
+                f"new matches {res.count}; plain {plain.stats.wall_time * 1e3:.1f} ms "
+                f"new matches {plain.count}; launches={seen}")
+            assert res.count == plain.count, (k, name, res.count, plain.count)
+            assert seen["fused_extend"] > 0, "the fused extend kernel never ran in a delta"
+            if k >= 1:
+                totals[name] += res.count
+    after = full_counts()
+    for name in queries:
+        log(f"phase 5b: {name}: delta counts of batches 1-{STREAM_BATCHES - 1} sum to "
+            f"{totals[name]}; full counts {before[name]} -> {after[name]} "
+            f"(difference {after[name] - before[name]})")
+        assert totals[name] == after[name] - before[name], (name, totals, before, after)
+    log(f"phase 5b: max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the RWKV6 kernel against its plain version at the LM path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1355,11 +1629,13 @@ def main() -> int:
     rec, launches = enumeration_phases(ik)
     gc.collect()
     torch.cuda.empty_cache()  # the 16 GB adjacency of phase 5 goes back to the card
+    log(f"chip_smoke: phases 1-5b done at {time.perf_counter() - t_all:.1f} s")
 
     # -- phases 6-8 ------------------------------------------------------------
     rwkv = phase_rwkv6_kernel(rk)
     launches["rwkv6"] = lm_phases(LMPath("rwkv6-7b", rk, "rwkv6", "rwkv6_kernel", 0,
                                          "phase 7", "phase 8"))
+    log(f"chip_smoke: phases 6-8 done at {time.perf_counter() - t_all:.1f} s")
 
     # -- phases 9-11 -----------------------------------------------------------
     flash = phase_flash_kernel(fa)
@@ -1401,9 +1677,9 @@ def main() -> int:
 
 
 def enumeration_phases(ik):
-    """Phases 1 (graph) to 5: the enumeration engine's kernels and main path.
-    Returns the phase-2 records and the main path's launch counts; the
-    graphs are freed when it returns."""
+    """Phases 1 (graph) to 5b: the enumeration engine's kernels and paths.
+    Returns the phase-2 records and the launch counts of the paths' runs;
+    the graphs are freed when it returns."""
     from repro_torch.core.cost import GraphStats
     from repro_torch.core.dataflow import translate
     from repro_torch.core.engine import EngineConfig, HugeEngine
@@ -1411,10 +1687,11 @@ def enumeration_phases(ik):
     from repro_torch.core.query import PAPER_QUERIES
     from repro_torch.graph import powerlaw_graph
     from repro_torch.kernels.intersect import ref
+    from repro_torch.launch import table4
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     t0 = time.perf_counter()
-    big = powerlaw_graph(875_713, 9.8, exponent=3.0, seed=7, device=dev)
+    big = powerlaw_graph(*FULL_GRAPH[:2], exponent=FULL_GRAPH[2], seed=FULL_GRAPH[3], device=dev)
     torch.cuda.synchronize()
     log(f"phase 1: full-width graph |V|={big.num_vertices} |E|={big.num_edges} "
         f"max_deg={big.max_degree} d_pad={big.padded.d_pad} "
@@ -1426,18 +1703,17 @@ def enumeration_phases(ik):
 
     launches = {name: 0 for name in ik.launches}
     # -- phase 3 ---------------------------------------------------------------
-    g4k = powerlaw_graph(4096, 8.0, seed=7, device=dev)
-    stats4k = GraphStats.from_graph(g4k)
+    # The table4 runner: each query plain, then fused (the plain runs launch
+    # no kernel), with per-machine result rows.
     for qname, want in TABLE4.items():
-        cfg = EngineConfig(batch_size=1024, queue_capacity=1 << 17, cache_capacity=1 << 13,
-                           num_machines=8, join_out_capacity=1 << 18,
-                           join_buffer_capacity=1 << 21, fused=True)
-        flow = translate(optimal_plan(PAPER_QUERIES[qname], stats4k, 8, "huge"))
-        res, seen = run_counted(ik, launches, lambda: HugeEngine(g4k, cfg).run(flow))
-        s = res.stats
-        log(f"phase 3: table4 {qname}/huge fused count={res.count} (want {want}) "
-            f"wall={s.wall_time:.3f} s matches/s={res.count / s.wall_time:.1f} launches={seen}")
-        assert res.count == want, (qname, res.count, want)
+        entries, seen = run_counted(ik, launches, lambda: table4.table4(dev, queries=(qname,)))
+        for e in entries:
+            log(f"phase 3: table4 {qname}/huge {e['mode']} count={e['matches']} (want {want}) "
+                f"wall={e['wall_s']:.3f} s matches/s={e['matches_per_s']:.1f} "
+                f"per_machine_rows={e['per_machine_rows']} on {e['device']}, {e['power_limit']}")
+            assert e["matches"] == want == sum(e["per_machine_rows"]), (qname, e)
+        log(f"phase 3: table4 {qname} record {json.dumps(entries[-1])}")
+        log(f"phase 3: table4 {qname} launches={seen}")
         assert seen["fused_extend"] > 0, "the fused extend kernel never ran"
 
     # -- phase 4 ---------------------------------------------------------------
@@ -1455,32 +1731,55 @@ def enumeration_phases(ik):
         assert res.count == want, (qname, space, res.count, want)
         assert seen[must] > 0, f"{must} never ran in {qname}/{space}"
 
-    # -- phase 5 ---------------------------------------------------------------
-    qname = "q3"
-    t0 = time.perf_counter()
-    flow = translate(optimal_plan(PAPER_QUERIES[qname], GraphStats.from_graph(big), 8, "huge"))
-    plan_s = time.perf_counter() - t0
-    log(f"phase 5: planning {plan_s * 1e3:.1f} ms; dataflow:\n{flow.describe()}")
-    full_cfg = dict(batch_size=1024, queue_capacity=1 << 18, cache_capacity=1 << 14,
-                    num_machines=8)
-    counts, walls = {}, {}
-    for fused in (True, False):
-        torch.cuda.reset_peak_memory_stats()
-        eng = HugeEngine(big, EngineConfig(fused=fused, **full_cfg))
-        res, seen = run_counted(ik, launches if fused else {n: 0 for n in launches},
-                                lambda: eng.run(flow))
-        s = res.stats
-        counts[fused] = res.count
-        walls[fused] = (s.wall_time, res.schedule.steps)
-        log(f"phase 5: {qname}/huge full width fused={fused} count={res.count} "
-            f"wall={s.wall_time:.2f} s matches/s={res.count / s.wall_time:.1f} "
-            f"steps={res.schedule.steps} launches={seen} "
-            f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-            f"T_R={s.compute_time:.2f} s T_C={s.comm_time:.2f} s")
-        if fused:
-            assert seen["fused_extend"] > 0, "the fused extend kernel never ran at full width"
-    assert counts[True] == counts[False], counts
-    profile_window(big, flow, EngineConfig(fused=True, **full_cfg), HugeEngine, *walls[True])
+    with preflight_times() as preflight:
+        # -- phase 5 -----------------------------------------------------------
+        qname = "q3"
+        t0 = time.perf_counter()
+        flow = translate(optimal_plan(PAPER_QUERIES[qname], GraphStats.from_graph(big), 8, "huge"))
+        plan_s = time.perf_counter() - t0
+        log(f"phase 5: planning {plan_s * 1e3:.1f} ms; dataflow:\n{flow.describe()}")
+        counts, walls = {}, {}
+        for fused in (True, False):
+            torch.cuda.reset_peak_memory_stats()
+            eng = HugeEngine(big, EngineConfig(fused=fused, **FULL_CFG), track_balance=True)
+            res, seen = run_counted(ik, launches if fused else {n: 0 for n in launches},
+                                    lambda: eng.run(flow))
+            s = res.stats
+            counts[fused] = res.count
+            walls[fused] = (s.wall_time, res.schedule.steps)
+            log(f"phase 5: {qname}/huge full width fused={fused} count={res.count} "
+                f"wall={s.wall_time:.2f} s matches/s={res.count / s.wall_time:.1f} "
+                f"steps={res.schedule.steps} launches={seen} "
+                f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+                f"T_R={s.compute_time:.2f} s T_C={s.comm_time:.2f} s "
+                f"per_machine_rows={s.per_machine_rows.tolist()}")
+            assert int(s.per_machine_rows.sum()) == res.count
+            if fused:
+                assert seen["fused_extend"] > 0, "the fused extend kernel never ran at full width"
+        del eng
+        assert counts[True] == counts[False], counts
+        profile_window(big, flow, EngineConfig(fused=True, **FULL_CFG), HugeEngine, *walls[True])
+        log_preflight("phase 5", preflight)
+
+        # -- phase 5b ----------------------------------------------------------
+        t0 = time.perf_counter()
+        phase_recovery(ik, launches)
+        log(f"phase 5b: recovery matrix took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_paths(big)
+        log(f"phase 5b: paths took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        # The engines below hold the only references to the full-width graph,
+        # so each update frees the adjacency it replaced. (A session is a
+        # reference cycle that holds its engine, and with it a graph, until
+        # the cycle collector runs: collect before and during the updates.)
+        engines = streaming_engines(big)
+        del big
+        gc.collect()
+        phase_streaming(ik, launches, *engines)
+        del engines
+        log(f"phase 5b: streaming took {time.perf_counter() - t0:.1f} s")
+        log_preflight("phase 5b", preflight)
     return rec, launches
 
 

@@ -57,14 +57,25 @@ class OpDesc:
     # locally-owned root's adjacency), "pull" (fetch-stage GetNbrs) or "push"
     # (BiGJoin-style shuffled wco extends).
     comm: str = "local"
+    # Streaming epochs (DESIGN.md §Delta-plans). ``scan_epoch`` is "full"
+    # (whole data graph) or "delta" (seed rows from the update batch only).
+    # ``ext_epochs`` — aligned with ``ext`` — tags each intersected query edge
+    # of an extend/verify: "new" probes the post-batch adjacency, "old" probes
+    # post-batch minus the delta (legal for insert batches). Empty means every
+    # position is "new", which is what ``translate`` emits.
+    scan_epoch: str = "full"
+    ext_epochs: Tuple[str, ...] = ()
 
     def label(self) -> str:
         if self.kind == "scan":
-            return f"SCAN{self.scan_edge}"
+            tag = "Δ" if self.scan_epoch == "delta" else ""
+            return f"{tag}SCAN{self.scan_edge}"
         if self.kind == "extend":
-            return f"EXT(v{self.new_vertex}|ext={self.ext})"
+            ep = f"|ep={self.ext_epochs}" if self.ext_epochs else ""
+            return f"EXT(v{self.new_vertex}|ext={self.ext}{ep})"
         if self.kind == "verify":
-            return f"VRF(pos{self.verify_pos}|ext={self.ext})"
+            ep = f"|ep={self.ext_epochs}" if self.ext_epochs else ""
+            return f"VRF(pos{self.verify_pos}|ext={self.ext}{ep})"
         if self.kind == "join":
             return f"JOIN(key={self.key_left})"
         return "SINK"
@@ -333,3 +344,126 @@ class _Translator:
 def translate(plan: ExecutionPlan) -> Dataflow:
     """Paper Algorithm 2."""
     return _Translator(plan).run()
+
+
+# ---------------------------------------------------------------------------
+# Delta-join decomposition for streaming updates (DESIGN.md §Delta-plans)
+# ---------------------------------------------------------------------------
+
+def delta_edge_order(query) -> List[Edge]:
+    """Canonical total order over the query's edges.
+
+    The exactly-once guarantee of :func:`delta_flows` hinges on every caller
+    agreeing on this order: flow ``i`` emits a match iff ``i`` is the *minimum*
+    index whose query edge lands on a delta data edge."""
+    return sorted(query.edges)
+
+
+def delta_flows(plan: ExecutionPlan, batch=None) -> List[Dataflow]:
+    """Delta-join decomposition: one dataflow per query edge.
+
+    For a k-edge query with canonical edge order ``e_0 < … < e_{k-1}``, flow
+    ``i`` scans matches of ``e_i`` from the *delta* (new edges only), then
+    extends to the remaining query vertices; each query edge ``e_j`` checked
+    along the way probes the **old** adjacency when ``j < i`` and the **new**
+    adjacency when ``j > i``. A new match whose query edges land on delta
+    data edges at index set ``S ≠ ∅`` is produced exactly by flow ``min(S)``
+    — no duplicates, no misses — and an unchanged match (``S = ∅``) by none.
+
+    The flows depend only on the query (not the batch contents), so standing
+    queries translate once and re-execute per batch; ``batch`` is accepted
+    for the natural call shape and only used to short-circuit empty batches.
+    Every extend intersects over *all* already-matched neighbours of the new
+    vertex (Eq. 2), so each query edge is enforced exactly once — at the op
+    where its second endpoint enters the schema — and no trailing VERIFY is
+    needed. Symmetry-breaking conditions are installed exactly as in
+    :func:`translate`, so per-automorphism-class dedup carries over."""
+    if batch is not None and getattr(batch, "num_edges", None) == 0:
+        return []
+    query = plan.query
+    order = delta_edge_order(query)
+    index_of = {e: i for i, e in enumerate(order)}
+    qadj = query.adjacency()
+    conds = list(plan.symmetry_conditions)
+    flows: List[Dataflow] = []
+
+    for i, (a, b) in enumerate(order):
+        ops: List[OpDesc] = []
+        schema = [a, b]
+        lt, gt = [], []
+        for ca, cb in conds:
+            if (ca, cb) == (a, b):
+                lt.append(1)
+            elif (ca, cb) == (b, a):
+                gt.append(1)
+        ops.append(
+            OpDesc(
+                kind="scan",
+                schema=(a, b),
+                scan_edge=(a, b),
+                scan_epoch="delta",
+                lt_positions=tuple(lt),
+                gt_positions=tuple(gt),
+            )
+        )
+        while len(schema) < query.num_vertices:
+            # Greedy: next vertex with the most matched neighbours (densest
+            # Eq.-2 intersection first), smallest id on ties — deterministic.
+            candidates = [
+                v for v in range(query.num_vertices)
+                if v not in schema and any(u in schema for u in qadj[v])
+            ]
+            v = max(candidates, key=lambda c: (len(qadj[c] & set(schema)), -c))
+            ext, epochs = [], []
+            for p, u in enumerate(schema):
+                if u in qadj[v]:
+                    ext.append(p)
+                    j = index_of[(min(u, v), max(u, v))]
+                    epochs.append("old" if j < i else "new")
+            flt, fgt = [], []
+            for ca, cb in conds:
+                if ca == v and cb in schema:
+                    flt.append(schema.index(cb))
+                elif cb == v and ca in schema:
+                    fgt.append(schema.index(ca))
+            ops.append(
+                OpDesc(
+                    kind="extend",
+                    schema=tuple(schema + [v]),
+                    inputs=(len(ops) - 1,),
+                    ext=tuple(ext),
+                    ext_epochs=tuple(epochs),
+                    new_vertex=v,
+                    lt_positions=tuple(flt),
+                    gt_positions=tuple(fgt),
+                    comm="pull",
+                )
+            )
+            schema.append(v)
+        ops.append(OpDesc(kind="sink", schema=tuple(schema), inputs=(len(ops) - 1,)))
+        flows.append(Dataflow(ops=ops, query_name=f"Δ{i}:{query.name}"))
+    return flows
+
+
+def merge_flows(flows: Sequence[Dataflow]) -> Tuple[Dataflow, Tuple[int, ...]]:
+    """Concatenate independent dataflows into one multi-sink DAG.
+
+    Returns ``(merged, tenant_of_op)`` where ``tenant_of_op[i]`` is the index
+    of the source flow op ``i`` came from. Concatenating per-flow topological
+    orders yields a valid topological order of the union (there are no cross-
+    flow edges), so one AdaptiveScheduler pass over the merged op list
+    interleaves runnable ops across tenants — this is how N concurrent
+    queries share a single engine's scheduler tick (serve/graph_service.py,
+    distributed.run_concurrent). Per-tenant results stay separable because
+    each flow keeps its own sink (``merged.sink_indices()``, in input order)."""
+    ops: List[OpDesc] = []
+    tenant_of_op: List[int] = []
+    for t, flow in enumerate(flows):
+        off = len(ops)
+        for op in flow.ops:
+            ops.append(
+                dataclasses.replace(op, inputs=tuple(j + off for j in op.inputs))
+            )
+            tenant_of_op.append(t)
+    name = "+".join(f.query_name or f"flow{t}" for t, f in enumerate(flows))
+    return Dataflow(ops=ops, query_name=name), tuple(tenant_of_op)

@@ -14,7 +14,15 @@ paper measures it:
 With ``fused=True`` extends and verifies read their adjacency slabs through
 an LRBU value cache and run the fused CUDA kernels, and PUSH-JOIN probes run
 the bounds kernel. A kernel that fails to build or launch raises; nothing
-falls back to the plain path.
+falls back to the plain path. The one exception is an *injected*
+``kernel-fail`` fault (``EngineConfig.faults``): that batch runs the plain
+path and is counted in ``kernel_fallbacks``. (The JAX engine also degrades a
+real kernel failure to its twin; the port does not.)
+
+``prepare`` runs the static flowcheck on every flow; ``drive`` runs a
+session under the recovery ladder (checkpoint, restore at half the batch for
+queue pressure, the same batch for a lost shard); ``apply_updates`` and
+``run_delta`` enumerate only the matches a batch of edge inserts creates.
 
 The control flow is the JAX reference's, including its host syncs: every
 queue append reads the appended count on the host, and so do the fetch-stage
@@ -22,7 +30,9 @@ statistics and the sink.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import logging
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -32,14 +42,33 @@ import torch
 from repro_torch.core import cache as lrbu
 from repro_torch.core import operators as ops_mod
 from repro_torch.core.cost import GraphStats
-from repro_torch.core.dataflow import Dataflow, OpDesc, translate
-from repro_torch.core.faults import EnumerationFault, QueuePressure
+from repro_torch.core.dataflow import (
+    Dataflow,
+    OpDesc,
+    delta_flows,
+    merge_flows,
+    translate,
+)
+from repro_torch.core.faults import (
+    EnumerationFault,
+    FaultPlan,
+    QueuePressure,
+    ShardLoss,
+)
 from repro_torch.core.optimizer import optimal_plan
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.query import QueryGraph
 from repro_torch.core.scheduler import AdaptiveScheduler, ScheduleStats
 from repro_torch.device import resolve_device
-from repro_torch.graph.storage import INVALID, Graph
+from repro_torch.graph.storage import (
+    INVALID,
+    AppliedUpdates,
+    Graph,
+    GraphUpdateBatch,
+    apply_updates as storage_apply_updates,
+)
+
+_log = logging.getLogger("repro_torch.engine")
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +91,13 @@ class EngineConfig:
     fused: bool = False                    # fused hot path: value-cache probe →
     #   slab gather → intersect in one kernel (extend/verify), and the bounds
     #   kernel inside PUSH-JOIN probes
+    faults: Optional[FaultPlan] = None     # deterministic fault injection
+    recover: bool = True                   # recovery ladder on recoverable
+    #   faults; False = fail fast
+    max_retries: int = 4                   # recovery attempts per driven run
+    min_batch_size: int = 32               # degradation floor for batch halving
+    checkpoint_every_steps: int = 0        # snapshot cadence inside drive()
+    #   (0 = a single snapshot at start; a crash replays the whole query)
 
 
 @dataclasses.dataclass
@@ -78,7 +114,12 @@ class EngineStats:
     peak_queue_rows: int = 0
     peak_queue_bytes: int = 0
     join_overflows: int = 0
+    kernel_fallbacks: int = 0   # injected kernel-fail batches run on the plain path
+    pressure_events: int = 0    # QueuePressure signals absorbed by recovery
+    retries: int = 0            # checkpoint restores (pressure + shard loss)
+    restarts: int = 0           # of which: shard-loss recoveries
     wall_time: float = 0.0
+    per_machine_rows: Optional[np.ndarray] = None
 
     @property
     def total_comm_bytes(self) -> int:
@@ -177,6 +218,8 @@ class _BaseRT:
         self.desc = desc
         self.out_q = out_q
         self.label = desc.label()
+        # Per-session batch size: the recovery ladder restores a session at a
+        # halved batch; queue pricing stays at cfg.batch_size.
         self.batch = engine.cfg.batch_size
         self.query = ""  # owning dataflow's query name (fault attribution)
 
@@ -191,7 +234,16 @@ class _ScanRT(_BaseRT):
     def __init__(self, engine, desc, out_q):
         super().__init__(engine, desc, out_q)
         self.cursor = 0
-        self.total = int(engine.graph.num_directed_edges)
+        self.delta = desc.scan_epoch == "delta"
+        if self.delta:
+            if engine.delta_adj is None:
+                raise RuntimeError(
+                    "delta-seeded scan on an engine with no applied update "
+                    "batch — call HugeEngine.apply_updates first"
+                )
+            self.total = int(engine.delta_total)
+        else:
+            self.total = int(engine.graph.num_directed_edges)
 
     def has_input(self) -> bool:
         return self.cursor < self.total
@@ -201,9 +253,12 @@ class _ScanRT(_BaseRT):
 
     def run_one(self) -> None:
         e = self.e
+        e._inject(("queue-overflow", "shard-loss"), self.label, self.query)
         t0 = time.perf_counter()
+        src = e.delta_src_pad if self.delta else e.src_pad
+        dst = e.delta_dst_pad if self.delta else e.dst_pad
         rows, n = ops_mod.scan_batch(
-            e.src_pad, e.dst_pad, self.cursor, self.total,
+            src, dst, self.cursor, self.total,
             self.batch, self.desc.lt_positions, self.desc.gt_positions,
         )
         self.cursor += self.batch
@@ -227,13 +282,23 @@ class _ExtendRT(_BaseRT):
 
     def run_one(self) -> None:
         e = self.e
+        e._inject(("queue-overflow", "shard-loss"), self.label, self.query)
         rows, n = self.in_q.pop(self.batch)
         if self.comm == "pull":
             e.fetch_stage(rows, n, self.desc.ext)
         elif self.comm == "push":
             e.push_wco_stage(n, len(self.desc.ext), rows.shape[1])
         t0 = time.perf_counter()
-        if e.cfg.fused:
+        if "old" in self.desc.ext_epochs:
+            # Old-epoch positions veto delta membership; the fused kernels
+            # know nothing of epochs, so these extends take the plain path.
+            out, m = ops_mod.delta_extend_batch(
+                e.adj, e.delta_adj, rows, n, self.desc.ext,
+                tuple(ep == "old" for ep in self.desc.ext_epochs),
+                self.desc.lt_positions, self.desc.gt_positions,
+                self.batch * e.d_pad,
+            )
+        elif e.cfg.fused and not e._kernel_fail_injected(self.label):
             tab0, tab1, idx, sel, ok = e._fused_tables(rows, self.desc.ext)
             out, m = ops_mod.fused_extend_batch(
                 tab0, tab1, idx, sel, ok, rows, n,
@@ -243,7 +308,8 @@ class _ExtendRT(_BaseRT):
             out, m = ops_mod.extend_batch(
                 e.adj, rows, n, self.desc.ext, self.desc.lt_positions,
                 self.desc.gt_positions, self.batch * e.d_pad,
-                use_kernel=e.cfg.use_intersect_kernel,
+                # an injected kernel-fail's batch launches no kernel
+                use_kernel=e.cfg.use_intersect_kernel and not e.cfg.fused,
             )
         cnt = self.out_q.append(out, m)
         e.stats.compute_time += time.perf_counter() - t0
@@ -264,10 +330,17 @@ class _VerifyRT(_BaseRT):
 
     def run_one(self) -> None:
         e = self.e
+        e._inject(("queue-overflow", "shard-loss"), self.label, self.query)
         rows, n = self.in_q.pop(self.batch)
         e.fetch_stage(rows, n, self.desc.ext)
         t0 = time.perf_counter()
-        if e.cfg.fused:
+        if "old" in self.desc.ext_epochs:
+            out, m = ops_mod.delta_verify_batch(
+                e.adj, e.delta_adj, rows, n, self.desc.ext,
+                tuple(ep == "old" for ep in self.desc.ext_epochs),
+                self.desc.verify_pos, self.batch,
+            )
+        elif e.cfg.fused and not e._kernel_fail_injected(self.label):
             tab0, tab1, idx, sel, ok = e._fused_tables(rows, self.desc.ext)
             out, m = ops_mod.fused_verify_batch(
                 tab0, tab1, idx, sel, ok, rows, n, self.desc.verify_pos, self.batch,
@@ -304,6 +377,7 @@ class _JoinRT(_BaseRT):
 
     def run_one(self) -> None:
         e = self.e
+        e._inject(("join-overflow", "shard-loss"), self.label, self.query)
         frac = (e.cfg.num_machines - 1) / max(1, e.cfg.num_machines)
         if not self.shuffle_charged:
             # Left side is complete at the barrier: charge its shuffle once.
@@ -322,7 +396,7 @@ class _JoinRT(_BaseRT):
             self._prepared[0], self._prepared[1], rrows, rn,
             self.desc.key_right, self.desc.right_extra,
             self.desc.cross_neq, self.desc.cross_lt, e.cfg.join_out_capacity,
-            use_kernel=e.cfg.fused,
+            use_kernel=e.cfg.fused and not e._kernel_fail_injected(self.label),
         )
         if overflow:
             e.stats.join_overflows += 1
@@ -355,7 +429,13 @@ class _SinkRT(_BaseRT):
         rows, n = self.in_q.pop(self.drain)
         e.stats.count += n
         if e.cfg.materialize and sum(r.shape[0] for r in self.rows_out) < e.cfg.materialize_cap:
-            self.rows_out.append(rows[:n].cpu().numpy())
+            # A copy: on the CPU, ``.cpu()`` would alias the queue buffer,
+            # which later appends overwrite.
+            self.rows_out.append(rows[:n].to("cpu", copy=True).numpy())
+        # Per-machine result distribution (load balance), kept on the device.
+        if e.track_balance and n:
+            e.balance_rows += torch.bincount(
+                rows[:n, 0] % e.cfg.num_machines, minlength=e.cfg.num_machines)
         e.stats.batches += 1
 
 
@@ -396,19 +476,35 @@ class _ScopedRT:
             self.e.stats = prev
 
 
+def fault_tolerant_sizing(cfg: EngineConfig) -> bool:
+    """Whether queue sizing must include retry slack: true when a fault plan
+    is armed *and* the recovery ladder is on (a recovered retry replays a
+    checkpointed batch while the original batch may still occupy its queue,
+    so each queue needs a second worst-case batch of Lemma 5.2 slack)."""
+    return cfg.faults is not None and cfg.recover
+
+
 def _queue_plan(
     flow: Dataflow,
     cfg: EngineConfig,
     d_pad: int,
     queue_capacity: int | None = None,
     join_buffer_capacity: int | None = None,
+    fault_tolerant: bool | None = None,
 ) -> Dict[int, Tuple[int, int]]:
     """Queue sizing for a dataflow: ``{op_index: (physical_rows, width)}``.
 
     An op feeding a PUSH-JOIN buffers its side fully; every queue carries one
-    worst-case batch of slack on top (the Lemma 5.2 overflow allowance)."""
+    worst-case batch of slack on top (the Lemma 5.2 overflow allowance).
+    Fault-tolerant configs (armed fault plan + recovery on) double that
+    slack: a retry after a restore can re-append a replayed batch on top of
+    rows the original attempt already parked (flowcheck's ``retry-slack``
+    rule catches pricing that ignores this)."""
     qcap = cfg.queue_capacity if queue_capacity is None else queue_capacity
     jcap = cfg.join_buffer_capacity if join_buffer_capacity is None else join_buffer_capacity
+    if fault_tolerant is None:
+        fault_tolerant = fault_tolerant_sizing(cfg)
+    slack_mult = 2 if fault_tolerant else 1
     succ: Dict[int, int] = {}
     for i, op in enumerate(flow.ops):
         for j in op.inputs:
@@ -422,11 +518,32 @@ def _queue_plan(
             "verify": cfg.batch_size,
             "extend": cfg.batch_size * d_pad,
             "join": cfg.join_out_capacity,
-        }[op.kind]
+        }[op.kind] * slack_mult
         s = succ.get(i)
         cap = (jcap if s is not None and flow.ops[s].kind == "join" else qcap) + slack
         plan[i] = (cap, len(op.schema))
     return plan
+
+
+def flow_queue_cells(
+    flow: Dataflow,
+    cfg: EngineConfig,
+    d_pad: int,
+    queue_capacity: int | None = None,
+    join_buffer_capacity: int | None = None,
+    fault_tolerant: bool | None = None,
+) -> int:
+    """Total int32 cells a session over ``flow`` will preallocate (what a
+    multi-tenant slot-pool lease is denominated in). ``fault_tolerant``
+    defaults to deriving from ``cfg`` (see ``fault_tolerant_sizing``), so
+    pricing and allocation always agree."""
+    return sum(
+        cap * width
+        for cap, width in _queue_plan(
+            flow, cfg, d_pad, queue_capacity, join_buffer_capacity,
+            fault_tolerant,
+        ).values()
+    )
 
 
 class EngineSession:
@@ -441,11 +558,17 @@ class EngineSession:
         stats: EngineStats | None = None,
         queue_capacity: int | None = None,
         join_buffer_capacity: int | None = None,
+        batch_size: int | None = None,
+        dfs_bias: bool = False,
     ):
         self.engine = engine
         self.flow = flow
         self.stats = stats if stats is not None else EngineStats()
         self.sched_stats = ScheduleStats()
+        # Degradation state: a restored session may run a smaller batch with
+        # a DFS-biased scheduler while keeping cfg-priced queues.
+        self.batch_size = int(batch_size) if batch_size else engine.cfg.batch_size
+        self.dfs_bias = dfs_bias
         ops = flow.ops
         plan = _queue_plan(flow, engine.cfg, engine.d_pad,
                            queue_capacity, join_buffer_capacity)
@@ -454,6 +577,7 @@ class EngineSession:
                            query=flow.query_name)
             for i, (cap, width) in plan.items()
         }
+        self.queue_cells = sum(cap * width for cap, width in plan.values())
 
         self.runtimes: Dict[int, _BaseRT] = {}
         for i, op in enumerate(ops):
@@ -471,6 +595,7 @@ class EngineSession:
             else:
                 self.runtimes[i] = _SinkRT(engine, op, self.queues[op.inputs[0]])
         for rt in self.runtimes.values():
+            rt.batch = self.batch_size
             rt.query = flow.query_name
 
         # Join barriers: a PUSH-JOIN may only probe once every ancestor of its
@@ -493,6 +618,11 @@ class EngineSession:
             for i in range(len(ops))
         ]
 
+    def done(self) -> bool:
+        """True once every operator has drained (the criterion that ends a
+        scheduler pass, so a finished session never resumes)."""
+        return not any(rt.has_input() for rt in self.runtimes.values())
+
     def rows_in_flight(self) -> int:
         return sum(q.n for q in self.queues.values())
 
@@ -502,14 +632,104 @@ class EngineSession:
     def memory_probe(self) -> Tuple[int, int]:
         return self.rows_in_flight(), self.bytes_in_flight()
 
+    # -- checkpoint / resume ---------------------------------------------------
+
+    def snapshot(self) -> Dict[str, object]:
+        """Capture of the session's complete execution state.
+
+        Taken *between* scheduler steps, queue contents plus the host-side
+        cursors (scan position, join shuffle flag, sink rows, stats) are the
+        entire state: every other device tensor is immutable graph data. The
+        queue prefixes stay on the device as clones. ``restore`` therefore
+        resumes exactly once: stats roll back to the snapshot, so rows
+        replayed after a restore are never double-counted. Shuffle bytes of
+        already-popped join batches may be charged again on replay (counts
+        stay exact; comm stats are approximate under recovery)."""
+        return {
+            "query": self.flow.query_name,
+            "batch_size": self.batch_size,
+            "queues": {i: (q.buf[: q.n].clone(), q.n) for i, q in self.queues.items()},
+            "scan_cursors": {
+                i: rt.cursor
+                for i, rt in self.runtimes.items()
+                if isinstance(rt, _ScanRT)
+            },
+            "join_charged": {
+                i: rt.shuffle_charged
+                for i, rt in self.runtimes.items()
+                if isinstance(rt, _JoinRT)
+            },
+            "sink_rows": {
+                i: [r.copy() for r in rt.rows_out]
+                for i, rt in self.runtimes.items()
+                if isinstance(rt, _SinkRT)
+            },
+            "stats": copy.copy(self.stats),
+            "sched_stats": copy.copy(self.sched_stats),
+        }
+
+    @classmethod
+    def restore(
+        cls,
+        engine: "HugeEngine",
+        flow: Dataflow,
+        snap: Dict[str, object],
+        *,
+        stats: EngineStats | None = None,
+        queue_capacity: int | None = None,
+        join_buffer_capacity: int | None = None,
+        batch_size: int | None = None,
+        dfs_bias: bool = False,
+    ) -> "EngineSession":
+        """Rebuild a session from ``snapshot()``, optionally degraded to a
+        smaller ``batch_size`` (the recovery ladder's halving). Queue
+        capacities come from the same pricing as a fresh session. When
+        ``stats`` is supplied, snapshot values are written into it in place
+        so existing references stay valid."""
+        if snap.get("query") not in ("", None, flow.query_name):
+            raise ValueError(
+                f"snapshot is for query {snap['query']!r}, not "
+                f"{flow.query_name!r}"
+            )
+        sess = cls(
+            engine, flow, stats=stats, queue_capacity=queue_capacity,
+            join_buffer_capacity=join_buffer_capacity,
+            batch_size=batch_size or snap["batch_size"], dfs_bias=dfs_bias,
+        )
+        for i, (rows, n) in snap["queues"].items():
+            q = sess.queues[i]
+            if n > q.capacity:
+                raise ValueError(
+                    f"snapshot queue {i} holds {n} rows but the restored "
+                    f"queue caps at {q.capacity}"
+                )
+            if n:
+                q.buf[:n] = rows
+            q.n = int(n)
+        for i, cur in snap["scan_cursors"].items():
+            sess.runtimes[i].cursor = int(cur)
+        for i, charged in snap["join_charged"].items():
+            sess.runtimes[i].shuffle_charged = bool(charged)
+        for i, rows in snap["sink_rows"].items():
+            sess.runtimes[i].rows_out = [r.copy() for r in rows]
+        sess.stats.__dict__.update(copy.copy(snap["stats"]).__dict__)
+        sess.sched_stats.__dict__.update(copy.copy(snap["sched_stats"]).__dict__)
+        return sess
+
+    # -- execution -------------------------------------------------------------
+
     def tick(self, max_steps: int) -> ScheduleStats:
         """Run up to ``max_steps`` operator batches of this session."""
-        st = AdaptiveScheduler(self.chain, memory_probe=self.memory_probe).run(max_steps)
+        st = AdaptiveScheduler(
+            self.chain, memory_probe=self.memory_probe, dfs_bias=self.dfs_bias
+        ).run(max_steps)
         self.sched_stats.merge(st)
         return st
 
     def run(self) -> ScheduleStats:
-        st = AdaptiveScheduler(self.chain, memory_probe=self.memory_probe).run()
+        st = AdaptiveScheduler(
+            self.chain, memory_probe=self.memory_probe, dfs_bias=self.dfs_bias
+        ).run()
         self.sched_stats.merge(st)
         return st
 
@@ -519,6 +739,8 @@ class EngineSession:
         matches = None
         if self.engine.cfg.materialize:
             chunks: List[np.ndarray] = []
+            # Every sink: a merged flow (delta unions) has one per source
+            # flow, and each orders the query vertices its own way.
             for si in self.flow.sink_indices():
                 sink_rt = self.runtimes[si]
                 if not sink_rt.rows_out:
@@ -556,14 +778,26 @@ def _edge_scan_arrays(graph: Graph, batch: int) -> Tuple[torch.Tensor, torch.Ten
 
 class HugeEngine:
     def __init__(self, graph: Graph, cfg: EngineConfig | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 track_balance: bool = False):
         self.cfg = cfg or EngineConfig()
         self.device = resolve_device(device)
         self._load_graph(graph.to(self.device))
         self.stats = EngineStats()
+        # Result rows per simulated machine (owner of the first matched
+        # vertex), summed on the device over every run of this engine.
+        self.track_balance = track_balance
+        self.balance_rows = torch.zeros(self.cfg.num_machines, dtype=torch.int64,
+                                        device=self.device)
         self._reset_caches()
+        # Delta state (streaming): installed by apply_updates.
+        self.delta_adj: Optional[torch.Tensor] = None
+        self.delta_src_pad: Optional[torch.Tensor] = None
+        self.delta_dst_pad: Optional[torch.Tensor] = None
+        self.delta_total: int = 0
 
     def _load_graph(self, graph: Graph) -> None:
+        """(Re)bind every graph-derived tensor (also the update path's)."""
         self.graph = graph
         self.adj = graph.padded.adj
         self.deg = graph.padded.deg
@@ -574,8 +808,10 @@ class HugeEngine:
         self.src_pad, self.dst_pad = _edge_scan_arrays(graph, self.cfg.batch_size)
 
     def _reset_caches(self) -> None:
-        """Build the fetch caches: per-machine stats caches, and with
-        ``fused`` the device-level LRBU value cache the kernels read."""
+        """Build the fetch caches from scratch: per-machine stats caches, and
+        with ``fused`` the device-level LRBU value cache the kernels read.
+        Called at init and after every apply_updates: a cached slab of the
+        pre-batch graph would corrupt Eq.-2 intersections."""
         cfg = self.cfg
         self._cache = None
         if cfg.cache_capacity > 0:
@@ -586,6 +822,61 @@ class HugeEngine:
         if cfg.fused and cfg.cache_capacity > 0:
             self._vcache = lrbu.make_cache(
                 cfg.cache_capacity, ways=cfg.cache_ways, d_pad=self.d_pad, device=self.device)
+
+    # -- streaming updates -----------------------------------------------------
+
+    def apply_updates(self, batch: GraphUpdateBatch) -> AppliedUpdates:
+        """Apply an edge-insert batch and arm the delta execution state.
+
+        Row-local storage rebuild (``graph.storage.apply_updates``), then
+        every graph-derived tensor is rebound and both fetch caches are
+        dropped. The delta graph (genuinely new edges only) becomes the seed
+        of delta-seeded scans and the old-epoch membership veto."""
+        applied = storage_apply_updates(self.graph, batch)
+        self._load_graph(applied.graph)
+        self._reset_caches()
+        delta = applied.delta
+        self.delta_adj = delta.padded.adj
+        self.delta_src_pad, self.delta_dst_pad = _edge_scan_arrays(
+            delta, self.cfg.batch_size
+        )
+        self.delta_total = int(delta.num_directed_edges)
+        return applied
+
+    def run_delta(
+        self,
+        query_or_plan: QueryGraph | ExecutionPlan,
+        space: str = "huge",
+        stats: GraphStats | None = None,
+    ) -> EnumerationResult:
+        """Enumerate only the matches *created* by the last applied batch.
+
+        Runs the delta-join decomposition (``dataflow.delta_flows``): one
+        delta-seeded flow per query edge, merged into one multi-sink DAG that
+        one scheduler pass drives. Exactly once: a new match is produced by
+        the flow of its minimum-index delta query edge."""
+        if self.delta_adj is None:
+            raise RuntimeError(
+                "run_delta before apply_updates: no delta batch is armed"
+            )
+        if isinstance(query_or_plan, QueryGraph):
+            gstats = stats or GraphStats.from_graph(self.graph)
+            plan = optimal_plan(query_or_plan, gstats, self.cfg.num_machines, space)
+        elif isinstance(query_or_plan, ExecutionPlan):
+            plan = query_or_plan
+        else:
+            raise TypeError(
+                "run_delta needs a QueryGraph or ExecutionPlan (delta flows "
+                "are derived from the query, not from an existing Dataflow)"
+            )
+        t_start = time.perf_counter()
+        merged, _ = merge_flows(delta_flows(plan))
+        session = self.drive(self.prepare(merged))
+        result = session.result()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        result.stats.wall_time = time.perf_counter() - t_start
+        return result
 
     # -- fetch stage (pull accounting) ---------------------------------------
 
@@ -652,6 +943,33 @@ class HugeEngine:
         frac = (self.cfg.num_machines - 1) / max(1, self.cfg.num_machines)
         self.stats.pushed_bytes += int(n * k * 4 * n_ext * frac)
 
+    # -- fault injection ---------------------------------------------------------
+
+    def _inject(self, kinds: Tuple[str, ...], op: str, query: str = "") -> None:
+        """Probe the armed FaultPlan at an operator invocation and raise the
+        matching structured fault."""
+        fp = self.cfg.faults
+        if fp is None:
+            return
+        for kind in kinds:
+            if fp.should_fire(kind, op):
+                if kind == "shard-loss":
+                    raise ShardLoss(fp.seed % self.cfg.num_machines,
+                                    op=op, query=query)
+                raise QueuePressure(kind, "injected fault", op=op, query=query)
+
+    def _kernel_fail_injected(self, op: str) -> bool:
+        """Whether the armed FaultPlan fires ``kernel-fail`` at this fused
+        operator invocation. Such a batch runs the plain path and is counted
+        in ``kernel_fallbacks``. Only an injected fault degrades this way: a
+        real build or launch failure raises ``KernelFault``."""
+        fp = self.cfg.faults
+        if fp is None or not fp.should_fire("kernel-fail", op):
+            return False
+        self.stats.kernel_fallbacks += 1
+        _log.warning("injected kernel-fail at op=%s: batch runs the plain path", op)
+        return True
+
     # -- execution --------------------------------------------------------------
 
     def to_flow(
@@ -679,16 +997,82 @@ class HugeEngine:
         queue_capacity: int | None = None,
         join_buffer_capacity: int | None = None,
     ) -> EngineSession:
-        """Build an execution session without running it."""
+        """Build an execution session without running it, after the static
+        pre-flight: a malformed flow fails here with structured diagnostics
+        (``FlowcheckError``), not mid-run on the device."""
+        flow = self.to_flow(query_or_plan, space, stats)
+        # Imported here: analysis.flowcheck imports core.dataflow, and the
+        # repro_torch.core package imports this module.
+        from repro_torch.analysis.flowcheck import verify_flow
+
+        verify_flow(flow, cfg=self.cfg, d_pad=self.d_pad,
+                    queue_capacity=queue_capacity,
+                    join_buffer_capacity=join_buffer_capacity)
         return EngineSession(
-            self, self.to_flow(query_or_plan, space, stats), stats=session_stats,
+            self, flow, stats=session_stats,
             queue_capacity=queue_capacity, join_buffer_capacity=join_buffer_capacity,
         )
 
     def drive(self, session: EngineSession) -> EngineSession:
-        """Run a session once to completion; any fault propagates."""
-        session.run()
-        return session
+        """Run a session to completion under the recovery ladder. On a
+        recoverable fault the last checkpoint is restored (at half the batch
+        with a DFS-biased scheduler for ``QueuePressure``, drain before
+        produce; unchanged for ``ShardLoss``, since enumeration is
+        deterministic and replay is exact) and the run retries, up to
+        ``cfg.max_retries`` times and never below ``cfg.min_batch_size``.
+        Returns the session holding the final state (a *new* object when
+        recovery restored). With ``cfg.recover`` off the session runs once
+        and any fault propagates."""
+        cfg = self.cfg
+        if not cfg.recover:
+            session.run()
+            return session
+        ckpt_steps = cfg.checkpoint_every_steps
+        snap = session.snapshot()
+        retries = 0
+        while True:
+            try:
+                if ckpt_steps > 0:
+                    while not session.done():
+                        session.tick(ckpt_steps)
+                        snap = session.snapshot()
+                else:
+                    session.run()
+                return session
+            except EnumerationFault as f:
+                if not f.recoverable or retries >= cfg.max_retries:
+                    raise
+                retries += 1
+                prev_batch = snap["batch_size"]
+                if isinstance(f, ShardLoss):
+                    new_batch = prev_batch
+                else:
+                    new_batch = max(prev_batch // 2, cfg.min_batch_size)
+                    if new_batch >= prev_batch:
+                        raise EnumerationFault(
+                            f.kind,
+                            "recovery ladder exhausted: batch already at "
+                            f"floor {prev_batch} "
+                            "(raise queue capacities or min_batch_size)",
+                            op=f.op, query=f.query,
+                        ) from f
+                _log.warning(
+                    "recovering from %s (attempt %d/%d): batch %d -> %d",
+                    f, retries, cfg.max_retries, prev_batch, new_batch,
+                )
+                session = EngineSession.restore(
+                    self, session.flow, snap, stats=session.stats,
+                    batch_size=new_batch,
+                    dfs_bias=not isinstance(f, ShardLoss),
+                )
+                # Counters go up *after* the restore rolled stats back to the
+                # snapshot, so recovery history survives the rollback.
+                session.stats.retries += 1
+                if isinstance(f, ShardLoss):
+                    session.stats.restarts += 1
+                else:
+                    session.stats.pressure_events += 1
+                snap = session.snapshot()
 
     def run(
         self,
@@ -699,6 +1083,8 @@ class HugeEngine:
         t_start = time.perf_counter()
         session = self.drive(self.prepare(query_or_plan, space, stats, session_stats=self.stats))
         result = session.result()
+        # One copy to the host a run (the sink counts on the device).
+        self.stats.per_machine_rows = self.balance_rows.cpu().numpy().copy()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats.wall_time = time.perf_counter() - t_start

@@ -232,6 +232,67 @@ def verify_batch(
 
 
 # ---------------------------------------------------------------------------
+# Delta epochs (streaming inserts). The old adjacency is reconstructed as
+# membership-in-new AND NOT membership-in-delta, so no pre-batch snapshot is
+# kept; ``old`` is a bool per intersected position. Candidate gathers always
+# read the *new* padded adjacency: an old-epoch position only adds a
+# delta-membership veto, keeping the Eq.-2 structure (and its cost bound).
+# These stay plain PyTorch on either device: the fused kernels know nothing
+# of epochs, and delta batches are small.
+# ---------------------------------------------------------------------------
+
+def delta_extend_batch(
+    adj: torch.Tensor,        # int32[V, D]  post-batch padded sorted adjacency
+    delta_adj: torch.Tensor,  # int32[V, Dd] padded sorted adjacency of new edges
+    rows: torch.Tensor,       # int32[B, K]
+    n,
+    ext: Tuple[int, ...],
+    old: Tuple[bool, ...],    # aligned with ext; True → old-epoch edge
+    lt: Tuple[int, ...],
+    gt: Tuple[int, ...],
+    out_cap: int,
+):
+    b, k = rows.shape
+    valid_row = _arange(b, rows) < n
+    cands = _nbr_rows(adj, rows, ext[0])  # [B, D]
+    mask = (cands != INVALID) & valid_row[:, None]
+    if old[0]:
+        mask &= ~row_membership(_nbr_rows(delta_adj, rows, ext[0]), cands)
+    for d, is_old in zip(ext[1:], old[1:]):
+        mask &= row_membership(_nbr_rows(adj, rows, d), cands)
+        if is_old:
+            mask &= ~row_membership(_nbr_rows(delta_adj, rows, d), cands)
+    for col in range(k):
+        mask &= cands != rows[:, col : col + 1]
+    for p in lt:
+        mask &= cands < torch.where(valid_row, rows[:, p], -1)[:, None]
+    for p in gt:
+        mask &= cands > torch.where(valid_row, rows[:, p], INVALID)[:, None]
+    return _expand_compact(rows, cands, mask, out_cap)
+
+
+def delta_verify_batch(
+    adj: torch.Tensor,
+    delta_adj: torch.Tensor,
+    rows: torch.Tensor,
+    n,
+    ext: Tuple[int, ...],
+    old: Tuple[bool, ...],
+    verify_pos: int,
+    out_cap: int,
+):
+    """Epoch-aware VERIFY: f(root) ∈ ∩ N_ep(f(ext)) with per-position epochs."""
+    b = rows.shape[0]
+    target = rows[:, verify_pos : verify_pos + 1]  # [B, 1]
+    mask = _arange(b, rows) < n
+    for d, is_old in zip(ext, old):
+        mask = mask & row_membership(_nbr_rows(adj, rows, d), target)[:, 0]
+        if is_old:
+            mask = mask & ~row_membership(_nbr_rows(delta_adj, rows, d), target)[:, 0]
+    return compact(rows, mask, out_cap)
+
+
+# ---------------------------------------------------------------------------
 # Fused hot path: the engine computes the cache-probe addressing as a small
 # [B, E] prologue; slab gather, Eq.-2 intersection, injectivity and order
 # filters run in one kernel (or its plain version on the CPU).

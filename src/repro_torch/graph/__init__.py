@@ -1,8 +1,11 @@
 """Graph substrate: padded CSR storage and deterministic generators."""
 from repro_torch.graph.storage import (
     INVALID,
+    AppliedUpdates,
     Graph,
+    GraphUpdateBatch,
     PaddedAdjacency,
+    apply_updates,
     build_graph,
     from_edge_list,
     from_numpy,
@@ -16,8 +19,11 @@ from repro_torch.graph.generators import (
 
 __all__ = [
     "INVALID",
+    "AppliedUpdates",
     "Graph",
+    "GraphUpdateBatch",
     "PaddedAdjacency",
+    "apply_updates",
     "build_graph",
     "from_edge_list",
     "from_numpy",

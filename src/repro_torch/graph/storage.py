@@ -205,6 +205,151 @@ def from_numpy(
     )
 
 
+# ---------------------------------------------------------------------------
+# Streaming updates (edge inserts)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GraphUpdateBatch:
+    """A batch of graph mutations. Only edge inserts are supported: deletes
+    would need the pre-batch adjacency, which inserts can reconstruct as
+    the new adjacency minus the delta."""
+
+    edges: np.ndarray  # int[E, 2] undirected; self loops / dups tolerated
+    kind: str = "insert"
+
+    def __post_init__(self):
+        if self.kind != "insert":
+            raise NotImplementedError(
+                f"GraphUpdateBatch kind={self.kind!r}: only 'insert' is "
+                "supported (deletes need old-epoch adjacency snapshots)"
+            )
+
+    @property
+    def num_edges(self) -> int:
+        return int(np.asarray(self.edges).reshape(-1, 2).shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class AppliedUpdates:
+    """Result of :func:`apply_updates`.
+
+    ``graph`` is the post-batch graph G_new; ``delta`` is a :class:`Graph`
+    over the *genuinely new* edges only (already-present edges and dups are
+    dropped), which serves both as the delta scan source and as the
+    old-epoch membership filter: for pure inserts,
+    ``N_old(v) = N_new(v) \\ N_delta(v)``."""
+
+    graph: Graph
+    delta: Graph
+    edges: np.ndarray       # int32[E_new, 2] canonical genuinely-new edges
+    touched: np.ndarray     # int32[T] vertex ids whose adjacency rows changed
+
+    @property
+    def num_new_edges(self) -> int:
+        return int(self.edges.shape[0])
+
+
+def _canonical_new_edges(offsets: np.ndarray, nbrs: np.ndarray,
+                         batch: GraphUpdateBatch) -> np.ndarray:
+    """Canonicalise a batch against the graph's host CSR: drop self loops,
+    duplicates, out-of-range endpoints (an error), and edges already present."""
+    edges = np.asarray(batch.edges, dtype=np.int64).reshape(-1, 2)
+    if edges.size == 0:
+        return np.zeros((0, 2), np.int64)
+    v = offsets.shape[0] - 1
+    if edges.min() < 0 or edges.max() >= v:
+        raise ValueError(
+            f"update batch references vertices outside [0, {v}) "
+            "(vertex inserts are not supported; grow the graph by rebuild)"
+        )
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    lo = np.minimum(edges[:, 0], edges[:, 1])
+    hi = np.maximum(edges[:, 0], edges[:, 1])
+    und = np.unique(np.stack([lo, hi], axis=1), axis=0)
+    if und.size == 0:
+        return und.reshape(0, 2)
+    starts = offsets[und[:, 0]]
+    ends = offsets[und[:, 0] + 1]
+    present = np.zeros(und.shape[0], bool)
+    for i, (a, b) in enumerate(und):
+        row = nbrs[starts[i] : ends[i]]
+        j = np.searchsorted(row, b)
+        present[i] = j < row.shape[0] and row[j] == b
+    return und[~present]
+
+
+def apply_updates(graph: Graph, batch: GraphUpdateBatch) -> AppliedUpdates:
+    """Apply an edge-insert batch, rebuilding only the affected rows.
+
+    CSR: the new directed neighbours are spliced into ``nbrs`` on the host
+    with one ``np.insert`` (positions by per-row binary search) and the
+    offsets re-accumulated. Padded adjacency: a new tensor on the graph's
+    device, a clone of the old one (or, when a touched row overflows
+    ``d_pad``, a fresh one grown by whole multiples of 128 lanes), into
+    which only the touched rows are written; the adjacency never passes
+    through the host. The input graph is left unchanged."""
+    dev = graph.device
+    offsets = graph.offsets.cpu().numpy().astype(np.int64)
+    nbrs = graph.nbrs.cpu().numpy()
+    new_edges = _canonical_new_edges(offsets, nbrs, batch)
+    v = graph.num_vertices
+    delta = build_graph(new_edges, v, device=dev)
+    if new_edges.shape[0] == 0:
+        return AppliedUpdates(
+            graph=graph, delta=delta,
+            edges=new_edges.astype(np.int32),
+            touched=np.zeros((0,), np.int32),
+        )
+
+    deg = graph.padded.deg.cpu().numpy()
+    # Directed view of the inserts, sorted by (row, value) so np.insert keeps
+    # every row sorted even when one row receives several new neighbours.
+    src = np.concatenate([new_edges[:, 0], new_edges[:, 1]])
+    dst = np.concatenate([new_edges[:, 1], new_edges[:, 0]]).astype(np.int32)
+    order = np.lexsort((dst, src))
+    src, dst = src[order], dst[order]
+    # Insert position of each new neighbour inside its row, relative to the
+    # *original* flat nbrs array (np.insert semantics).
+    pos = np.empty(src.shape[0], np.int64)
+    for i in range(src.shape[0]):
+        row = nbrs[offsets[src[i]] : offsets[src[i] + 1]]
+        pos[i] = offsets[src[i]] + np.searchsorted(row, dst[i])
+    new_nbrs = np.insert(nbrs, pos, dst)
+
+    add_cnt = np.bincount(src, minlength=v).astype(np.int32)
+    new_deg = deg + add_cnt
+    new_offsets = np.zeros(v + 1, dtype=np.int32)
+    np.cumsum(new_deg, out=new_offsets[1:])
+
+    touched = np.unique(src).astype(np.int32)
+    old_adj = graph.padded.adj
+    d_pad = old_adj.shape[1]
+    max_deg = int(new_deg.max())
+    if max_deg > d_pad:
+        d_pad = _round_up(max_deg, _LANE)
+        adj = torch.full((v, d_pad), INVALID, dtype=torch.int32, device=dev)
+        adj[:, : old_adj.shape[1]] = old_adj
+    else:
+        adj = old_adj.clone()
+    rows = np.full((touched.shape[0], d_pad), INVALID, dtype=np.int32)
+    for i, t in enumerate(touched):
+        row = new_nbrs[new_offsets[t] : new_offsets[t + 1]]
+        rows[i, : row.shape[0]] = row
+    adj.index_copy_(0, torch.from_numpy(touched.astype(np.int64)).to(dev),
+                    torch.from_numpy(rows).to(dev))
+
+    new_graph = Graph(
+        offsets=torch.from_numpy(new_offsets).to(dev),
+        nbrs=torch.from_numpy(new_nbrs.astype(np.int32)).to(dev),
+        padded=PaddedAdjacency(adj=adj, deg=torch.from_numpy(new_deg).to(dev)),
+    )
+    return AppliedUpdates(
+        graph=new_graph, delta=delta,
+        edges=new_edges.astype(np.int32), touched=touched,
+    )
+
+
 def from_edge_list(
     edge_list: Iterable[Sequence[int]],
     num_vertices: int | None = None,

@@ -28,7 +28,12 @@ def test_port_imports_without_jax_or_repro():
     for m in ("repro_torch.kernels.rwkv6.ops", "repro_torch.kernels.flash_attention.ops",
               "repro_torch.configs.granite_3_8b", "repro_torch.kernels.build",
               "repro_torch.models.transformer", "repro_torch.models.convert",
-              "repro_torch.serve.engine", "repro_torch.launch.serve", "repro_torch.configs"):
+              "repro_torch.serve.engine", "repro_torch.launch.serve", "repro_torch.configs",
+              "repro_torch.analysis", "repro_torch.analysis.diagnostics",
+              "repro_torch.analysis.flowcheck", "repro_torch.analysis.fixtures",
+              "repro_torch.analysis.corpus", "repro_torch.core.paths",
+              "repro_torch.core.hybrid_comm", "repro_torch.core.faults",
+              "repro_torch.launch.table4"):
         assert m in mods, m
     code = (
         "import sys\n"
@@ -53,7 +58,8 @@ def test_port_imports_without_jax_or_repro():
     "repro_torch.kernels.build", "repro_torch.kernels.rwkv6.ops",
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.intersect.ops", "repro_torch.models.transformer",
-    "repro_torch.serve.engine",
+    "repro_torch.serve.engine", "repro_torch.analysis.flowcheck", "repro_torch.analysis",
+    "repro_torch.core.paths", "repro_torch.launch.table4",
 ])
 def test_each_entry_module_imports_first(first):
     """No import cycle bites a program whose first import is this module."""
@@ -84,6 +90,9 @@ def test_entry_points_raise_without_cuda():
         build_graph([[0, 1]], 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--query", "q3", "--vertices", "64"])
+    from repro_torch.launch import table4
+    with pytest.raises(RuntimeError, match="CUDA"):
+        table4.main(["--vertices", "64"])
 
 
 def test_lm_entry_points_raise_without_cuda():
