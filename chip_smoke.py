@@ -21,6 +21,15 @@ Phases (each prints its results; any failure exits non-zero):
 5. full width: q3 under ``huge`` on a 875,713-vertex power-law graph shaped
    like web-Google, fused against plain, plus a profiled window of the fused
    run;
+5c. the multi-tenant graph service (``serve/graph_service.py``), every
+   session fused: ``launch/service_load`` at its defaults, unfused then
+   fused (59,500 matches, appended to BENCH_torch_service.json); four
+   tenants on the table4 graph (q1/huge, q2/seed, q3/rads, q3/huge) with a
+   lease-oom at admission and a queue-overflow under per-tick checkpoints,
+   then standing triangle and q2 over a batch of inserts; four tenants at
+   full width (q3, triangle, q2, and q1 under a match budget) against
+   isolated runs, with a profiled window, latencies, and device memory back
+   to its pre-submit level with the cycle collector off;
 5b. the engine's other paths: every injected fault kind recovered on the
    table4 graph (the kernels launching again after the restore),
    ``shortest_path_length`` at full width against scipy, and batches of
@@ -167,6 +176,29 @@ FULL_CFG = dict(batch_size=1024, queue_capacity=1 << 18, cache_capacity=1 << 14,
 STREAM_BATCHES, STREAM_EDGES, STREAM_SEED = 4, 64, 11
 STREAM_QUERIES = ("triangle", "q2")
 PATH_PAIRS, PATH_SEED = 8, 5
+# Phase 5c: the service's legs. On the table4 graph: (tenant, query, plan
+# space, the reference's count); at full width: (tenant, query, match
+# budget), q3's count there (phase 5's), and the ticks of its profiled window.
+SERVICE_TABLE4 = (("a", "q1", "huge", 110508), ("b", "q2", "seed", 67887),
+                  ("c", "q3", "rads", 1782), ("d", "q3", "huge", 1782))
+# q1's budget is 1,000: squares are rare on this graph (on an H100 80GB, q1
+# had 75,335 after 103,058 of its steps and 724 s of the service).
+SERVICE_FULL = (("a", "q3", None), ("b", "triangle", None), ("c", "q2", None),
+                ("d", "q1", 1_000))
+# At full width an extend queue's slack is batch x d_pad rows (1024 x 4608):
+# the four sessions price at 113.4 M int32 cells, past the default pool's
+# 67.1 M, so the leg's pool is larger. (At batch 256 they fit the default
+# pool, but with four times the steps the leg ran past 11 minutes on an
+# H100 80GB.)
+SERVICE_FULL_POOL = 128 << 20
+FULL_Q3 = 44
+# 3 ticks of 4 x 32 steps, as many steps as phase 5's window: after a
+# window of 20 ticks the profiler took minutes to stop (H100 80GB).
+SERVICE_PROFILE_TICKS = 3
+SERVICE_BENCH = "BENCH_torch_service.json"
+# Device memory a retired session may leave behind: none of its own; the
+# slack covers allocator rounding.
+MEM_SLACK = 4 << 20
 
 
 def log(*args):
@@ -882,10 +914,9 @@ def phase_recovery(ik, launches):
                 assert seen[kernel] == seen0[kernel] - 1, (seen, seen0)
             else:
                 assert len(marks) == 1 and after > 0, (kind, marks, seen)
+        # The fifth kind is the service's admission fault (phase 5c).
         assert set(FAULT_KINDS) - {"queue-overflow", "shard-loss", "kernel-fail",
                                    "join-overflow"} == {"lease-oom"}
-        log("phase 5b: lease-oom is the multi-tenant service's admission fault; "
-            "the engine injects it nowhere")
     finally:
         engine_mod.EngineSession.restore = restore
 
@@ -967,11 +998,12 @@ def streaming_engines(graph):
             HugeEngine(graph, EngineConfig(fused=False, **FULL_CFG)))
 
 
-def phase_streaming(ik, launches, fused_eng, plain_eng):
+def phase_streaming(ik, launches, fused_eng, plain_eng, before):
     """Batches of inserts at full width through both engines' apply_updates,
     each followed by run_delta of every standing query: fused and plain delta
-    counts equal batch by batch, and the delta counts of the timed batches
-    add up to the full counts' difference across them (exactly once)."""
+    counts equal batch by batch, and the delta counts of all batches add up
+    to the difference between the full counts before them (``before``, phase
+    5c's isolated runs) and after them (exactly once)."""
     from repro_torch.core.engine import EngineConfig, HugeEngine
     from repro_torch.core.query import PAPER_QUERIES, triangle
     from repro_torch.graph import GraphUpdateBatch
@@ -991,10 +1023,7 @@ def phase_streaming(ik, launches, fused_eng, plain_eng):
     torch.cuda.reset_peak_memory_stats()
     batches = wedge_batches(fused_eng.graph, STREAM_BATCHES, STREAM_EDGES, STREAM_SEED)
     totals = {name: 0 for name in queries}
-    before = None
     for k, edges in enumerate(batches):
-        if k == 1:
-            before = full_counts()
         gc.collect()  # the last runs' sessions, which hold the graph about to be replaced
         d_pad = fused_eng.d_pad
         applied = {}
@@ -1021,15 +1050,259 @@ def phase_streaming(ik, launches, fused_eng, plain_eng):
                 f"new matches {plain.count}; launches={seen}")
             assert res.count == plain.count, (k, name, res.count, plain.count)
             assert seen["fused_extend"] > 0, "the fused extend kernel never ran in a delta"
-            if k >= 1:
-                totals[name] += res.count
+            totals[name] += res.count
     after = full_counts()
     for name in queries:
-        log(f"phase 5b: {name}: delta counts of batches 1-{STREAM_BATCHES - 1} sum to "
+        log(f"phase 5b: {name}: delta counts of batches 0-{STREAM_BATCHES - 1} sum to "
             f"{totals[name]}; full counts {before[name]} -> {after[name]} "
             f"(difference {after[name] - before[name]})")
         assert totals[name] == after[name] - before[name], (name, totals, before, after)
     log(f"phase 5b: max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the multi-tenant graph service on the fused kernels
+# ---------------------------------------------------------------------------
+
+def ticket_line(t, cells):
+    req = t.request
+    name = req.query if isinstance(req.query, str) else req.query.name
+    return (f"#{t.id} {req.tenant} {name}/{req.space} -> {t.status} count={t.count} "
+            f"cells={cells.get(t.id)} latency={t.latency_s:.3f} s "
+            f"wait={t.queue_wait_s if t.queue_wait_s is None else round(t.queue_wait_s, 3)} s "
+            f"attempts={t.attempts} failures={t.failures}")
+
+
+def drive(svc, tickets, ticks=None):
+    """Tick ``svc`` (``ticks`` times, or until idle) and keep each ticket's
+    priced cells, which the service zeroes when the lease goes back."""
+    cells = {}
+    n = 0
+    while (svc.active or svc.admission) and (ticks is None or n < ticks):
+        svc.tick()
+        n += 1
+        cells.update({t.id: t.queue_cells for t in tickets if t.queue_cells})
+    return cells
+
+
+def phase_service_load(ik, launches):
+    """``launch/service_load`` at its defaults (T3xR4 on powerlaw_graph(1024,
+    6.0, seed=7)), unfused as the reference runs it, then fused; the
+    entries are appended to SERVICE_BENCH."""
+    from repro_torch.launch import service_load
+
+    got = []
+    for fused in (False, True):
+        args = ["--out", SERVICE_BENCH] + (["--fused"] if fused else [])
+        e, seen = run_counted(ik, launches, lambda: service_load.main(args))
+        log(f"phase 5c: reference load {e['case']} {'fused' if fused else 'unfused'}: "
+            f"matches={e['matches']} wall={e['wall_s']:.3f} s "
+            f"matches/s={e['matches_per_s']:.1f} p50={e['p50_s']:.3f} s "
+            f"p99={e['p99_s']:.3f} s ticks={e['ticks']} peak_pool_cells={e['peak_pool_cells']} "
+            f"peak_inflight_rows={e['peak_inflight_rows']} launches={seen} "
+            f"on {e['device']}, {e['power_limit']}")
+        assert (e["case"], e["matches"], e["ticks"], e["peak_pool_cells"]) == \
+            ("T3xR4_v1024", 59500, 13, 1984512), e  # BENCH_service.json's
+        assert (seen["fused_extend"] > 0) if fused else not any(seen.values()), seen
+        got.append(e)
+    assert got[0]["peak_inflight_rows"] == got[1]["peak_inflight_rows"], got
+
+
+def phase_service_table4(ik, launches):
+    """The service on the table4 graph, fused, batch 256: four tenants whose
+    plans run fused_extend, lex_bounds (q2/seed's PUSH-JOIN) and
+    fused_verify (q3/rads); a lease-oom at the first admission and a
+    queue-overflow under checkpoints every tick, both recovered; then
+    standing triangle and q2 over a batch of wedge-closing edges, whose
+    deltas must be the full counts' difference."""
+    from repro_torch.core.engine import EngineConfig, HugeEngine
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.query import PAPER_QUERIES, triangle
+    from repro_torch.graph import GraphUpdateBatch, powerlaw_graph
+    from repro_torch.launch.table4 import GRAPH
+    from repro_torch.serve.graph_service import GraphQueryRequest, GraphService, ServiceConfig
+
+    g4k = powerlaw_graph(*GRAPH[:2], seed=GRAPH[2], device=torch.device(DEV))
+    lease = FaultPlan.single("lease-oom", op="admit", at_step=0)
+    # Past the first two ticks (at most 224 steps), so that every session
+    # has a checkpoint when it fires.
+    overflow = FaultPlan.single("queue-overflow", op="ext", at_step=300)
+    svc = GraphService(g4k, ServiceConfig(join_buffer_capacity=1 << 21, checkpoint_every_ticks=1,
+                                          faults=lease),
+                       EngineConfig(batch_size=256, fused=True, faults=overflow))
+
+    def serve():
+        t0 = time.perf_counter()
+        tickets = [svc.submit(GraphQueryRequest(tenant=t, query=q, space=s))
+                   for t, q, s, _ in SERVICE_TABLE4]
+        cells = drive(svc, tickets)
+        torch.cuda.synchronize()
+        return tickets, cells, time.perf_counter() - t0
+
+    (tickets, cells, wall), seen = run_counted(ik, launches, serve)
+    for t, (_, _, _, want) in zip(tickets, SERVICE_TABLE4):
+        log(f"phase 5c: table4 graph {ticket_line(t, cells)} (want {want}) "
+            f"retries={t.stats.retries} pressure_events={t.stats.pressure_events}")
+        assert t.status == "done" and t.count == want, (t.status, t.count, want, t.error)
+    log(f"phase 5c: table4 graph service wall={wall:.3f} s ticks={svc.ticks} "
+        f"peak_pool_cells={svc.peak_pool_cells} peak_inflight_rows={svc.peak_inflight_rows} "
+        f"launches={seen}")
+    for name in ("fused_extend", "fused_verify", "lex_bounds"):
+        assert seen[name] > 0, f"{name} never ran in the service's sessions"
+    leased = [t for t in tickets if any("lease-oom" in f for f in t.failures)]
+    assert lease.fired_count("lease-oom") == 1 and leased == tickets[:1], lease.fired
+    hit = [t for t in tickets if any("queue-overflow" in f for f in t.failures)]
+    assert overflow.fired_count("queue-overflow") == 1 and len(hit) == 1, overflow.fired
+    assert hit[0].attempts == 1 and hit[0].stats.pressure_events == 1  # degraded in place
+    assert svc.pool.leased_cells == 0 and not svc.active
+
+    queries = {"triangle": triangle(), "q2": PAPER_QUERIES["q2"]}
+    standing = {name: svc.register_standing(f"standing-{name}", q) for name, q in queries.items()}
+    plain = dict(batch_size=1024, queue_capacity=1 << 17, cache_capacity=1 << 13,
+                 join_out_capacity=1 << 18, join_buffer_capacity=1 << 21)
+
+    def full_counts():
+        return {name: HugeEngine(svc.engine.graph, EngineConfig(**plain)).run(q).count
+                for name, q in queries.items()}
+
+    before = full_counts()
+    edges = wedge_batches(svc.engine.graph, 1, STREAM_EDGES, STREAM_SEED)[0]
+    t0 = time.perf_counter()
+    out, seen = run_counted(ik, launches, lambda: svc.apply_batch(GraphUpdateBatch(edges)))
+    wall = time.perf_counter() - t0
+    after = full_counts()
+    for name, sq in standing.items():
+        got = out["deltas"][sq.id]
+        log(f"phase 5c: standing {name}: delta {got}; full counts {before[name]} -> "
+            f"{after[name]} (difference {after[name] - before[name]})")
+        assert got == after[name] - before[name], (name, got, before, after)
+    log(f"phase 5c: apply_batch of {out['new_edges']} edges ({out['touched_vertices']} touched "
+        f"rows) with its delta tickets {wall * 1e3:.1f} ms, launches={seen}")
+    assert out["new_edges"] == STREAM_EDGES and before["q2"] == TABLE4["q2"]
+    assert all(t.status == "done" for t in out["tickets"]) and svc.pool.leased_cells == 0
+
+
+def phase_service_full(ik, launches, big):
+    """The service at full width, fused, phase 5's configuration (batch
+    1024), four tenants at once, q1 under a match budget; triangle and q2
+    against isolated fused runs, whose counts are returned (phase 5b's
+    streaming starts from them); a profiled window of a second service,
+    its requests then cancelled; device memory back to its pre-submit
+    level after each, with the cycle collector off."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.engine import EngineConfig, HugeEngine
+    from repro_torch.core.query import PAPER_QUERIES, triangle
+    from repro_torch.serve.graph_service import GraphQueryRequest, GraphService, ServiceConfig
+
+    cfg = EngineConfig(fused=True, **FULL_CFG)
+    scfg = ServiceConfig(tick_steps=32, max_active=4, total_queue_cells=SERVICE_FULL_POOL)
+    queries = {"q3": PAPER_QUERIES["q3"], "triangle": triangle(), "q2": PAPER_QUERIES["q2"],
+               "q1": PAPER_QUERIES["q1"]}
+    isolated = {}
+    for name in ("triangle", "q2"):
+        res, seen = run_counted(ik, launches, lambda: HugeEngine(big, cfg).run(queries[name]))
+        isolated[name] = res.count
+        log(f"phase 5c: isolated fused {name} count={res.count} wall={res.stats.wall_time:.2f} s "
+            f"steps={res.schedule.steps} launches={seen}")
+    gc.collect()  # the isolated runs' sessions: HugeEngine.run does not close them
+
+    def submit(svc):
+        return [svc.submit(GraphQueryRequest(tenant=t, query=queries[q], match_budget=b))
+                for t, q, b in SERVICE_FULL]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.disable()
+    try:
+        # A profiled window of SERVICE_PROFILE_TICKS ticks after 3 warm-up
+        # ticks; then every request is cancelled.
+        svc = GraphService(big, scfg, cfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+
+        def window():
+            tickets = submit(svc)
+            drive(svc, tickets, 3)
+            steps0 = sum(t.stats.batches for t in tickets)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                drive(svc, tickets, SERVICE_PROFILE_TICKS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            steps = sum(t.stats.batches for t in tickets) - steps0
+            for t in tickets:
+                if t.status in ("queued", "running"):
+                    assert svc.cancel(t) and t.status == "cancelled"
+            torch.cuda.synchronize()
+            return prof, wall, steps, [t.status for t in tickets]
+
+        (prof, pwall, psteps, statuses), seen = run_counted(ik, launches, window)
+        cancelled = torch.cuda.memory_allocated()
+        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy_us = sum(t for _, t, _ in rows)
+        ours = sum(t for k, t, _ in rows if any(f"{n}_kernel" in k for n in REPLACES))
+        log(f"phase 5c: profile of {SERVICE_PROFILE_TICKS} full-width service ticks "
+            f"({psteps} steps): wall={pwall * 1e3:.1f} ms device busy={busy_us / 1e3:.1f} ms "
+            f"(port's kernels {ours / 1e3:.1f} ms, {ours / max(busy_us, 1e-9):.3f} of busy) "
+            f"idle share={1 - busy_us / 1e3 / (pwall * 1e3):.3f} launches={seen}")
+        for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
+            log(f"phase 5c:   device {t / 1e3:9.2f} ms  x{n:<6d} {key[:90]}")
+        log(f"phase 5c: memory_allocated {base / 1e9:.4f} GB before the window's submits, "
+            f"{cancelled / 1e9:.4f} GB after its cancels (statuses {statuses})")
+        assert abs(cancelled - base) <= MEM_SLACK, (base, cancelled)
+        del svc, prof
+
+        svc = GraphService(big, scfg, cfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+
+        def serve():
+            t0 = time.perf_counter()
+            tickets = submit(svc)
+            cells = drive(svc, tickets, 1)
+            summary = svc.run_until_idle()
+            torch.cuda.synchronize()
+            return tickets, cells, summary, time.perf_counter() - t0
+
+        (tickets, cells, summary, wall), seen = run_counted(ik, launches, serve)
+        done = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    steps = sum(t.stats.batches for t in tickets)
+    lat = [t.latency_s for t in tickets]
+    matches = sum(t.count for t in tickets)
+    for t in tickets:
+        log(f"phase 5c: full width {ticket_line(t, cells)} steps={t.stats.batches}")
+    log(f"phase 5c: full width service wall={wall:.2f} s ticks={summary['ticks']} "
+        f"steps={steps} p50={np.percentile(lat, 50):.2f} s p99={np.percentile(lat, 99):.2f} s "
+        f"matches/s={matches / wall:.1f} peak_pool_cells={summary['peak_pool_cells']} "
+        f"(pool {svc.pool.total_cells}) peak_inflight_rows={summary['peak_inflight_rows']} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB launches={seen}")
+    per_step = busy_us / 1e3 / max(psteps, 1)
+    log(f"phase 5c: device busy {per_step:.4f} ms a step (profiled window) -> "
+        f"estimated idle share of the service run {1 - per_step * steps / (wall * 1e3):.3f}")
+    log(f"phase 5c: memory_allocated {base / 1e9:.4f} GB before the first submit, "
+        f"{done / 1e9:.4f} GB after run_until_idle (no gc.collect())")
+    assert abs(done - base) <= MEM_SLACK, (base, done)
+    by = {q: t for (_, q, _), t in zip(SERVICE_FULL, tickets)}
+    assert cells.keys() == {t.id for t in tickets}, "the pool did not hold all four sessions"
+    assert by["q3"].status == "done" and by["q3"].count == FULL_Q3, by["q3"]
+    for name in ("triangle", "q2"):
+        assert by[name].status == "done" and by[name].count == isolated[name], (name, isolated)
+    q1 = by["q1"]
+    if q1.status == "done":  # finished below its budget: then it is the whole count
+        res = HugeEngine(big, cfg).run(queries["q1"])
+        log(f"phase 5c: q1 finished below its budget; isolated count {res.count}")
+        assert q1.count == res.count
+    else:
+        assert q1.status == "budget_exceeded" and q1.count >= SERVICE_FULL[3][2], q1
+    assert svc.pool.leased_cells == 0 and not svc.active
+    assert seen["fused_extend"] > 0
+    return isolated
 
 
 # ---------------------------------------------------------------------------
@@ -1761,6 +2034,15 @@ def enumeration_phases(ik):
         profile_window(big, flow, EngineConfig(fused=True, **FULL_CFG), HugeEngine, *walls[True])
         log_preflight("phase 5", preflight)
 
+        # -- phase 5c ----------------------------------------------------------
+        for leg, run in (("reference load", lambda: phase_service_load(ik, launches)),
+                         ("table4 graph", lambda: phase_service_table4(ik, launches)),
+                         ("full width", lambda: phase_service_full(ik, launches, big))):
+            t0 = time.perf_counter()
+            before = run()  # the last leg's: the full-width triangle and q2 counts
+            log(f"phase 5c: {leg} took {time.perf_counter() - t0:.1f} s")
+        log_preflight("phase 5c", preflight)
+
         # -- phase 5b ----------------------------------------------------------
         t0 = time.perf_counter()
         phase_recovery(ik, launches)
@@ -1770,13 +2052,15 @@ def enumeration_phases(ik):
         log(f"phase 5b: paths took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         # The engines below hold the only references to the full-width graph,
-        # so each update frees the adjacency it replaced. (A session is a
-        # reference cycle that holds its engine, and with it a graph, until
-        # the cycle collector runs: collect before and during the updates.)
+        # so each update frees the adjacency it replaced. (A session that
+        # HugeEngine.run or run_delta drove is a reference cycle that holds
+        # its engine, and with it a graph, until the cycle collector runs:
+        # collect before and during the updates. The service closes the
+        # sessions it retires, phase 5c.)
         engines = streaming_engines(big)
         del big
         gc.collect()
-        phase_streaming(ik, launches, *engines)
+        phase_streaming(ik, launches, *engines, before)
         del engines
         log(f"phase 5b: streaming took {time.perf_counter() - t0:.1f} s")
         log_preflight("phase 5b", preflight)

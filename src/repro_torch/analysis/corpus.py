@@ -3,7 +3,8 @@ plus each query's merged delta-flow decomposition (DESIGN.md §Delta-plans).
 
 The optimiser and translator must produce plans/dataflows the static
 verifier accepts, for the whole Table-2 plan-space matrix, with queue plans
-that fit the default service pool (the JAX package's ``analysis/corpus.py``). Planning is done against synthetic power-law statistics
+that fit the default service pool (as the JAX package's ``analysis/corpus.py``
+prices them). Planning is done against synthetic power-law statistics
 (``GraphStats.synthetic``) so the corpus needs no data graph and stays fast
 (pure Python, no device work).
 """
@@ -26,10 +27,6 @@ _CORPUS_VERTICES = 1 << 11
 _CORPUS_AVG_DEG = 6.0
 _CORPUS_D_PAD = 64
 _CORPUS_MACHINES = 8
-# The multi-tenant service's default slot-pool budget in int32 cells (the
-# JAX package's ``ServiceConfig.total_queue_cells``): every corpus flow's
-# queues must fit it.
-SERVICE_POOL_CELLS = 64 << 20
 
 
 def corpus_cases() -> List[Tuple[str, str]]:
@@ -39,10 +36,11 @@ def corpus_cases() -> List[Tuple[str, str]]:
 @functools.lru_cache(maxsize=1)
 def _corpus_findings_cached() -> Tuple[Diagnostic, ...]:
     from repro_torch.core.engine import EngineConfig
+    from repro_torch.serve.graph_service import ServiceConfig
 
     stats = GraphStats.synthetic(_CORPUS_VERTICES, _CORPUS_AVG_DEG)
     cfg = EngineConfig()
-    pool = SERVICE_POOL_CELLS
+    pool = ServiceConfig().total_queue_cells
     out: List[Diagnostic] = []
     for qname, space in corpus_cases():
         where = f"corpus::{qname}/{space}"

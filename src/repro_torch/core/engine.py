@@ -439,6 +439,51 @@ class _SinkRT(_BaseRT):
         e.stats.batches += 1
 
 
+# ---------------------------------------------------------------------------
+# Multi-tenant building blocks (serve/graph_service.py)
+# ---------------------------------------------------------------------------
+
+class QueueSlotPool:
+    """Aggregate queue budget shared by every session on one engine.
+
+    Theorem 5.4 bounds a single query's intermediate state by O(|V_q|²·D_G);
+    the pool turns that into a *service* invariant: each admitted query leases
+    the int32 cells (rows × width) its preallocated queues will occupy, and
+    admission fails, queueing the request instead of running the device out
+    of memory, once the aggregate lease would exceed ``total_cells``. Cells
+    are released when a query completes or is cancelled."""
+
+    def __init__(self, total_cells: int):
+        self.total_cells = int(total_cells)
+        self.leased_cells = 0
+
+    def free_cells(self) -> int:
+        return self.total_cells - self.leased_cells
+
+    def try_lease(self, cells: int) -> bool:
+        if cells > self.free_cells():
+            return False
+        self.leased_cells += cells
+        return True
+
+    def release(self, cells: int) -> None:
+        # Not an assert (stripped under python -O): an over-release is
+        # corrupt accounting. Clamp so the pool stays usable, then raise with
+        # the offending lease size so the caller is attributable.
+        if cells > self.leased_cells:
+            leaked = cells - self.leased_cells
+            _log.error(
+                "queue-slot pool over-release: released %d cells with only %d "
+                "leased (%d excess)", cells, self.leased_cells, leaked,
+            )
+            self.leased_cells = 0
+            raise RuntimeError(
+                f"queue-slot pool released {cells} cells but only "
+                f"{cells - leaked} were leased (over-release of {leaked})"
+            )
+        self.leased_cells -= cells
+
+
 class _ScopedRT:
     """OperatorRuntime view that charges its work to one session's stats: it
     swaps the engine's stats target around each ``run_one`` (every stats
@@ -617,6 +662,17 @@ class EngineSession:
             _ScopedRT(self.runtimes[i], engine, self.stats, session=self)
             for i in range(len(ops))
         ]
+
+    def close(self) -> None:
+        """Drop the session's queues, runtimes and chain. A session is a
+        reference cycle (each ``_ScopedRT`` of its chain points back at it,
+        and a join's barrier closure at the runtimes that hold it), so without
+        this its device queues wait for the cycle collector; after it they
+        are freed as soon as the caller lets go. Stats, flow and snapshots
+        taken earlier stay valid; the session cannot run again."""
+        self.chain = []
+        self.runtimes.clear()
+        self.queues.clear()
 
     def done(self) -> bool:
         """True once every operator has drained (the criterion that ends a

@@ -89,11 +89,11 @@ def table4(device: str | torch.device | None = None,
     return entries
 
 
-def record(path: str, entries: List[dict]) -> None:
+def record(path: str, entries: List[dict], bench: str = "torch_table4") -> None:
     """Append ``entries`` to the JSON trajectory at ``path`` (created if
-    missing), stamped with the time; written to a temporary file and renamed
-    over the target."""
-    doc = {"bench": "torch_table4", "entries": []}
+    missing, named ``bench``), stamped with the time; written to a temporary
+    file and renamed over the target."""
+    doc = {"bench": bench, "entries": []}
     if os.path.exists(path):
         with open(path) as f:
             doc = json.load(f)

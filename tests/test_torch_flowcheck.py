@@ -15,7 +15,7 @@ from repro.core.cost import GraphStats as GS_ref
 from repro.core.dataflow import translate as tr_ref
 from repro.core.optimizer import optimal_plan as plan_ref
 from repro.core.query import PAPER_QUERIES as Q_REF
-from repro.serve.graph_service import ServiceConfig
+from repro.serve import graph_service as svc_ref
 from repro_torch.analysis import clean_tree_flowcheck
 from repro_torch.analysis import corpus as corpus_pt
 from repro_torch.analysis import fixtures as fixtures_pt
@@ -23,11 +23,12 @@ from repro_torch.analysis.diagnostics import Diagnostic, FlowcheckError, errors
 from repro_torch.analysis.flowcheck import check_flow, check_plan, check_query, verify_flow
 from repro_torch.core.cost import GraphStats
 from repro_torch.core.dataflow import Dataflow, OpDesc, merge_flows, translate
-from repro_torch.core.engine import EngineConfig, HugeEngine, flow_queue_cells
+from repro_torch.core.engine import EngineConfig, HugeEngine, QueueSlotPool, flow_queue_cells
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.optimizer import optimal_plan
 from repro_torch.core.query import PAPER_QUERIES, QueryGraph, triangle
 from repro_torch.graph import powerlaw_graph
+from repro_torch.serve import graph_service as svc_pt
 
 STATS = GraphStats.synthetic(1 << 10, 6.0)
 
@@ -54,7 +55,7 @@ def test_planner_output_verifies(qname, space):
     assert check_flow(flow) == []
     # priced against the default service pool, as the reference prices it
     assert check_flow(flow, cfg=EngineConfig(), d_pad=64,
-                      max_cells=corpus_pt.SERVICE_POOL_CELLS) == []
+                      max_cells=svc_pt.ServiceConfig().total_queue_cells) == []
     ref = tr_ref(plan_ref(Q_REF[qname], GS_ref.synthetic(1 << 10, 6.0), 8, space))
     assert as_tuples(fc_ref.check_flow(ref, cfg=eng_ref.EngineConfig(), d_pad=64)) == []
 
@@ -154,5 +155,22 @@ def test_corpus_verifies_clean_like_the_reference():
     assert corpus_ref.corpus_findings() == []
 
 
-def test_service_pool_constant_is_the_references():
-    assert corpus_pt.SERVICE_POOL_CELLS == ServiceConfig().total_queue_cells
+def test_service_config_and_pool_are_the_references(caplog):
+    """The pool the corpus is priced against, the service's defaults and the
+    slot pool's over-release error are the reference's."""
+    assert dataclasses.asdict(svc_pt.ServiceConfig()) == dataclasses.asdict(svc_ref.ServiceConfig())
+    assert dataclasses.asdict(svc_pt.TenantBudget()) == dataclasses.asdict(svc_ref.TenantBudget())
+    assert [f.name for f in dataclasses.fields(svc_pt.ServiceConfig)] == \
+        [f.name for f in dataclasses.fields(svc_ref.ServiceConfig)]
+    assert [f.name for f in dataclasses.fields(svc_pt.TenantBudget)] == \
+        [f.name for f in dataclasses.fields(svc_ref.TenantBudget)]
+    errs = []
+    for pool in (QueueSlotPool(1000), eng_ref.QueueSlotPool(1000)):
+        assert pool.try_lease(100) and not pool.try_lease(901) and pool.free_cells() == 900
+        with pytest.raises(RuntimeError, match="over-release") as ei:
+            pool.release(250)
+        assert pool.leased_cells == 0  # clamped, not negative
+        errs.append(str(ei.value))
+    assert errs[0] == errs[1] == ("queue-slot pool released 250 cells but only 100 "
+                                  "were leased (over-release of 150)")
+    assert "150 excess" in caplog.text

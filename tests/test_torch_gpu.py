@@ -26,7 +26,10 @@ edges (logdecay -8 and 1.2, w = 1.0, w = 1e-12) and the chunk edges. The
 fused extend kernel reads only each slab's valid prefix (slabs are sorted and
 INVALID-padded) and lex_bounds searches a sorted key table 32 ways at a
 time; their tests sit at those designs' edges (``-k "extend or lex"``).
+The fused graph service on the card (``-k service``) must equal the CPU
+port's ticket by ticket, with the three enumeration kernels launched.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -188,6 +191,51 @@ def test_engine_on_card_equals_cpu_port(cuda, qname, space, launched):
               "peak_queue_rows", "batches", "rows_emitted"):
         assert getattr(r_gpu.stats, f) == getattr(r_cpu.stats, f), f
     assert np.array_equal(r_gpu.matches, r_cpu.matches)
+
+
+def _service_mix(device):
+    """The multi-tenant service, fused, over powerlaw_graph(256, 5.0, seed=3):
+    q1/huge, q2/seed (a PUSH-JOIN) and q3/rads (a VERIFY) as three tenants.
+    Returns the service, its tickets and its tick() dicts."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.graph import powerlaw_graph
+    from repro_torch.serve.graph_service import GraphQueryRequest, GraphService, ServiceConfig
+
+    g = powerlaw_graph(256, 5.0, seed=3, device="cpu")
+    svc = GraphService(g, ServiceConfig(queue_capacity=1 << 10, join_buffer_capacity=1 << 14,
+                                        tick_steps=16, max_active=4),
+                       EngineConfig(fused=True, join_out_capacity=1 << 15), device=device)
+    tickets = [svc.submit(GraphQueryRequest(tenant=t, query=q, space=s))
+               for t, q, s in (("a", "q1", "huge"), ("b", "q2", "seed"), ("c", "q3", "rads"))]
+    ticks = []
+    while svc.active or svc.admission:
+        ticks.append(svc.tick())
+    return svc, tickets, ticks
+
+
+def test_graph_service_on_card_equals_cpu_port(cuda):
+    """Tickets, statistics and tick() dicts of the fused service on the card
+    equal the CPU port's (which the CPU tests hold equal to the JAX
+    service's), and the service's sessions launch the three kernels."""
+    from repro_torch.core.engine import EngineStats
+
+    cpu = _service_mix("cpu")
+    ik.reset_launches()
+    gpu = _service_mix(cuda)
+    torch.cuda.synchronize()
+    for name in ("fused_extend", "fused_verify", "lex_bounds"):
+        assert ik.launches[name] > 0, name
+    fields = [f.name for f in dataclasses.fields(EngineStats)
+              if f.name not in ("compute_time", "comm_time", "wall_time", "per_machine_rows")]
+    (sc, tc, kc), (sg, tg, kg) = cpu, gpu
+    assert kg == kc
+    assert [t.count for t in tc] == [1268, 819, 29]  # the networkx oracle's
+    for a, b in zip(tg, tc):
+        assert (a.status, a.count, a.error, a.attempts, a.failures) == \
+            (b.status, b.count, b.error, b.attempts, b.failures) and a.status == "done"
+        assert {f: getattr(a.stats, f) for f in fields} == {f: getattr(b.stats, f) for f in fields}
+    assert (sg.ticks, sg.peak_pool_cells, sg.peak_inflight_rows, sg.pool.leased_cells) == \
+        (sc.ticks, sc.peak_pool_cells, sc.peak_inflight_rows, sc.pool.leased_cells)
 
 
 def _edge_extend_inputs(seed, b, e, k, d, len0, other_lens, ok0, dev):

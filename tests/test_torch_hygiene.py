@@ -33,7 +33,8 @@ def test_port_imports_without_jax_or_repro():
               "repro_torch.analysis.flowcheck", "repro_torch.analysis.fixtures",
               "repro_torch.analysis.corpus", "repro_torch.core.paths",
               "repro_torch.core.hybrid_comm", "repro_torch.core.faults",
-              "repro_torch.launch.table4"):
+              "repro_torch.launch.table4", "repro_torch.serve.graph_service",
+              "repro_torch.launch.service_load"):
         assert m in mods, m
     code = (
         "import sys\n"
@@ -60,6 +61,7 @@ def test_port_imports_without_jax_or_repro():
     "repro_torch.kernels.intersect.ops", "repro_torch.models.transformer",
     "repro_torch.serve.engine", "repro_torch.analysis.flowcheck", "repro_torch.analysis",
     "repro_torch.core.paths", "repro_torch.launch.table4",
+    "repro_torch.serve.graph_service", "repro_torch.launch.service_load",
 ])
 def test_each_entry_module_imports_first(first):
     """No import cycle bites a program whose first import is this module."""

@@ -320,5 +320,6 @@ def test_serve_cli_smoke_on_cpu(capsys):
                             "--slots", "2"])
     assert stats["requests"] == 3 and stats["new_tokens"] == 3 * 3
     assert "[serve] rwkv6-7b on cpu: 3 requests" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not ported"):
-        serve_cli.main(["graph"])
+    tickets = serve_cli.main(["graph", "--vertices", "64", "--tenants", "1", "--requests", "1",
+                              "--device", "cpu"])
+    assert [t.status for t in tickets] == ["done"]
