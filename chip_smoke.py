@@ -21,15 +21,24 @@ Phases (each prints its results; any failure exits non-zero):
 5. full width: q3 under ``huge`` on a 875,713-vertex power-law graph shaped
    like web-Google, fused against plain, plus a profiled window of the fused
    run;
+5d. the distributed engine (``core/distributed.py``): q3 under ``huge``,
+   fused, at full width on a world of one rank over NCCL in this process
+   (44 matches, every lookup local); then four ranks on the one card over
+   gloo (``run_ranks``; gloo stages its all-to-alls through host memory,
+   and four processes share one GPU, so no multi-GPU time) on the table4 graph: q1-q3 under ``huge``,
+   q2 under ``seed`` (PUSH-JOIN: ``lex_bounds``) and q3 under ``rads``
+   (VERIFY: ``fused_verify``) fused, and q3 under ``huge`` unfused, whose
+   schedule and traffic must equal the fused run's; the ranks' kernel
+   launches count on the main path;
 5c. the multi-tenant graph service (``serve/graph_service.py``), every
    session fused: ``launch/service_load`` at its defaults, unfused then
    fused (59,500 matches, appended to BENCH_torch_service.json); four
    tenants on the table4 graph (q1/huge, q2/seed, q3/rads, q3/huge) with a
    lease-oom at admission and a queue-overflow under per-tick checkpoints,
-   then standing triangle and q2 over a batch of inserts; four tenants at
-   full width (q3, triangle, q2, and q1 under a match budget) against
-   isolated runs, with a profiled window, latencies, and device memory back
-   to its pre-submit level with the cycle collector off;
+   then standing triangle and q2 over a batch of inserts; three tenants at
+   full width (q3, triangle, q2) against their full counts, with a profiled
+   window, latencies, and device memory back to its pre-submit level with
+   the cycle collector off;
 5b. the engine's other paths: every injected fault kind recovered on the
    table4 graph (the kernels launching again after the restore),
    ``shortest_path_length`` at full width against scipy, and batches of
@@ -181,21 +190,35 @@ PATH_PAIRS, PATH_SEED = 8, 5
 # budget), q3's count there (phase 5's), and the ticks of its profiled window.
 SERVICE_TABLE4 = (("a", "q1", "huge", 110508), ("b", "q2", "seed", 67887),
                   ("c", "q3", "rads", 1782), ("d", "q3", "huge", 1782))
-# q1's budget is 1,000: squares are rare on this graph (on an H100 80GB, q1
-# had 75,335 after 103,058 of its steps and 724 s of the service).
-SERVICE_FULL = (("a", "q3", None), ("b", "triangle", None), ("c", "q2", None),
-                ("d", "q1", 1_000))
+# q1 is served on the table4 graph only: at full width its steps (wedges
+# into squares) cost about 5 ms each on an H100 80GB, and squares are rare
+# there, so even under a budget of 1,000 matches it ran 9,803 steps.
+SERVICE_FULL = (("a", "q3", None), ("b", "triangle", None), ("c", "q2", None))
 # At full width an extend queue's slack is batch x d_pad rows (1024 x 4608):
-# the four sessions price at 113.4 M int32 cells, past the default pool's
-# 67.1 M, so the leg's pool is larger. (At batch 256 they fit the default
-# pool, but with four times the steps the leg ran past 11 minutes on an
-# H100 80GB.)
+# the sessions price past the default pool's 67.1 M int32 cells, so the
+# leg's pool is larger. (At batch 256 they fit the default pool, but with
+# four times the steps the leg ran past 11 minutes on an H100 80GB.)
 SERVICE_FULL_POOL = 128 << 20
+# Full counts on the full-width graph: q3's is phase 5's (fused and plain
+# agree); triangle's and q2's are those of isolated fused HugeEngine runs on
+# an H100 80GB (PERF.md §4), which the service must reproduce and from which
+# phase 5b's streaming starts.
 FULL_Q3 = 44
+FULL_COUNTS = {"triangle": 6293, "q2": 11018}
 # 3 ticks of 4 x 32 steps, as many steps as phase 5's window: after a
 # window of 20 ticks the profiler took minutes to stop (H100 80GB).
 SERVICE_PROFILE_TICKS = 3
 SERVICE_BENCH = "BENCH_torch_service.json"
+# Phase 5d: the distributed engine's full-width configuration (phase 5's
+# batch and queues), and its four-rank leg on the table4 graph: (query,
+# plan space, fused, the reference's count).
+DIST_FULL_CFG = dict(batch_size=1024, queue_capacity=1 << 18, fused=True)
+DIST_FULL_BACKEND = "nccl"
+DIST_RANKS = 4
+DIST_CFG = dict(batch_size=256)
+DIST_CASES = (("q1", "huge", True, 110508), ("q2", "huge", True, 67887),
+              ("q3", "huge", True, 1782), ("q2", "seed", True, 67887),
+              ("q3", "rads", True, 1782), ("q3", "huge", False, 1782))
 # Device memory a retired session may leave behind: none of its own; the
 # slack covers allocator rounding.
 MEM_SLACK = 4 << 20
@@ -811,6 +834,126 @@ def run_counted(ik, launches, fn):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: the distributed engine
+# ---------------------------------------------------------------------------
+
+def dist_line(stats, wall, extra=""):
+    """Phase 5d's account of one run: its steps and what the collectives moved."""
+    return (f"wall={wall:.3f} s steps={stats['sched_steps']} rounds={stats['rounds']} "
+            f"a2a_calls={stats['a2a_calls']} pulled={stats['pulled_vids']} vids "
+            f"({stats['pulled_bytes'] / 1e6:.3f} MB) shuffled={stats['shuffle_rows']} rows "
+            f"({stats['shuffle_bytes'] / 1e6:.3f} MB) stolen={stats['steal_rows']} rows "
+            f"({stats['steal_bytes'] / 1e6:.3f} MB) joins={stats['joins']} "
+            f"probes={stats['probe_batches']} retries={stats['retries']}{extra}")
+
+
+def phase_dist_full(ik, launches, big):
+    """q3/huge fused at full width through ``DistributedEngine`` on a world of
+    one rank over NCCL, set up and torn down around the run in this process:
+    the layout of a one-card deployment, one shard holding the graph (a view
+    of it, no copy), every lookup local."""
+    from repro_torch.core.distributed import DistConfig, DistributedEngine, process_group
+    from repro_torch.core.query import PAPER_QUERIES
+
+    with process_group(DIST_FULL_BACKEND, DEV) as comm:
+        eng = DistributedEngine(big, comm, DistConfig(**DIST_FULL_CFG))
+        assert eng.adj.data_ptr() == big.padded.adj.data_ptr(), "the shard is not a view"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            t0 = time.perf_counter()
+            count, stats = eng.run(PAPER_QUERIES["q3"])
+            torch.cuda.synchronize()
+            return count, dict(stats), time.perf_counter() - t0
+
+        ctrl0, a2a0, bytes0 = comm.ctrl_calls, comm.a2a_calls, comm.a2a_bytes
+        (count, stats, wall), seen = run_counted(ik, launches, run)
+        ctrl = comm.ctrl_calls - ctrl0
+        log(f"phase 5d: q3/huge full width, 1 rank over {comm.backend}, fused: count={count} "
+            f"(want {FULL_Q3}) " + dist_line(stats, wall, (
+                f" control all-reduces={ctrl} ({ctrl / stats['sched_steps']:.2f} a step) "
+                f"a2a sent={(comm.a2a_bytes - bytes0) / 1e9:.2f} GB in "
+                f"{comm.a2a_calls - a2a0} calls "
+                f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+                f"launches={seen}")))
+        del eng
+    assert count == FULL_Q3, count
+    assert stats["retries"] == 0 and stats["pulled_vids"] == 0 and stats["steal_rows"] == 0, stats
+    assert seen["fused_extend"] > 0, "the fused extend kernel never ran in the distributed engine"
+
+
+def dist_ranks_body(comm, cases, cfg_kw):
+    """One rank of phase 5d's four-rank leg: every case on the table4 graph,
+    each with its wall on this rank (ending in a sync), this rank's kernel
+    launches and control all-reduces."""
+    from repro_torch.core.distributed import DistConfig, DistributedEngine
+    from repro_torch.core.query import PAPER_QUERIES
+    from repro_torch.graph import powerlaw_graph
+    from repro_torch.kernels.intersect import ops as ik
+    from repro_torch.launch.table4 import GRAPH
+
+    graph = powerlaw_graph(GRAPH[0], GRAPH[1], seed=GRAPH[2], device=comm.device)
+    engines = {f: DistributedEngine(graph, comm, DistConfig(fused=f, **cfg_kw))
+               for f in (True, False)}
+    sync = torch.cuda.synchronize if comm.device.type == "cuda" else (lambda: None)
+    out = []
+    for qname, space, fused, _ in cases:
+        before, ctrl0 = dict(ik.launches), comm.ctrl_calls
+        sync()
+        t0 = time.perf_counter()
+        count, stats = engines[fused].run(PAPER_QUERIES[qname], space=space)
+        sync()
+        out.append({"count": count, "stats": dict(stats), "wall_s": time.perf_counter() - t0,
+                    "ctrl": comm.ctrl_calls - ctrl0,
+                    "launches": {k: ik.launches[k] - before[k] for k in before}})
+    return out
+
+
+def phase_dist_ranks(ik, launches):
+    """Four ranks on the one card over gloo: each case's count against the
+    reference's, no retries, every rank agreeing, the unfused q3's schedule
+    and traffic equal to the fused one's, and each of the three kernels of
+    the path launched inside the ranks."""
+    from repro_torch.core.distributed import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(dist_ranks_body, DIST_RANKS, backend="gloo", device=DEV, timeout_s=600,
+                      args=(DIST_CASES, DIST_CFG))
+    log(f"phase 5d: {DIST_RANKS} ranks over gloo on one card (processes sharing it; "
+        f"gloo stages the all-to-alls through host memory), DistConfig({DIST_CFG}), "
+        f"spawn to results {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for i, (qname, space, fused, want) in enumerate(DIST_CASES):
+        per = [r.value[i] for r in ranks]
+        first = per[0]
+        for other in per[1:]:
+            assert (other["count"], other["stats"]) == (first["count"], first["stats"]), \
+                f"ranks disagree on {qname}/{space}"
+        seen = {k: sum(p["launches"][k] for p in per) for k in first["launches"]}
+        if fused:  # the unfused run launches no kernel
+            for k, n in seen.items():
+                launches[k] += n
+        wall = max(p["wall_s"] for p in per)
+        st = first["stats"]
+        log(f"phase 5d: {qname}/{space} {'fused' if fused else 'unfused'} count={first['count']} "
+            f"(want {want}) " + dist_line(st, wall, (
+                f" control all-reduces a rank={first['ctrl']} "
+                f"({first['ctrl'] / st['sched_steps']:.2f} a step) "
+                f"rank walls={[round(p['wall_s'], 3) for p in per]} launches={seen}")))
+        assert first["count"] == want and st["retries"] == 0, (qname, space, first)
+        runs[(qname, space, fused)] = (st, seen)
+    fused_st, unfused_st = runs[("q3", "huge", True)][0], runs[("q3", "huge", False)][0]
+    for key in ("rounds", "a2a_calls", "pulled_vids", "steal_rows", "sched_steps"):
+        assert fused_st[key] == unfused_st[key], (key, fused_st, unfused_st)
+    assert sum(runs[("q3", "huge", False)][1].values()) == 0
+    total = {k: sum(seen[k] for (_, _, f), (_, seen) in runs.items() if f) for k in ik.launches}
+    log(f"phase 5d: kernel launches inside the ranks {total}")
+    for name in ("fused_extend", "fused_verify", "lex_bounds"):
+        assert total[name] > 0, f"{name} never launched inside the ranks"
+
+
+# ---------------------------------------------------------------------------
 # Phase 5b: the single-process engine's other paths (recovery, §6 paths,
 # streaming deltas) and the pre-flight's cost
 # ---------------------------------------------------------------------------
@@ -1002,8 +1145,8 @@ def phase_streaming(ik, launches, fused_eng, plain_eng, before):
     """Batches of inserts at full width through both engines' apply_updates,
     each followed by run_delta of every standing query: fused and plain delta
     counts equal batch by batch, and the delta counts of all batches add up
-    to the difference between the full counts before them (``before``, phase
-    5c's isolated runs) and after them (exactly once)."""
+    to the difference between the full counts before them (``before``, the
+    service's counts of phase 5c) and after them (exactly once)."""
     from repro_torch.core.engine import EngineConfig, HugeEngine
     from repro_torch.core.query import PAPER_QUERIES, triangle
     from repro_torch.graph import GraphUpdateBatch
@@ -1184,29 +1327,20 @@ def phase_service_table4(ik, launches):
 
 def phase_service_full(ik, launches, big):
     """The service at full width, fused, phase 5's configuration (batch
-    1024), four tenants at once, q1 under a match budget; triangle and q2
-    against isolated fused runs, whose counts are returned (phase 5b's
-    streaming starts from them); a profiled window of a second service,
-    its requests then cancelled; device memory back to its pre-submit
-    level after each, with the cycle collector off."""
+    1024), three tenants at once, each count its full count (triangle's and
+    q2's are returned: phase 5b's streaming starts from them); a profiled
+    window of a second service, its requests then cancelled; device memory
+    back to its pre-submit level after each, with the cycle collector off."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.engine import EngineConfig, HugeEngine
+    from repro_torch.core.engine import EngineConfig
     from repro_torch.core.query import PAPER_QUERIES, triangle
     from repro_torch.serve.graph_service import GraphQueryRequest, GraphService, ServiceConfig
 
     cfg = EngineConfig(fused=True, **FULL_CFG)
     scfg = ServiceConfig(tick_steps=32, max_active=4, total_queue_cells=SERVICE_FULL_POOL)
-    queries = {"q3": PAPER_QUERIES["q3"], "triangle": triangle(), "q2": PAPER_QUERIES["q2"],
-               "q1": PAPER_QUERIES["q1"]}
-    isolated = {}
-    for name in ("triangle", "q2"):
-        res, seen = run_counted(ik, launches, lambda: HugeEngine(big, cfg).run(queries[name]))
-        isolated[name] = res.count
-        log(f"phase 5c: isolated fused {name} count={res.count} wall={res.stats.wall_time:.2f} s "
-            f"steps={res.schedule.steps} launches={seen}")
-    gc.collect()  # the isolated runs' sessions: HugeEngine.run does not close them
+    queries = {"q3": PAPER_QUERIES["q3"], "triangle": triangle(), "q2": PAPER_QUERIES["q2"]}
 
     def submit(svc):
         return [svc.submit(GraphQueryRequest(tenant=t, query=queries[q], match_budget=b))
@@ -1289,20 +1423,15 @@ def phase_service_full(ik, launches, big):
         f"{done / 1e9:.4f} GB after run_until_idle (no gc.collect())")
     assert abs(done - base) <= MEM_SLACK, (base, done)
     by = {q: t for (_, q, _), t in zip(SERVICE_FULL, tickets)}
-    assert cells.keys() == {t.id for t in tickets}, "the pool did not hold all four sessions"
+    assert cells.keys() == {t.id for t in tickets}, "the pool did not hold every session"
     assert by["q3"].status == "done" and by["q3"].count == FULL_Q3, by["q3"]
+    counts = {}
     for name in ("triangle", "q2"):
-        assert by[name].status == "done" and by[name].count == isolated[name], (name, isolated)
-    q1 = by["q1"]
-    if q1.status == "done":  # finished below its budget: then it is the whole count
-        res = HugeEngine(big, cfg).run(queries["q1"])
-        log(f"phase 5c: q1 finished below its budget; isolated count {res.count}")
-        assert q1.count == res.count
-    else:
-        assert q1.status == "budget_exceeded" and q1.count >= SERVICE_FULL[3][2], q1
+        assert by[name].status == "done" and by[name].count == FULL_COUNTS[name], by[name]
+        counts[name] = by[name].count
     assert svc.pool.leased_cells == 0 and not svc.active
     assert seen["fused_extend"] > 0
-    return isolated
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2033,6 +2162,15 @@ def enumeration_phases(ik):
         assert counts[True] == counts[False], counts
         profile_window(big, flow, EngineConfig(fused=True, **FULL_CFG), HugeEngine, *walls[True])
         log_preflight("phase 5", preflight)
+
+        # -- phase 5d ----------------------------------------------------------
+        t0 = time.perf_counter()
+        phase_dist_full(ik, launches, big)
+        log(f"phase 5d: full width took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_dist_ranks(ik, launches)
+        log(f"phase 5d: four ranks took {time.perf_counter() - t0:.1f} s")
+        log_preflight("phase 5d", preflight)
 
         # -- phase 5c ----------------------------------------------------------
         for leg, run in (("reference load", lambda: phase_service_load(ik, launches)),

@@ -10,6 +10,7 @@ from repro_torch.graph.storage import (
     from_edge_list,
     from_numpy,
 )
+from repro_torch.graph.partition import PartitionedGraph, partition_graph
 from repro_torch.graph.generators import (
     erdos_renyi,
     grid_graph,
@@ -23,10 +24,12 @@ __all__ = [
     "Graph",
     "GraphUpdateBatch",
     "PaddedAdjacency",
+    "PartitionedGraph",
     "apply_updates",
     "build_graph",
     "from_edge_list",
     "from_numpy",
+    "partition_graph",
     "erdos_renyi",
     "powerlaw_graph",
     "ring_of_cliques",

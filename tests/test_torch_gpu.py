@@ -27,7 +27,9 @@ fused extend kernel reads only each slab's valid prefix (slabs are sorted and
 INVALID-padded) and lex_bounds searches a sorted key table 32 ways at a
 time; their tests sit at those designs' edges (``-k "extend or lex"``).
 The fused graph service on the card (``-k service``) must equal the CPU
-port's ticket by ticket, with the three enumeration kernels launched.
+port's ticket by ticket, with the three enumeration kernels launched; so
+must four distributed-engine ranks on the card equal four on the CPU
+(``-k distributed``), the kernels launched inside the ranks.
 """
 import dataclasses
 import math
@@ -236,6 +238,37 @@ def test_graph_service_on_card_equals_cpu_port(cuda):
         assert {f: getattr(a.stats, f) for f in fields} == {f: getattr(b.stats, f) for f in fields}
     assert (sg.ticks, sg.peak_pool_cells, sg.peak_inflight_rows, sg.pool.leased_cells) == \
         (sc.ticks, sc.peak_pool_cells, sc.peak_inflight_rows, sc.pool.leased_cells)
+
+
+def distributed_cases(comm):
+    """Rank body of the distributed card test: q1/huge, q2/seed (PUSH-JOIN)
+    and q3/rads (VERIFY), fused."""
+    from repro_torch.core.distributed import DistConfig, DistributedEngine
+    from repro_torch.core.query import PAPER_QUERIES
+    from repro_torch.graph import powerlaw_graph
+
+    g = powerlaw_graph(240, 5.0, seed=3, device=comm.device)
+    eng = DistributedEngine(g, comm, DistConfig(batch_size=128, queue_capacity=1 << 14,
+                                                fused=True))
+    return {f"{q}/{s}": eng.run(PAPER_QUERIES[q], space=s)
+            for q, s in (("q1", "huge"), ("q2", "seed"), ("q3", "rads"))}
+
+
+def test_distributed_engine_on_card_equals_cpu_port(cuda):
+    """Four gloo ranks on the card (the kernels built once before they
+    start, then launched inside them, reading fetched tables) give the same
+    counts and statistics as four ranks on the CPU (plain versions)."""
+    from repro_torch.core.distributed import run_ranks
+
+    card = run_ranks(distributed_cases, 4, backend="gloo", device="cuda", timeout_s=600)
+    cpu = run_ranks(distributed_cases, 4, backend="gloo", device="cpu", timeout_s=600)
+    for r in card + cpu:
+        assert r.value == cpu[0].value, r.rank
+    launched = {k: sum(r.launches[k] for r in card) for k in ik.launches}
+    for name in ("fused_extend", "fused_verify", "lex_bounds"):
+        assert launched[name] > 0, (name, launched)
+    assert all(sum(r.launches.values()) == 0 for r in cpu)
+    assert all(count > 0 for count, _ in cpu[0].value.values())
 
 
 def _edge_extend_inputs(seed, b, e, k, d, len0, other_lens, ok0, dev):

@@ -34,7 +34,8 @@ def test_port_imports_without_jax_or_repro():
               "repro_torch.analysis.corpus", "repro_torch.core.paths",
               "repro_torch.core.hybrid_comm", "repro_torch.core.faults",
               "repro_torch.launch.table4", "repro_torch.serve.graph_service",
-              "repro_torch.launch.service_load"):
+              "repro_torch.launch.service_load", "repro_torch.core.distributed",
+              "repro_torch.graph.partition", "repro_torch.launch.dist_hybrid"):
         assert m in mods, m
     code = (
         "import sys\n"
@@ -62,6 +63,8 @@ def test_port_imports_without_jax_or_repro():
     "repro_torch.serve.engine", "repro_torch.analysis.flowcheck", "repro_torch.analysis",
     "repro_torch.core.paths", "repro_torch.launch.table4",
     "repro_torch.serve.graph_service", "repro_torch.launch.service_load",
+    "repro_torch.core.distributed", "repro_torch.graph.partition",
+    "repro_torch.launch.dist_hybrid",
 ])
 def test_each_entry_module_imports_first(first):
     """No import cycle bites a program whose first import is this module."""
@@ -95,6 +98,42 @@ def test_entry_points_raise_without_cuda():
     from repro_torch.launch import table4
     with pytest.raises(RuntimeError, match="CUDA"):
         table4.main(["--vertices", "64"])
+
+
+def _never_called(comm):
+    raise AssertionError("no rank may start")
+
+
+def test_distributed_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA device")
+    import multiprocessing
+
+    from repro_torch.core.distributed import (
+        Comm,
+        DistributedEngine,
+        process_group,
+        run_ranks,
+    )
+    from repro_torch.graph import powerlaw_graph
+    from repro_torch.launch import dist_hybrid
+
+    g = powerlaw_graph(64, 4.0, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_ranks(_never_called, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_ranks(_never_called, 2, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        with process_group("gloo"):
+            pass
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DistributedEngine(g, Comm(0, 1, torch.device("cuda"), "gloo"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dist_hybrid.main(["--ranks", "2", "--vertices", "64"])
+    # NCCL is never chosen for the caller, and never given more ranks than GPUs.
+    with pytest.raises(ValueError, match="nccl"):
+        run_ranks(_never_called, 2, backend="nccl", device="cpu")
+    assert multiprocessing.active_children() == []
 
 
 def test_lm_entry_points_raise_without_cuda():
