@@ -21,11 +21,19 @@ Phases (each prints its results; any failure exits non-zero):
 5. full width: q3 under ``huge`` on a 875,713-vertex power-law graph shaped
    like web-Google, fused against plain, plus a profiled window of the fused
    run;
+5e. the paper's suites (``launch/table1_comm_modes`` ... ``exp_streaming``),
+   each fused with its own asserts: on phase 4's graph, Exp-9 on
+   powerlaw_graph(128, 6.0, seed=0), chaos and streaming at their smoke
+   sizes (every suite launches fused_extend; Table 1's and Exp-1's seed
+   rows lex_bounds; chaos's kernel-fail case one fallback); then Exp-6 at
+   full width: q3 under ``huge``, fused, with the LRU and direct-mapped
+   caches beside phase 5's LRBU run (44 matches each), hit rates, pulled
+   bytes, walls and steps side by side;
 5d. the distributed engine (``core/distributed.py``): q3 under ``huge``,
    fused, at full width on a world of one rank over NCCL in this process
    (44 matches, every lookup local); then four ranks on the one card over
    gloo (``run_ranks``; gloo stages its all-to-alls through host memory,
-   and four processes share one GPU, so no multi-GPU time) on the table4 graph: q1-q3 under ``huge``,
+   and four processes share one GPU, so no multi-GPU time) on the table4 graph: q2 and q3 under ``huge``,
    q2 under ``seed`` (PUSH-JOIN: ``lex_bounds``) and q3 under ``rads``
    (VERIFY: ``fused_verify``) fused, and q3 under ``huge`` unfused, whose
    schedule and traffic must equal the fused run's; the ranks' kernel
@@ -216,9 +224,17 @@ DIST_FULL_CFG = dict(batch_size=1024, queue_capacity=1 << 18, fused=True)
 DIST_FULL_BACKEND = "nccl"
 DIST_RANKS = 4
 DIST_CFG = dict(batch_size=256)
-DIST_CASES = (("q1", "huge", True, 110508), ("q2", "huge", True, 67887),
-              ("q3", "huge", True, 1782), ("q2", "seed", True, 67887),
-              ("q3", "rads", True, 1782), ("q3", "huge", False, 1782))
+# q1/huge is not in this leg (it took 48.0-53.3 s of it on an H100 80GB);
+# q1 at 1-8 gloo ranks stays held by tests/test_torch_distributed.py.
+DIST_CASES = (("q2", "huge", True, 67887), ("q3", "huge", True, 1782),
+              ("q2", "seed", True, 67887), ("q3", "rads", True, 1782),
+              ("q3", "huge", False, 1782))
+# Phase 5e: the paper's suites on phase 4's graph (its counts), Exp-9's
+# graph (its counts, tests/test_torch_engine.py).
+SUITE_GRAPH = (512, 6.0, 0)
+SUITE_COUNTS = {"q1": 4361, "q2": 2551, "q3": 84}
+EXP9_GRAPH = (128, 6.0, 0)
+EXP9_COUNTS = {"q7": 222908, "q8": 6106}
 # Device memory a retired session may leave behind: none of its own; the
 # slack covers allocator rounding.
 MEM_SLACK = 4 << 20
@@ -954,6 +970,139 @@ def phase_dist_ranks(ik, launches):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5e: the paper's suites on the kernels, and Exp-6 at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def launches_per_run(ik, mod):
+    """Record the kernel launches of each ``run_query`` call a suite module
+    makes (the suite looks the name up in its module at each call)."""
+    seen = []
+    real = mod.run_query
+
+    def counted(*args, **kwargs):
+        before = dict(ik.launches)
+        res = real(*args, **kwargs)
+        seen.append({n: ik.launches[n] - before[n] for n in before})
+        return res
+
+    mod.run_query = counted
+    try:
+        yield seen
+    finally:
+        mod.run_query = real
+
+
+def phase_paper_suites(ik, launches):
+    """The paper's suites beyond table4, service load and the distributed
+    Table 1, each fused through its callable runner, their own asserts
+    included: on phase 4's graph (q1 4361, q2 2551, q3 84), Exp-9 on
+    powerlaw_graph(128, 6.0, seed=0) (q7 222,908, q8 6,106), chaos and
+    streaming at their ``--smoke`` sizes. Every suite
+    launches ``fused_extend``; Table 1's SEED row and Exp-1's seed rows
+    launch ``lex_bounds``; chaos's kernel-fail case counts one
+    ``kernel_fallbacks``. The launches count on the main path."""
+    from repro_torch.graph import powerlaw_graph
+    from repro_torch.launch import (
+        exp1_plugin_plans,
+        exp4_batching,
+        exp5_cache,
+        exp6_cache_design,
+        exp7_scheduling,
+        exp9_plans,
+        exp10_scaling,
+        exp_chaos,
+        exp_streaming,
+        table1_comm_modes,
+    )
+    from repro_torch.launch.common import bench_graph
+
+    dev = torch.device(DEV)
+    g512 = powerlaw_graph(*SUITE_GRAPH[:2], seed=SUITE_GRAPH[2], device=dev)
+    g128 = powerlaw_graph(*EXP9_GRAPH[:2], seed=EXP9_GRAPH[2], device=dev)
+    smoke = bench_graph(512, 6.0, seed=7, device=dev)
+    suites = (
+        ("table1", lambda: table1_comm_modes.table1(g512, True)),
+        ("exp1", lambda: exp1_plugin_plans.exp1(g512, True)),
+        ("exp4", lambda: exp4_batching.exp4(g512, True)),
+        ("exp5", lambda: exp5_cache.exp5(g512, True)),
+        ("exp6", lambda: exp6_cache_design.exp6(g512, True)),
+        ("exp7", lambda: exp7_scheduling.exp7(g512, True)),
+        ("exp9", lambda: exp9_plans.exp9(g128, True)),
+        ("exp10", lambda: exp10_scaling.exp10(g512, True)),
+        ("exp_chaos", lambda: exp_chaos.chaos(smoke, ["q1"], fused=True)),
+        ("exp_streaming", lambda: exp_streaming.streaming(smoke, ["q1"], [8], 2, fused=True)),
+    )
+    # The suites whose runs' launches are checked one by one.
+    per_run_of = {"table1": table1_comm_modes, "exp1": exp1_plugin_plans}
+    for name, call in suites:
+        t0 = time.perf_counter()
+        with (launches_per_run(ik, per_run_of[name]) if name in per_run_of
+              else contextlib.nullcontext()) as per_run:
+            entries, seen = run_counted(ik, launches, call)
+        wall = time.perf_counter() - t0
+        log(f"phase 5e: {name}: {len(entries)} entries in {wall:.2f} s, launches={seen}")
+        for e in entries:
+            if "matches" not in e:  # Table 1's summary, an infeasible plan, a stream
+                extra = {k: v for k, v in e.items()
+                         if k.startswith("huge_") or k in ("infeasible", "new_matches")}
+                log(f"phase 5e:   {e['name']} {json.dumps(extra)}")
+                continue
+            log(f"phase 5e:   {e['name']} count={e['matches']} steps={e['steps']} "
+                f"hit_rate={e.get('hit_rate', 0):.3f} pulled={e['pulled_bytes']} "
+                f"pushed={e['pushed_bytes']} peak_queue_bytes={e['peak_queue_bytes']} "
+                f"retries={e['retries']} kernel_fallbacks={e['kernel_fallbacks']} "
+                f"wall={e['wall_s']:.3f} s")
+            query = e["name"].rsplit("/", 1)[-1].split("_")[0]
+            want = {**SUITE_COUNTS, **EXP9_COUNTS}.get(query)
+            if name not in ("exp_chaos", "exp_streaming"):
+                assert e["matches"] == want, (e["name"], e["matches"], want)
+        assert seen["fused_extend"] > 0, f"{name}: fused_extend never ran"
+        if name == "table1":  # SEED is the first row
+            assert per_run[0]["lex_bounds"] > 0, per_run[0]
+        if name == "exp1":  # runs in pairs (native, HUGE's settings); seed is the third system
+            seed = [p for i, p in enumerate(per_run)
+                    if exp1_plugin_plans.SYSTEMS[i // 2 % 4] == "seed"]
+            assert len(seed) == 4 and all(p["lex_bounds"] > 0 for p in seed[::2]), seed
+        if name == "exp_chaos":
+            fallbacks = {e["case"]: e["kernel_fallbacks"] for e in entries}
+            assert fallbacks == {"q1_queue-overflow": 0, "q1_shard-loss": 0,
+                                 "q1_kernel-fail": 1}, fallbacks
+        if name == "exp_streaming":
+            assert entries[0]["new_matches"] > 0
+
+
+def phase_exp6_full(ik, launches, big, flow, lrbu=None):
+    """Exp-6 at full width: q3/huge fused under FULL_CFG (cache 2^14 a
+    machine, far below the working set there) with the LRU and
+    direct-mapped policies; LRBU is phase 5's fused run (``lrbu``, run here
+    when not given). Each count is phase 5's; the three policies' hit
+    rates, pulled bytes, walls and steps print side by side."""
+    from repro_torch.core.engine import EngineConfig, HugeEngine
+
+    rows = {} if lrbu is None else {"lrbu": lrbu}
+    for policy in [p for p in ("lrbu", "lru", "direct") if p not in rows]:
+        torch.cuda.reset_peak_memory_stats()
+        eng = HugeEngine(big, EngineConfig(fused=True, cache_policy=policy, **FULL_CFG))
+        res, seen = run_counted(ik, launches, lambda: eng.run(flow))
+        del eng
+        s = res.stats
+        rows[policy] = dict(count=res.count, hit_rate=s.hit_rate, hits=s.cache_hits,
+                            misses=s.cache_misses, pulled=s.pulled_bytes, wall=s.wall_time,
+                            steps=res.schedule.steps, launches=seen["fused_extend"],
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        assert res.count == FULL_Q3, (policy, res.count)
+        assert seen["fused_extend"] > 0, f"fused_extend never ran under {policy}"
+    for policy, r in rows.items():
+        log(f"phase 5e: Exp-6 full width q3/huge fused {policy:6s} count={r['count']} "
+            f"hit_rate={r['hit_rate']:.4f} hits={r['hits']} misses={r['misses']} "
+            f"pulled={r['pulled'] / 1e6:.2f} MB wall={r['wall']:.2f} s steps={r['steps']} "
+            f"fused_extend launches={r['launches']} peak={r['peak_gb']:.2f} GB")
+    order = sorted(rows, key=lambda p: -rows[p]["hit_rate"])
+    log(f"phase 5e: Exp-6 full width hit-rate order {' > '.join(order)}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 5b: the single-process engine's other paths (recovery, §6 paths,
 # streaming deltas) and the pre-flight's cost
 # ---------------------------------------------------------------------------
@@ -1167,7 +1316,6 @@ def phase_streaming(ik, launches, fused_eng, plain_eng, before):
     batches = wedge_batches(fused_eng.graph, STREAM_BATCHES, STREAM_EDGES, STREAM_SEED)
     totals = {name: 0 for name in queries}
     for k, edges in enumerate(batches):
-        gc.collect()  # the last runs' sessions, which hold the graph about to be replaced
         d_pad = fused_eng.d_pad
         applied = {}
         for label, eng in (("fused", fused_eng), ("plain", plain_eng)):
@@ -1185,6 +1333,10 @@ def phase_streaming(ik, launches, fused_eng, plain_eng, before):
             f"{' (grew)' if fused_eng.d_pad != d_pad else ''}, "
             f"memory_allocated={torch.cuda.memory_allocated() / 1e9:.2f} GB")
         assert new == STREAM_EDGES and applied["plain"][:2] == (new, touched)
+        # Only the two engines' graphs are alive: nothing else (no finished
+        # or unfinished session) still holds an earlier one.
+        adj = fused_eng.adj.numel() * 4
+        assert torch.cuda.memory_allocated() < 2.5 * adj, (torch.cuda.memory_allocated(), adj)
         for name, q in queries.items():
             res, seen = run_counted(ik, launches, lambda: fused_eng.run_delta(q))
             plain = plain_eng.run_delta(q)
@@ -2029,7 +2181,6 @@ def main() -> int:
     log(f"phase 1: builds took {time.perf_counter() - t0:.2f} s of wall time")
 
     rec, launches = enumeration_phases(ik)
-    gc.collect()
     torch.cuda.empty_cache()  # the 16 GB adjacency of phase 5 goes back to the card
     log(f"chip_smoke: phases 1-5b done at {time.perf_counter() - t_all:.1f} s")
 
@@ -2149,6 +2300,11 @@ def enumeration_phases(ik):
             s = res.stats
             counts[fused] = res.count
             walls[fused] = (s.wall_time, res.schedule.steps)
+            if fused:  # Exp-6's LRBU row (phase 5e)
+                lrbu = dict(count=res.count, hit_rate=s.hit_rate, hits=s.cache_hits,
+                            misses=s.cache_misses, pulled=s.pulled_bytes, wall=s.wall_time,
+                            steps=res.schedule.steps, launches=seen["fused_extend"],
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
             log(f"phase 5: {qname}/huge full width fused={fused} count={res.count} "
                 f"wall={s.wall_time:.2f} s matches/s={res.count / s.wall_time:.1f} "
                 f"steps={res.schedule.steps} launches={seen} "
@@ -2162,6 +2318,15 @@ def enumeration_phases(ik):
         assert counts[True] == counts[False], counts
         profile_window(big, flow, EngineConfig(fused=True, **FULL_CFG), HugeEngine, *walls[True])
         log_preflight("phase 5", preflight)
+
+        # -- phase 5e ----------------------------------------------------------
+        t0 = time.perf_counter()
+        phase_paper_suites(ik, launches)
+        log(f"phase 5e: the ten suites took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_exp6_full(ik, launches, big, flow, lrbu)
+        log(f"phase 5e: Exp-6 at full width took {time.perf_counter() - t0:.1f} s")
+        log_preflight("phase 5e", preflight)
 
         # -- phase 5d ----------------------------------------------------------
         t0 = time.perf_counter()
@@ -2190,14 +2355,9 @@ def enumeration_phases(ik):
         log(f"phase 5b: paths took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         # The engines below hold the only references to the full-width graph,
-        # so each update frees the adjacency it replaced. (A session that
-        # HugeEngine.run or run_delta drove is a reference cycle that holds
-        # its engine, and with it a graph, until the cycle collector runs:
-        # collect before and during the updates. The service closes the
-        # sessions it retires, phase 5c.)
+        # so each update frees the adjacency it replaced.
         engines = streaming_engines(big)
         del big
-        gc.collect()
         phase_streaming(ik, launches, *engines, before)
         del engines
         log(f"phase 5b: streaming took {time.perf_counter() - t0:.1f} s")
@@ -2216,13 +2376,18 @@ def profile_window(graph, flow, cfg, engine_cls, run_wall, run_steps, steps: int
 
     eng = engine_cls(graph, cfg)
     session = eng.prepare(flow, session_stats=eng.stats)
-    session.tick(20)  # warm-up outside the window
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        session.tick(steps)
+    try:
+        session.tick(20)  # warm-up outside the window
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            session.tick(steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        # An unfinished session holds its engine, and with it the graph,
+        # until it is closed.
+        session.close()
     events = prof.key_averages()
     rows = [(e.key, e.self_device_time_total, e.count) for e in events
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]

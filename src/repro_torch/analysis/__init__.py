@@ -1,4 +1,5 @@
-"""Static analysis of plans and dataflows: flowcheck.
+"""Static analysis of plans, dataflows and the port's source: flowcheck and
+the source lint.
 
 :mod:`repro_torch.analysis.flowcheck` verifies ``ExecutionPlan`` and
 ``Dataflow`` values without executing them: DAG well-formedness, per-op
@@ -6,8 +7,12 @@ schema propagation, Eq.-3 comm-mode legality, extend-order connectivity,
 delta epochs, and Theorem-5.4 queue-cell accounting. ``HugeEngine.prepare``
 runs it as a mandatory pre-flight, so a malformed query is rejected with a
 structured :class:`Diagnostic` before anything runs on the device. The rules
-are the JAX package's; its source lint (tracelint) has no PyTorch meaning
-and is not ported.
+are the JAX package's. Of its source lint (tracelint), the tracer rules
+(``host-sync``, ``traced-branch``) have no PyTorch meaning and are not
+ported; :mod:`repro_torch.analysis.lint` keeps ``queue-dtype`` and the kernel
+twin rules.
+
+CLI: ``python -m repro_torch.analysis --all [--baseline FILE]``.
 """
 from __future__ import annotations
 

@@ -1,16 +1,23 @@
-"""Seeded known-bad fixtures for flowcheck.
+"""Seeded known-bad fixtures for flowcheck and the source lint.
 
-Each fixture is a deliberately malformed plan or dataflow with the rule
-id(s) flowcheck must report: the flow and plan fixtures of the JAX package's
-``analysis/fixtures.py``. Its source-lint fixture has no PyTorch meaning and
-is not here.
+Each fixture is a deliberately malformed plan, dataflow or source with the
+rule id(s) the analyses must report: the flow and plan fixtures of the JAX
+package's ``analysis/fixtures.py``, and in place of its tracer-rule source
+fixture two of the port's own: a queue buffer filled with ``INVALID`` and no
+int32 dtype (``bad-queue-dtype``), and a kernels directory whose op has
+neither its twin nor its card test (``bad-kernel-twins``).
+``python -m repro_torch.analysis --fixture <name>`` runs one and exits
+nonzero with its rule ids.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Callable, Dict, List, Tuple
 
 from repro_torch.analysis.diagnostics import Diagnostic
 from repro_torch.analysis.flowcheck import check_flow, check_plan
+from repro_torch.analysis.lint import check_kernel_twins, lint_source
 from repro_torch.core.dataflow import Dataflow, OpDesc
 from repro_torch.core.plan import ExecutionPlan, PlanNode
 from repro_torch.core.query import QueryGraph
@@ -110,6 +117,51 @@ def illegal_eq3_plan() -> ExecutionPlan:
     return ExecutionPlan(query=query, root=root, symmetry_conditions=())
 
 
+BAD_QUEUE_SOURCE = '''\
+import torch
+from repro_torch.graph.storage import INVALID
+
+
+def make_queue(cap, width, device):
+    buf = torch.full((cap, width), INVALID, device=device)   # queue-dtype: int64
+    return buf
+
+
+def make_side_queue(cap, width):
+    queue = torch.full((cap, width), fill_value=INVALID, dtype=torch.int64)  # queue-dtype
+    return queue
+'''
+
+# A kernel op that launches the library, with a ref.py that lacks its twin
+# and card tests that never name it.
+BAD_KERNEL_OPS = '''\
+from repro_torch.kernels.build import CudaLibrary
+
+LIB = CudaLibrary("demo", None, None)
+
+
+def demo_op(x):
+    return LIB.load().demo_launch(x)
+'''
+BAD_KERNEL_REF = '''\
+def other_ref(x):
+    return x
+'''
+
+
+def _run_bad_kernel_twins() -> List[Diagnostic]:
+    with tempfile.TemporaryDirectory(prefix="repro_torch_fixture_") as tmp:
+        pkg = os.path.join(tmp, "kernels", "demo")
+        os.makedirs(pkg)
+        for fname, text in (("ops.py", BAD_KERNEL_OPS), ("ref.py", BAD_KERNEL_REF)):
+            with open(os.path.join(pkg, fname), "w", encoding="utf-8") as f:
+                f.write(text)
+        tests = os.path.join(tmp, "test_torch_gpu.py")
+        with open(tests, "w", encoding="utf-8") as f:
+            f.write("def test_other():\n    pass\n")
+        return check_kernel_twins(os.path.join(tmp, "kernels"), tests)
+
+
 # fixture name -> (runner, expected rule ids). A runner returns diagnostics.
 FIXTURES: Dict[str, Tuple[Callable[[], List[Diagnostic]], Tuple[str, ...]]] = {
     "dangling-sink": (lambda: check_flow(dangling_sink_flow()), ("orphan-op",)),
@@ -125,6 +177,8 @@ FIXTURES: Dict[str, Tuple[Callable[[], List[Diagnostic]], Tuple[str, ...]]] = {
     "disconnected-plan": (lambda: check_plan(disconnected_plan()),
                           ("subquery-disconnected",)),
     "illegal-eq3": (lambda: check_plan(illegal_eq3_plan()), ("eq3-illegal",)),
+    "bad-queue-dtype": (lambda: lint_source(BAD_QUEUE_SOURCE, "fixture.py"), ("queue-dtype",)),
+    "bad-kernel-twins": (_run_bad_kernel_twins, ("kernel-ref-missing", "kernel-test-missing")),
 }
 
 

@@ -1,21 +1,24 @@
 """Architecture registry (``--arch <id>``) and the input-shape grid.
 
-The registry lists only the architectures the port can run; each later slice
-of the port adds its own. ``ShapeSpec``/``SHAPES`` are the JAX package's
-shape grid, copied as they are.
+The registry lists only the architectures the port can run, plus the
+paper-native ``huge-enum`` workload (kept out of ``ARCH_NAMES``, as the JAX
+package keeps it); each later slice of the port adds its own.
+``ShapeSpec``/``SHAPES``, ``shape_skip_reason`` and ``all_cells`` are the
+JAX package's, over the port's architectures.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, Optional
 
 ARCH_MODULES: Dict[str, str] = {
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "huge-enum": "repro_torch.configs.huge_enum",
 }
 
-ARCH_NAMES = list(ARCH_MODULES)
+ARCH_NAMES = [a for a in ARCH_MODULES if a != "huge-enum"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,3 +45,18 @@ def get_config(name: str):
 def smoke_config(name: str):
     mod = importlib.import_module(ARCH_MODULES[name])
     return mod.smoke()
+
+
+def shape_skip_reason(arch: str, shape: str) -> Optional[str]:
+    """None if the (arch × shape) cell runs; else the documented skip."""
+    if shape == "long_500k":
+        cfg = get_config(arch)
+        if not getattr(cfg, "sub_quadratic", False):
+            return "SKIP(full-attn): 500k-context needs sub-quadratic attention"
+    return None
+
+
+def all_cells():
+    for arch in ARCH_NAMES:
+        for shape in SHAPES:
+            yield arch, shape, shape_skip_reason(arch, shape)

@@ -516,7 +516,7 @@ class DistributedEngine:
         self.delta_scan_total = 0
         self.delta_scan_len = 0
         self.stats: Dict[str, object] = {}
-        self._last_runtimes = None
+        self._last_labels: List[str] = []  # the last pass's runtime labels
 
     def _sharded_edge_lists(self, graph: Graph):
         """This rank's directed edges (those whose source it owns), padded to
@@ -756,18 +756,20 @@ class DistributedEngine:
 
         # Join barriers: probing may start only once every ancestor of the
         # left input has drained — no scans pending, no queued rows, no
-        # unprobed rows inside ancestor joins.
+        # unprobed rows inside ancestor joins. A barrier holds its ancestors'
+        # runtimes and queues, not the list: a finished pass is then no
+        # reference cycle, and its queues go as soon as the caller lets go.
         for i, op in enumerate(ops):
             if op.kind != "join":
                 continue
             branch = (*flow.ancestors(op.inputs[0]), op.inputs[0])
 
-            def make_done(branch=branch):
+            def make_done(deps=tuple((runtimes[j], queues.get(j)) for j in branch)):
                 def done() -> bool:
-                    for j in branch:
-                        if runtimes[j].internal_pending():
+                    for rt, q in deps:
+                        if rt.internal_pending():
                             return False
-                        if j in queues and queues[j].max_n > 0:
+                        if q is not None and q.max_n > 0:
                             return False
                     return True
                 return done
@@ -875,7 +877,7 @@ class DistributedEngine:
         try:
             while True:
                 # Release the previous attempt's queues before allocating.
-                self._last_runtimes = None
+                runtimes = None
                 self.stats = {
                     "engine": "torch.distributed",
                     "shards": self.p,
@@ -895,7 +897,7 @@ class DistributedEngine:
                     "pressure_events": pressure,
                 }
                 runtimes = self._build_runtimes(flow, tenant_of_op)
-                self._last_runtimes = runtimes  # test introspection
+                self._last_labels = [rt.label for rt in runtimes]
                 sched = AdaptiveScheduler(runtimes, dfs_bias=attempts > 0)
                 try:
                     st = sched.run()
@@ -910,7 +912,7 @@ class DistributedEngine:
                     if isinstance(f, ShardLoss):
                         restarts += 1
                         _log.warning("restarting after %s (attempt %d/%d)",
-                                     f, attempts, orig_cfg.max_retries)
+                                     str(f), attempts, orig_cfg.max_retries)
                     else:
                         pressure += 1
                         nb = max(self.cfg.batch_size // 2, orig_cfg.min_batch_size)
@@ -923,7 +925,7 @@ class DistributedEngine:
                                 op=f.op, query=f.query,
                             ) from f
                         _log.warning("restarting after %s (attempt %d/%d): batch %d -> %d",
-                                     f, attempts, orig_cfg.max_retries,
+                                     str(f), attempts, orig_cfg.max_retries,
                                      self.cfg.batch_size, nb)
                         self.cfg = dataclasses.replace(self.cfg, batch_size=nb)
                     continue

@@ -929,6 +929,7 @@ class HugeEngine:
         merged, _ = merge_flows(delta_flows(plan))
         session = self.drive(self.prepare(merged))
         result = session.result()
+        session.close()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         result.stats.wall_time = time.perf_counter() - t_start
@@ -1077,58 +1078,68 @@ class HugeEngine:
         deterministic and replay is exact) and the run retries, up to
         ``cfg.max_retries`` times and never below ``cfg.min_batch_size``.
         Returns the session holding the final state (a *new* object when
-        recovery restored). With ``cfg.recover`` off the session runs once
-        and any fault propagates."""
+        recovery restored; the one restored from is closed). With
+        ``cfg.recover`` off the session runs once and any fault propagates,
+        the session closed."""
         cfg = self.cfg
-        if not cfg.recover:
-            session.run()
-            return session
-        ckpt_steps = cfg.checkpoint_every_steps
-        snap = session.snapshot()
-        retries = 0
-        while True:
-            try:
-                if ckpt_steps > 0:
-                    while not session.done():
-                        session.tick(ckpt_steps)
-                        snap = session.snapshot()
-                else:
-                    session.run()
+        try:
+            if not cfg.recover:
+                session.run()
                 return session
-            except EnumerationFault as f:
-                if not f.recoverable or retries >= cfg.max_retries:
-                    raise
-                retries += 1
-                prev_batch = snap["batch_size"]
-                if isinstance(f, ShardLoss):
-                    new_batch = prev_batch
-                else:
-                    new_batch = max(prev_batch // 2, cfg.min_batch_size)
-                    if new_batch >= prev_batch:
-                        raise EnumerationFault(
-                            f.kind,
-                            "recovery ladder exhausted: batch already at "
-                            f"floor {prev_batch} "
-                            "(raise queue capacities or min_batch_size)",
-                            op=f.op, query=f.query,
-                        ) from f
-                _log.warning(
-                    "recovering from %s (attempt %d/%d): batch %d -> %d",
-                    f, retries, cfg.max_retries, prev_batch, new_batch,
-                )
-                session = EngineSession.restore(
-                    self, session.flow, snap, stats=session.stats,
-                    batch_size=new_batch,
-                    dfs_bias=not isinstance(f, ShardLoss),
-                )
-                # Counters go up *after* the restore rolled stats back to the
-                # snapshot, so recovery history survives the rollback.
-                session.stats.retries += 1
-                if isinstance(f, ShardLoss):
-                    session.stats.restarts += 1
-                else:
-                    session.stats.pressure_events += 1
-                snap = session.snapshot()
+            ckpt_steps = cfg.checkpoint_every_steps
+            snap = session.snapshot()
+            retries = 0
+            while True:
+                try:
+                    if ckpt_steps > 0:
+                        while not session.done():
+                            session.tick(ckpt_steps)
+                            snap = session.snapshot()
+                    else:
+                        session.run()
+                    return session
+                except EnumerationFault as f:
+                    if not f.recoverable or retries >= cfg.max_retries:
+                        raise
+                    retries += 1
+                    prev_batch = snap["batch_size"]
+                    if isinstance(f, ShardLoss):
+                        new_batch = prev_batch
+                    else:
+                        new_batch = max(prev_batch // 2, cfg.min_batch_size)
+                        if new_batch >= prev_batch:
+                            raise EnumerationFault(
+                                f.kind,
+                                "recovery ladder exhausted: batch already at "
+                                f"floor {prev_batch} "
+                                "(raise queue capacities or min_batch_size)",
+                                op=f.op, query=f.query,
+                            ) from f
+                    # The message, not the fault: a handler that keeps its
+                    # records would otherwise keep the traceback, and with it
+                    # the session.
+                    _log.warning(
+                        "recovering from %s (attempt %d/%d): batch %d -> %d",
+                        str(f), retries, cfg.max_retries, prev_batch, new_batch,
+                    )
+                    failed = session
+                    session = EngineSession.restore(
+                        self, failed.flow, snap, stats=failed.stats,
+                        batch_size=new_batch,
+                        dfs_bias=not isinstance(f, ShardLoss),
+                    )
+                    failed.close()
+                    # Counters go up *after* the restore rolled stats back to
+                    # the snapshot, so recovery history survives the rollback.
+                    session.stats.retries += 1
+                    if isinstance(f, ShardLoss):
+                        session.stats.restarts += 1
+                    else:
+                        session.stats.pressure_events += 1
+                    snap = session.snapshot()
+        except BaseException:
+            session.close()  # nothing can run it again; free its queues now
+            raise
 
     def run(
         self,
@@ -1139,6 +1150,7 @@ class HugeEngine:
         t_start = time.perf_counter()
         session = self.drive(self.prepare(query_or_plan, space, stats, session_stats=self.stats))
         result = session.result()
+        session.close()
         # One copy to the host a run (the sink counts on the device).
         self.stats.per_machine_rows = self.balance_rows.cpu().numpy().copy()
         if self.device.type == "cuda":

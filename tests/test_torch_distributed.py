@@ -117,7 +117,7 @@ def run_cases(comm, cases):
         eng = engines[ekey]
         if isinstance(qs, list):
             count, stats = eng.run_concurrent([Q[q] for q in qs], space=space)
-            labels = [rt.label for rt in eng._last_runtimes]
+            labels = eng._last_labels
         else:
             count, stats = eng.run(Q[qs], space=space)
             labels = []

@@ -77,10 +77,13 @@ def test_engine_preflight_accepts_good_query(graph):
 # ---------------------------------------------------------------------------
 
 def test_fixture_set_is_the_references_minus_the_source_lint():
-    assert set(fixtures_pt.FIXTURES) == set(fixtures_ref.FIXTURES) - {"bad-kernel-source"}
+    """The tracer-rule source fixture is not ported; the port's source lint
+    has fixtures of its own (``tests/test_torch_analysis_cli.py``)."""
+    assert set(fixtures_pt.FIXTURES) == (set(fixtures_ref.FIXTURES) - {"bad-kernel-source"}) \
+        | {"bad-queue-dtype", "bad-kernel-twins"}
 
 
-@pytest.mark.parametrize("name", sorted(fixtures_pt.FIXTURES))
+@pytest.mark.parametrize("name", sorted(set(fixtures_pt.FIXTURES) & set(fixtures_ref.FIXTURES)))
 def test_fixture_fires_the_references_rules(name):
     diags, expected = fixtures_pt.run_fixture(name)
     diags_ref, expected_ref = fixtures_ref.run_fixture(name)

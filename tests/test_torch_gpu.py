@@ -29,7 +29,9 @@ time; their tests sit at those designs' edges (``-k "extend or lex"``).
 The fused graph service on the card (``-k service``) must equal the CPU
 port's ticket by ticket, with the three enumeration kernels launched; so
 must four distributed-engine ranks on the card equal four on the CPU
-(``-k distributed``), the kernels launched inside the ranks.
+(``-k distributed``), the kernels launched inside the ranks. The paper-suite
+registry runs Exp-6 fused on the card (``-k paper``), its rows equal to the
+CPU port's.
 """
 import dataclasses
 import math
@@ -989,3 +991,35 @@ def test_granite_smoke_on_card_equals_cpu_port(cuda):
     assert out["cpu"][1] == 0
     assert out["cuda"][1] == cfg.num_layers * 3 * 6  # three groups: a prefill, 5 decode steps
     assert out["cuda"][0] == out["cpu"][0]
+
+
+def test_paper_suite_registry_runs_exp6_on_card(cuda, monkeypatch, capsys, tmp_path):
+    """``launch/run.py exp6 --fused`` on the card (at powerlaw_graph(512,
+    6.0, seed=0)): every row's count, and its deterministic fields equal to
+    the same suite on the CPU; ``fused_extend`` launched; the recorded
+    entries name the card and its power limit."""
+    import json
+
+    from repro_torch.graph import powerlaw_graph
+    from repro_torch.launch import exp6_cache_design, run
+
+    graph_args = ["--vertices", "512", "--avg-degree", "6.0", "--seed", "0"]
+    real = exp6_cache_design.main
+    monkeypatch.setattr(exp6_cache_design, "main", lambda argv: real(argv + graph_args))
+    out = tmp_path / "paper.json"
+    ik.reset_launches()
+    assert run.main(["exp6", "--fused", "--out", str(out)]) == 0
+    torch.cuda.synchronize()
+    assert ik.launches["fused_extend"] > 0
+    assert "exp6/direct/q3," in capsys.readouterr().out
+    entries = json.loads(out.read_text())["entries"]
+    assert [e["name"] for e in entries] == [f"exp6/{p}/{q}" for q in ("q1", "q2", "q3")
+                                            for p in ("lrbu", "lru", "direct")]
+    want = {"q1": 4361, "q2": 2551, "q3": 84}
+    plain = exp6_cache_design.exp6(powerlaw_graph(512, 6.0, seed=0, device="cpu"))
+    for e, p in zip(entries, plain):
+        assert e["fused"] and e["matches"] == want[e["name"][-2:]]
+        assert e["device"] == torch.cuda.get_device_name(0) and e["power_limit"]
+        for key in ("matches", "pulled_bytes", "pushed_bytes", "cache_hits", "cache_misses",
+                    "peak_queue_rows", "steps", "per_machine_rows"):
+            assert e[key] == p[key], (e["name"], key)

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports ``jax`` or ``repro``, and its entry points refuse
+``chip_smoke.py``) imports ``jax``, ``repro`` or ``benchmarks``, and its entry points refuse
 to run silently on the CPU when the caller did not ask for it."""
 import os
 import pkgutil
@@ -35,18 +35,26 @@ def test_port_imports_without_jax_or_repro():
               "repro_torch.core.hybrid_comm", "repro_torch.core.faults",
               "repro_torch.launch.table4", "repro_torch.serve.graph_service",
               "repro_torch.launch.service_load", "repro_torch.core.distributed",
-              "repro_torch.graph.partition", "repro_torch.launch.dist_hybrid"):
+              "repro_torch.graph.partition", "repro_torch.launch.dist_hybrid",
+              "repro_torch.launch.common", "repro_torch.launch.run",
+              "repro_torch.launch.table1_comm_modes", "repro_torch.launch.exp1_plugin_plans",
+              "repro_torch.launch.exp4_batching", "repro_torch.launch.exp5_cache",
+              "repro_torch.launch.exp6_cache_design", "repro_torch.launch.exp7_scheduling",
+              "repro_torch.launch.exp9_plans", "repro_torch.launch.exp10_scaling",
+              "repro_torch.launch.exp_chaos", "repro_torch.launch.exp_streaming",
+              "repro_torch.analysis.__main__", "repro_torch.analysis.lint",
+              "repro_torch.configs.huge_enum"):
         assert m in mods, m
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
         "    sys.modules[name] = None  # any import of them now raises\n"
         f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
         "import importlib\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
-        "(m.split('.')[0] in ('jax', 'jaxlib', 'repro'))]\n"
+        "(m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -64,7 +72,8 @@ def test_port_imports_without_jax_or_repro():
     "repro_torch.core.paths", "repro_torch.launch.table4",
     "repro_torch.serve.graph_service", "repro_torch.launch.service_load",
     "repro_torch.core.distributed", "repro_torch.graph.partition",
-    "repro_torch.launch.dist_hybrid",
+    "repro_torch.launch.dist_hybrid", "repro_torch.launch.run",
+    "repro_torch.analysis.__main__",
 ])
 def test_each_entry_module_imports_first(first):
     """No import cycle bites a program whose first import is this module."""
@@ -170,3 +179,21 @@ def test_chip_smoke_fails_without_cuda():
                           capture_output=True, text=True, cwd=ROOT, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_paper_suites_raise_without_cuda(capsys):
+    """Every suite of the registry runs on the card unless asked for the CPU;
+    the registry prints a suite's failure as its ERROR row and exits 1."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA device")
+    from repro_torch.launch import run
+
+    new = [k for k in run.SUITES if k not in ("table4", "exp_service_load", "exp_dist_hybrid")]
+    assert len(new) == 10
+    for name in new:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run.SUITES[name].main([])
+    assert run.main(["exp6", "table1"]) == 1
+    out = capsys.readouterr().out
+    assert "exp6/ERROR,0.0,RuntimeError:repro_torch runs on a CUDA device" in out
+    assert "table1/ERROR,0.0,RuntimeError" in out
