@@ -65,17 +65,30 @@ Phases (each prints its results; any failure exits non-zero):
    tokens and 32 new tokens on 8 slots;
 9. the flash attention kernel against its plain version at granite's
    forward, serve-prefill and decode shapes, gemma2's softcap branch (bf16,
-   scores scaled to reach the cap) and the float32 check's prefill and
-   decode shapes, over all outputs and row by row, with the readings of
-   faults put into the plain version (to show the check can fail), the
-   kernel form that ran, its times, achieved TFLOP/s and GB/s, its bound,
-   and SDPA's time (at the softcap shape, a compiled flex_attention's);
-   then the serve-prefill
+   scores scaled to reach the cap), the float32 check's prefill and
+   decode shapes, gemma2's local (4,096-key sliding window) prefill,
+   decode and float32 shapes and its global (unwindowed) prefill and decode
+   shapes, chatglm3's decode and forward (16 query heads on a KV head) and
+   command-r's forward (8), over all outputs and row by row, with the readings of faults put
+   into the plain version (to show the check can fail: the last key tile
+   lost, the softcap or the window dropped), the kernel form that ran, its
+   times, achieved TFLOP/s and GB/s, its bound, and SDPA's time (at the
+   softcap and window shapes, a compiled flex_attention's); then the
+   serve-prefill
    and decode shapes (the latter at Dh = 36) on views off 16 bytes, which the
    wrapper copies aligned for the bf16 forms;
 10. granite-3-8b at full width, as phase 7 (40 kernel launches a pass and a
    decode step, each pass in the form its shape names);
-11. granite-3-8b serving, as phase 8 (prefill and decode forms counted).
+11. granite-3-8b serving, as phase 8 (prefill and decode forms counted);
+12. gemma2-9b at full width (local layers with a 4,096-key window, softcaps
+   50 and 30) on sequences longer than the window: ``loss_fn`` and
+   ``forward`` on 2 x 8192 tokens, a profiled forward, ``prefill`` of 4,608
+   tokens + 3 decode steps against the forward (bf16 and float32), then 16
+   served requests of 4,160 + 32 tokens on 8 slots, each pass in the form
+   its shape names;
+13. chatglm3-6b (GQA 32:2, half-width RoPE, qkv bias) and command-r-35b
+   (60.6 GB of weights: B=1, no float32 leg) at full width, as phase 12 at
+   4,096 tokens, with one served group of 8 requests of 512 + 32 tokens.
 
 The line before the last holds the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. It imports torch, numpy and the port only.
@@ -147,16 +160,40 @@ RWKV_EDGES = {"logdecay -8": math.exp(-math.exp(-8.0)), "logdecay 1.2": math.exp
               "w 1.0": 1.0, "w 1e-12": 1e-12, "mixed": None}
 LM_FORWARD = (4, 4096, 512, 3)
 LM_SERVE = (16, 512, 32, 8)
-# The flash kernel's shapes: (what, B, Hq, Hkv, Sq, Sk, Dh, softcap, dtype),
-# all causal, q scaled by SOFTCAP_Q_SCALE where there is a softcap; the first
-# is the JSON line's headline.
+# gemma2-9b's: every sequence longer than its 4,096-key window (at S <= 4,096
+# the window masks nothing). B=2 is the most that fits the loss: the f32
+# logits and their logsumexp temporary take about 34 GB beside 18.5 GB of
+# weights.
+GEMMA2_FORWARD = (2, 8192, 4608, 3)
+GEMMA2_SERVE = (16, 4160, 32, 8)
+# Phase 13: chatglm3-6b and command-r-35b, one served group each; command-r's
+# 60.6 GB of weights leave room for a B=1 loss (about 71 GB) and not for its
+# float32 copy (121 GB).
+DENSE_FORWARD = {"chatglm3-6b": (4, 4096, 512, 3), "command-r-35b": (1, 4096, 512, 3)}
+DENSE_SERVE = (8, 512, 32, 8)
+# The flash kernel's shapes: (what, B, Hq, Hkv, Sq, Sk, Dh, softcap, dtype,
+# sliding window), all causal, q scaled by SOFTCAP_Q_SCALE where there is a
+# softcap; the first is the JSON line's headline. gemma2's local shapes are
+# those of phase 12's local layers: a sequence of the forward (8,192), a
+# decode step after a 4,608-token prompt and 31 new tokens, the float32
+# prefill of 4,608 (one row of two); its global shapes are those of the same
+# passes' global layers (no window, the same softcap). chatglm3's and
+# command-r's prefill shapes are phase 13's forwards (groups of 16 and 8).
 FLASH_SHAPES = (
-    ("granite forward B=4", 4, 32, 8, 4096, 4096, 128, None, torch.bfloat16),
-    ("granite serve prefill B=8", 8, 32, 8, 512, 512, 128, None, torch.bfloat16),
-    ("granite decode B=8", 8, 32, 8, 1, 544, 128, None, torch.bfloat16),
-    ("gemma2 softcap B=4", 4, 16, 8, 2048, 2048, 256, 50.0, torch.bfloat16),
-    ("granite float32 check B=2", 2, 32, 8, 512, 512, 128, None, torch.float32),
-    ("granite float32 decode B=8", 8, 32, 8, 1, 544, 128, None, torch.float32),
+    ("granite forward B=4", 4, 32, 8, 4096, 4096, 128, None, torch.bfloat16, None),
+    ("granite serve prefill B=8", 8, 32, 8, 512, 512, 128, None, torch.bfloat16, None),
+    ("granite decode B=8", 8, 32, 8, 1, 544, 128, None, torch.bfloat16, None),
+    ("gemma2 softcap B=4", 4, 16, 8, 2048, 2048, 256, 50.0, torch.bfloat16, None),
+    ("granite float32 check B=2", 2, 32, 8, 512, 512, 128, None, torch.float32, None),
+    ("granite float32 decode B=8", 8, 32, 8, 1, 544, 128, None, torch.float32, None),
+    ("gemma2 local prefill B=1", 1, 16, 8, 8192, 8192, 256, 50.0, torch.bfloat16, 4096),
+    ("gemma2 local decode B=8", 8, 16, 8, 1, 4640, 256, 50.0, torch.bfloat16, 4096),
+    ("gemma2 local float32 B=1", 1, 16, 8, 4608, 4608, 256, 50.0, torch.float32, 4096),
+    ("gemma2 global prefill B=1", 1, 16, 8, 8192, 8192, 256, 50.0, torch.bfloat16, None),
+    ("gemma2 global decode B=8", 8, 16, 8, 1, 4640, 256, 50.0, torch.bfloat16, None),
+    ("chatglm3 decode B=8", 8, 32, 2, 1, 544, 128, None, torch.bfloat16, None),
+    ("chatglm3 forward B=4", 4, 32, 2, 4096, 4096, 128, None, torch.bfloat16, None),
+    ("command-r forward B=1", 1, 64, 8, 4096, 4096, 128, None, torch.bfloat16, None),
 )
 # Shapes that reach the bf16 forms through the wrapper's aligned copy: (what,
 # B, Hq, Hkv, Sq, Sk, Dh), causal, every operand read through a view one
@@ -170,6 +207,12 @@ FLASH_UNALIGNED = (
 GRANITE_FORMS = {("forward", "bfloat16"): {"prefill"}, ("prefill", "bfloat16"): {"prefill"},
                  ("decode", "bfloat16"): {"decode"}, ("forward", "float32"): {"f32"},
                  ("prefill", "float32"): {"f32"}, ("decode", "float32"): {"f32"}}
+# gemma2's passes take the same forms, its local layers' as its global ones';
+# so do chatglm3's (16 query heads a KV head: a decode step packs 16 rows)
+# and command-r's, which has no float32 leg.
+GEMMA2_FORMS = GRANITE_FORMS
+DENSE_FORMS = {"chatglm3-6b": GRANITE_FORMS,
+               "command-r-35b": {k: v for k, v in GRANITE_FORMS.items() if k[1] == "bfloat16"}}
 DEV = "cuda"
 REPLACES = {
     "fused_extend": "src/repro/kernels/intersect/intersect.py:181",
@@ -1633,10 +1676,14 @@ def phase_rwkv6_kernel(rk):
         scale = max(float(w.abs().max()) for _, w in pairs)
         rel = max(errs) / max(1.0, scale)
         assert rel < RWKV_TOL, f"rwkv6 {what} T={t}: max |diff| {max(errs)} / max |plain| {scale}"
-        plain_iters = 1 if t > 1024 else 5
         call, (ms, lo, hi) = timed(lambda: rk.rwkv6(*args, return_state=with_state))
-        (pcall, pdev) = timed(lambda: rwkv6_ref(*args, return_state=with_state),
-                              iters=plain_iters, call_repeats=3, warmup=1, plain=True)
+        # The plain version runs tens of torch ops a step, and reading the
+        # profiler's records of them takes seconds a window: three windows of
+        # one call each.
+        pcall = call_ms(lambda: rwkv6_ref(*args, return_state=with_state), iters=1,
+                        repeats=3, warmup=1)
+        pdev = plain_device_ms(lambda: rwkv6_ref(*args, return_state=with_state), iters=1,
+                               repeats=3)
         bound, by, nbytes, flops, bytes_ms, ops_ms = rwkv_bound(args, with_state)
         shape = f"BH={bh} T={t} K=V=64 bf16" + (" +state" if with_state else "")
         out["configs"].append(dict(
@@ -1690,20 +1737,23 @@ def rwkv_edge_checks(rk, rwkv6_ref, gen):
 # Phase 9: the flash attention kernel against its plain version and SDPA
 # ---------------------------------------------------------------------------
 
-def attention_bound(q, k, v, causal):
-    """(bound ms, what bounds it, bytes, flops, pairs): q, k, v read once and
-    the output written once at 3.35 TB/s, against 4 * Dh operations for each
-    (query, visible key) pair at the dtype's peak (989 TFLOP/s on the tensor
-    cores in bf16, 67 TFLOP/s float32 outside them)."""
+def attention_bound(q, k, v, causal, window=None):
+    """(bound ms, what bounds it, bytes, flops, pairs): q, the keys and values
+    some row sees (under a sliding window, from row 0's lower edge on), each
+    read once and the output written once at 3.35 TB/s, against 4 * Dh
+    operations for each (query, visible key) pair at the dtype's peak (989
+    TFLOP/s on the tensor cores in bf16, 67 TFLOP/s float32 outside them).
+    Row i sees keys [i + Sk - Sq - window + 1, i + Sk - Sq] within [0, Sk)."""
     bhq, sq, dh = q.shape
     sk = k.shape[1]
-    if causal:
-        seen = (torch.arange(sq, dtype=torch.int64) + (sk - sq) + 1).clamp(0, sk)
-        pairs = int(seen.sum()) * bhq
-    else:
-        pairs = bhq * sq * sk
+    pos = torch.arange(sq, dtype=torch.int64) + (sk - sq)  # row i's diagonal key
+    hi = (pos + 1).clamp(0, sk) if causal else torch.full_like(pos, sk)
+    lo = torch.zeros_like(pos) if window is None else (pos - window + 1).clamp(0, sk)
+    pairs = int((hi - lo).clamp(min=0).sum()) * bhq
     flops = 4 * pairs * dh
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * q.element_size()
+    first = int(lo[0])  # no row sees a key before row 0's lower edge
+    kv_bytes = sum(x[:, first:].numel() * x.element_size() for x in (k, v))
+    nbytes = 2 * q.numel() * q.element_size() + kv_bytes
     peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), \
@@ -1718,29 +1768,33 @@ def flash_errs(got, want):
     return float(diff.max()), float((diff.amax(-1) / scale).max())
 
 
-def flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what):
+def flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what, window=None):
     """Whether the check above could fail: the plain version with a fault put
     into it, on the last (up to 128) query rows, read as the check reads the
     kernel. The faults: the keys of the last 64-key tile lost (their V
-    zeroed), and the softcap dropped. Returns their readings."""
+    zeroed), the softcap dropped, and the sliding window dropped (every
+    earlier key seen). Returns their readings."""
     n = min(q.shape[1], 128)
     tail = k.shape[1] - (k.shape[1] - 1) // 64 * 64
     v_lost = v.clone()
     v_lost[:, -tail:] = 0
-    faults = {"tail lost": (v_lost, cap)}
+    faults = {"tail lost": (v_lost, cap, window)}
     if cap is not None:
-        faults["softcap dropped"] = (v, None)
+        faults["softcap dropped"] = (v, None, window)
+    if window is not None:
+        faults["window dropped"] = (v, cap, None)
     out = {}
-    for fault, (vf, capf) in faults.items():
-        bad = attention_chunked(q[:, -n:], k, vf, causal=True, softcap=capf)
+    for fault, (vf, capf, winf) in faults.items():
+        bad = attention_chunked(q[:, -n:], k, vf, causal=True, softcap=capf, window=winf)
         out[fault] = flash_errs(bad, want[:, -n:])
         assert out[fault][1] > row_tol, f"flash_attention {what}: the check misses '{fault}'"
     return out
 
 
-def flex_softcap(q4, k4, v4, cap):
-    """The softcap shape's yardstick: ``torch.compile(flex_attention)`` with
-    a tanh ``score_mod``, the causal diagonal as a block mask and
+def flex_yardstick(q4, k4, v4, cap, window):
+    """The softcap and window shapes' yardstick: ``torch.compile(
+    flex_attention)`` with a tanh ``score_mod`` (where there is a softcap),
+    the causal diagonal and the sliding window as a block mask and
     ``enable_gqa=True``, on [B, H, S, Dh] inputs. The port never calls it."""
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
@@ -1750,30 +1804,39 @@ def flex_softcap(q4, k4, v4, cap):
         return cap * torch.tanh(score / cap)
 
     def causal(b, h, q_idx, kv_idx):
-        return q_idx + (sk - sq) >= kv_idx
+        ahead = q_idx + (sk - sq) - kv_idx
+        if window is None:
+            return ahead >= 0
+        return (ahead >= 0) & (ahead < window)
 
     mask = create_block_mask(causal, None, None, sq, sk, device=q4.device)
     flex = torch.compile(flex_attention)
-    return lambda: flex(q4, k4, v4, score_mod=softcap, block_mask=mask, enable_gqa=True)
+    return lambda: flex(q4, k4, v4, score_mod=None if cap is None else softcap,
+                        block_mask=mask, enable_gqa=True)
 
 
 def phase_flash_kernel(fa):
-    """The kernel at granite's forward, serve-prefill and decode shapes and at
-    gemma2's softcap branch (bf16, the tensor-core forms), and at the float32
-    check's prefill and decode shapes (the f32 form), each against the plain
-    version (the wrapper's CPU path, run on the card), with the readings of
-    faults put into the plain version beside it, and timed beside SDPA where
-    one SDPA call computes the same function (every shape but the softcap's,
-    where a compiled flex_attention stands in). Kernel and library are timed
-    the same way, by ``queued_ms``; the form the kernel ran is read from its
-    per-form launch counts and must be the one ``kernel_form`` names."""
+    """The kernel at granite's forward, serve-prefill and decode shapes, at
+    gemma2's softcap branch, its local layers' sliding window and its global
+    layers' prefill and decode, at chatglm3's decode and forward and
+    command-r's forward (bf16, the tensor-core forms), and at the float32
+    check's prefill and decode shapes and gemma2's float32 window (the f32
+    form), each against the plain version (the wrapper's CPU path, run on the
+    card), with the readings of faults put into the plain version beside it,
+    and timed beside SDPA where one SDPA call computes the same function
+    (every shape without a softcap or a window; at those, a compiled
+    flex_attention stands in). Kernel and library are timed the same way, by
+    ``queued_ms``; the form the kernel ran is read from its per-form launch
+    counts and must be the one ``kernel_form`` names. Each shape's line
+    gives the seconds it took."""
     from repro_torch.kernels.flash_attention.ops import attention_chunked
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     log("phase 9: flash attention kernel vs its plain version and SDPA")
     gen = torch.Generator(device=DEV).manual_seed(9)
     out = {"max_abs_err": 0.0, "configs": []}
-    for what, b, hq, hkv, sq, sk, dh, cap, dtype in FLASH_SHAPES:
+    for what, b, hq, hkv, sq, sk, dh, cap, dtype, window in FLASH_SHAPES:
+        t_shape = time.perf_counter()
         q = torch.randn((b * hq, sq, dh), generator=gen, device=DEV)
         if cap is not None:
             q *= SOFTCAP_Q_SCALE
@@ -1781,28 +1844,30 @@ def phase_flash_kernel(fa):
         k = torch.randn((b * hkv, sk, dh), generator=gen, device=DEV).to(dtype)
         v = torch.randn((b * hkv, sk, dh), generator=gen, device=DEV).to(dtype)
         before = dict(fa.launches_by_form)
-        got = fa.attention(q, k, v, causal=True, softcap=cap)
+        got = fa.attention(q, k, v, causal=True, softcap=cap, window=window)
         (form,) = [f for f, n in fa.launches_by_form.items() if n > before[f]]
         assert form == fa.kernel_form(dtype, sq, hq // hkv), (what, form)
-        want = attention_chunked(q, k, v, causal=True, softcap=cap)
+        want = attention_chunked(q, k, v, causal=True, softcap=cap, window=window)
         torch.cuda.synchronize()
         err, row_err = flash_errs(got, want)
         tol, row_tol = FLASH_TOL[dtype], FLASH_ROW_TOL[dtype]
         assert err < tol and row_err < row_tol, (
             f"flash_attention {what}: max |kernel - plain| {err} (tolerance {tol}), worst row "
             f"{row_err} of its max |plain| (tolerance {row_tol})")
-        faults = flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what)
+        faults = flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what,
+                                      window)
 
         def kernel():
-            return fa.attention(q, k, v, causal=True, softcap=cap)
+            return fa.attention(q, k, v, causal=True, softcap=cap, window=window)
 
         call = call_ms(kernel)
         ms, lo, hi = queued_ms(kernel)
         big = sq * sk * b * hq > 1 << 28
-        pcall, pdev = timed(lambda: attention_chunked(q, k, v, causal=True, softcap=cap),
-                            iters=1 if big else 5, call_repeats=3, warmup=1, plain=True)
+        pcall, pdev = timed(
+            lambda: attention_chunked(q, k, v, causal=True, softcap=cap, window=window),
+            iters=1 if big else 5, call_repeats=3, warmup=1, plain=True)
         q4, k4, v4 = q.view(b, hq, sq, dh), k.view(b, hkv, sk, dh), v.view(b, hkv, sk, dh)
-        if cap is None:
+        if cap is None and window is None:
             # One SDPA call on the same inputs as [B, H, S, Dh] views; at Sq = 1
             # every key is visible, elsewhere Sq = Sk and its top-left causal
             # diagonal is ours.
@@ -1812,12 +1877,17 @@ def phase_flash_kernel(fa):
             def lib():
                 return sdpa(q4, k4, v4, is_causal=sq > 1, enable_gqa=True)
         else:
-            lib_name, lib = "flex_attention", flex_softcap(q4, k4, v4, cap)
+            lib_name, lib = "flex_attention", flex_yardstick(q4, k4, v4, cap, window)
         lib_err = flash_errs(lib().reshape(got.shape), want)[0]
-        lib_call, lib_ms = call_ms(lib), queued_ms(lib)
-        bound, by, nbytes, flops, pairs = attention_bound(q, k, v, True)
+        if lib_name == "flex_attention":  # up to 235 ms a call: timed over fewer calls
+            lib_call = call_ms(lib, iters=3, repeats=3, warmup=2)
+            lib_ms = queued_ms(lib, iters=3, repeats=3)
+        else:
+            lib_call, lib_ms = call_ms(lib), queued_ms(lib)
+        bound, by, nbytes, flops, pairs = attention_bound(q, k, v, True, window)
         shape = (f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} causal "
-                 f"{str(dtype)[6:]}" + (f" softcap={cap:g}, q x{SOFTCAP_Q_SCALE:g}" if cap else ""))
+                 f"{str(dtype)[6:]}" + (f" window={window}" if window else "") +
+                 (f" softcap={cap:g}, q x{SOFTCAP_Q_SCALE:g}" if cap else ""))
         tflops, gbs = flops / (ms * 1e-3) / 1e12, nbytes / (ms * 1e-3) / 1e9
         ratio = ms / lib_ms[0]
         out["configs"].append(dict(
@@ -1827,7 +1897,7 @@ def phase_flash_kernel(fa):
             bound_bytes=nbytes, bound_flops=flops, max_abs_err=err, row_rel_err=row_err,
             fault_readings=faults, library=lib_name, library_ms=lib_ms[0],
             library_call_ms=lib_call[0], library_max_abs_err=lib_err,
-            kernel_over_library=ratio))
+            kernel_over_library=ratio, seconds=time.perf_counter() - t_shape))
         out["max_abs_err"] = max(out["max_abs_err"], err)
         log(f"  flash_attention [{what}: {shape}] {form} form: max_abs_err={err:.3e} (tolerance "
             f"{tol:g}), worst row {row_err:.3e} of its max |plain| (tolerance {row_tol:g}); a "
@@ -1839,7 +1909,8 @@ def phase_flash_kernel(fa):
             f"visible pairs, {flops} flop) | achieved {tflops:.1f} TFLOP/s, {gbs:.1f} GB/s, "
             f"{bound / ms:.3f} of the bound | {lib_name} queued={lib_ms[0]:.4f} ms (min "
             f"{lib_ms[1]:.4f}, max {lib_ms[2]:.4f}) call={lib_call[0]:.4f} ms (max "
-            f"|{lib_name} - plain| {lib_err:.3e}); kernel / {lib_name} queued = {ratio:.2f}")
+            f"|{lib_name} - plain| {lib_err:.3e}); kernel / {lib_name} queued = {ratio:.2f} | "
+            f"{time.perf_counter() - t_shape:.1f} s")
         del q, k, v, got, want
     out["unaligned"] = [flash_unaligned_check(fa, attention_chunked, gen, *shape)
                         for shape in FLASH_UNALIGNED]
@@ -1880,7 +1951,8 @@ def flash_unaligned_check(fa, attention_chunked, gen, what, b, hq, hkv, sq, sk, 
 
 
 # ---------------------------------------------------------------------------
-# Phases 7-8 (rwkv6-7b) and 10-11 (granite-3-8b): LM inference at full width
+# Phases 7-8 (rwkv6-7b), 10-11 (granite-3-8b), 12 (gemma2-9b) and 13
+# (chatglm3-6b, command-r-35b): LM inference at full width
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -1888,7 +1960,10 @@ class LMPath:
     """One model's path and the kernel it must run: ``ops`` holds its launch
     counter ``kernel``; every pass over the layers (forward, prefill)
     launches it once a layer, and each decode step ``per_decode`` times a
-    layer. ``symbol`` picks its kernels out of a profile."""
+    layer. ``symbol`` picks its kernels out of a profile. ``forward``: (B, S,
+    prefill length, decode steps); ``serve``: (requests, prompt length, new
+    tokens, slots); ``widen``: whether the float32 leg runs (the parameters
+    copied to float32 beside the bf16 ones)."""
     arch: str
     ops: Any
     kernel: str
@@ -1897,6 +1972,9 @@ class LMPath:
     forward_phase: str
     serve_phase: str
     forms: Any = None  # {(pass kind, dtype): the kernel's forms} where it has several
+    forward: Any = LM_FORWARD
+    serve: Any = LM_SERVE
+    widen: bool = True
 
 
 def lm_setup(path: LMPath):
@@ -1931,13 +2009,16 @@ def by_category(rows, symbol):
 
 
 def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
-    """loss_fn and forward on B=4 x S=4096, a profiled forward, then prefill
-    of 512 tokens of two rows and 3 decode steps against the forward's
-    logits. Returns the kernel launches of the phase by pass kind."""
+    """loss_fn and forward on B x S tokens (``path.forward``: 4 x 4096 by
+    default), a profiled forward, then prefill of the first tokens of (up to)
+    two rows and decode steps against the forward's logits, in bf16 and
+    (``path.widen``) float32. Returns the kernel launches of the phase by
+    pass kind."""
     from repro_torch.models import transformer as T
 
     ph = path.forward_phase
-    b, s, pre, extra = LM_FORWARD
+    b, s, pre, extra = path.forward
+    seqs = min(b, 2)  # the rows prefilled and decoded
     gen = torch.Generator(device=DEV).manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEV)
     batch = {"tokens": toks}
@@ -1973,7 +2054,7 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
             f"tokens/s={b * s / wall:,.0f} launches={per_pass} "
             f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     vocab = cfg.vocab_size  # the padded columns hold -1e30: compare the real ones
-    ref = logits[:2, pre - 1 : pre + extra, :vocab].float()
+    ref = logits[:seqs, pre - 1 : pre + extra, :vocab].float()
     assert bool(torch.isfinite(ref).all())
     del logits, loss
 
@@ -1998,12 +2079,12 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
     def prefill_decode(c, p):
         """Logits of prefill (last position) and of ``extra`` decode steps."""
         (cache, last), wall = counted(
-            lambda: T.prefill(c, p, {"tokens": toks[:2, :pre]}, pre + extra + 8, device=DEV),
+            lambda: T.prefill(c, p, {"tokens": toks[:seqs, :pre]}, pre + extra + 8, device=DEV),
             per_pass, "prefill", c.dtype)
         out = [last[:, 0, :vocab].float()]
         for i in range(extra):
             (logits, cache), _ = counted(
-                lambda: T.decode_step(c, p, cache, toks[:2, pre + i : pre + i + 1], pre + i,
+                lambda: T.decode_step(c, p, cache, toks[:seqs, pre + i : pre + i + 1], pre + i,
                                       device=DEV), per_step, "decode", c.dtype)
             out.append(logits[:, 0, :vocab].float())
         return torch.stack(out, dim=1), wall
@@ -2011,38 +2092,44 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
     def agree(label, got, want, tol):
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         same_top = int((got.argmax(-1) == want.argmax(-1)).sum())
-        log(f"{ph}: {label}: prefill {pre} tokens x2 + {extra} decode steps vs forward "
+        log(f"{ph}: {label}: prefill {pre} tokens x{seqs} + {extra} decode steps vs forward "
             f"logits at positions {pre - 1}..{pre + extra - 1}: max |diff| {err:.5f}, max "
             f"|logit| {scale:.4f}, relative {err / scale:.2e} (tolerance {tol:g}), same "
             f"argmax {same_top}/{got.shape[0] * got.shape[1]}")
         assert err / scale < tol, (label, err, scale)
 
     got, wall = prefill_decode(cfg, params)
-    log(f"{ph}: bf16 prefill of {pre} tokens x2: wall {wall:.3f} s")
+    log(f"{ph}: bf16 prefill of {pre} tokens x{seqs}: wall {wall:.3f} s")
     agree("bf16", got, ref, LOGITS_TOL_BF16)
     # bf16's own floor at these positions: the same forward in another batch
     # shape, and (below) the float32 forward of the same weights.
-    short = {"tokens": toks[:2, : pre + extra]}
+    short = {"tokens": toks[:seqs, : pre + extra]}
     other, _ = counted(
         lambda: T.forward(cfg, params, short, device=DEV)[:, pre - 1 :, :vocab].float(),
         per_pass, "forward")
-    log(f"{ph}: bf16 floor: forward of 2 x {pre + extra} tokens vs the {b} x {s} forward: "
-        f"relative {float((other - ref).abs().max() / ref.abs().max()):.2e}")
-    # The same check in float32, with the parameters widened (exactly): here
-    # the two paths may differ only in summation order.
-    cfg32 = cfg.scaled(dtype="float32")
-    p32 = T.LM(cfg32, DEV)
-    with torch.no_grad():
-        for wide, narrow in zip(p32.parameters(), params.parameters()):
-            wide.copy_(narrow)
-    want32, _ = counted(
-        lambda: T.forward(cfg32, p32, short, device=DEV)[:, pre - 1 :, :vocab].float(),
-        per_pass, "forward", cfg32.dtype)
-    log(f"{ph}: bf16 floor: bf16 forward vs float32 forward: relative "
-        f"{float((ref - want32).abs().max() / want32.abs().max()):.2e}")
-    got32, _ = prefill_decode(cfg32, p32)
-    agree("float32", got32, want32, LOGITS_TOL_F32)
-    del p32
+    log(f"{ph}: bf16 floor: forward of {seqs} x {pre + extra} tokens vs the {b} x {s} "
+        f"forward: relative {float((other - ref).abs().max() / ref.abs().max()):.2e}")
+    if path.widen:
+        # The same check in float32, with the parameters widened (exactly):
+        # here the two paths may differ only in summation order. The logits'
+        # slice is copied, so that the whole float32 logits do not stay alive.
+        cfg32 = cfg.scaled(dtype="float32")
+        p32 = T.LM(cfg32, DEV)
+        with torch.no_grad():
+            for wide, narrow in zip(p32.parameters(), params.parameters()):
+                wide.copy_(narrow)
+        torch.cuda.reset_peak_memory_stats()
+        want32, _ = counted(
+            lambda: T.forward(cfg32, p32, short, device=DEV)[:, pre - 1 :, :vocab].clone(),
+            per_pass, "forward", cfg32.dtype)
+        log(f"{ph}: bf16 floor: bf16 forward vs float32 forward: relative "
+            f"{float((ref - want32).abs().max() / want32.abs().max()):.2e}")
+        got32, _ = prefill_decode(cfg32, p32)
+        agree("float32", got32, want32, LOGITS_TOL_F32)
+        log(f"{ph}: float32 leg: {sum(p.numel() for p in p32.parameters()) * 4 / 1e9:.2f} GB "
+            f"of float32 parameters beside the bf16 ones, max_memory_allocated="
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del p32
     if path.forms is not None:
         log(f"{ph}: {path.kernel} forms by (pass kind, dtype): "
             f"{ {k: sorted(v) for k, v in forms.items()} }")
@@ -2086,12 +2173,13 @@ def decode_profile(path: LMPath, cfg, params, b: int, plen: int) -> None:
 
 
 def phase_lm_serve(path: LMPath, cfg, params) -> int:
-    """BatchedServer, greedy: 16 requests of 512 prompt tokens, 32 new tokens
-    each, 8 slots. Returns the kernel launches of the measured run."""
+    """BatchedServer, greedy (``path.serve``: 16 requests of 512 prompt
+    tokens, 32 new tokens each, 8 slots by default). Returns the kernel
+    launches of the measured run."""
     from repro_torch.serve.engine import BatchedServer, Request, ServeConfig
 
     ph = path.serve_phase
-    n_req, plen, new, slots = LM_SERVE
+    n_req, plen, new, slots = path.serve
     rng = np.random.default_rng(8)
     scfg = ServeConfig(max_len=plen + new + 8, batch_slots=slots, temperature=0.0,
                        eos_token=-1, max_new_tokens=new)
@@ -2186,15 +2274,32 @@ def main() -> int:
 
     # -- phases 6-8 ------------------------------------------------------------
     rwkv = phase_rwkv6_kernel(rk)
+    log(f"chip_smoke: phase 6 done at {time.perf_counter() - t_all:.1f} s")
     launches["rwkv6"] = lm_phases(LMPath("rwkv6-7b", rk, "rwkv6", "rwkv6_kernel", 0,
                                          "phase 7", "phase 8"))
     log(f"chip_smoke: phases 6-8 done at {time.perf_counter() - t_all:.1f} s")
 
     # -- phases 9-11 -----------------------------------------------------------
     flash = phase_flash_kernel(fa)
+    log(f"chip_smoke: phase 9 done at {time.perf_counter() - t_all:.1f} s")
     launches["flash_attention"] = lm_phases(LMPath(
         "granite-3-8b", fa, "flash_attention", "flash_", 1, "phase 10", "phase 11",
         GRANITE_FORMS))
+    log(f"chip_smoke: phases 9-11 done at {time.perf_counter() - t_all:.1f} s")
+
+    # -- phase 12: gemma2-9b, its local layers' window in the flash kernel ------
+    launches["flash_attention"] += lm_phases(LMPath(
+        "gemma2-9b", fa, "flash_attention", "flash_", 1, "phase 12", "phase 12",
+        GEMMA2_FORMS, forward=GEMMA2_FORWARD, serve=GEMMA2_SERVE))
+    log(f"chip_smoke: phase 12 done at {time.perf_counter() - t_all:.1f} s")
+
+    # -- phase 13: chatglm3-6b and command-r-35b --------------------------------
+    for arch in ("chatglm3-6b", "command-r-35b"):
+        launches["flash_attention"] += lm_phases(LMPath(
+            arch, fa, "flash_attention", "flash_", 1, "phase 13", "phase 13",
+            DENSE_FORMS[arch], forward=DENSE_FORWARD[arch], serve=DENSE_SERVE,
+            widen=arch != "command-r-35b"))
+    log(f"chip_smoke: phase 13 done at {time.perf_counter() - t_all:.1f} s")
 
     for name in launches:
         assert launches[name] > 0, f"{name} was never launched on the main path"

@@ -15,6 +15,9 @@ from typing import Dict, Optional
 ARCH_MODULES: Dict[str, str] = {
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
     "huge-enum": "repro_torch.configs.huge_enum",
 }
 

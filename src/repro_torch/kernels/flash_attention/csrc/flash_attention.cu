@@ -7,7 +7,16 @@
 //   s_j   = (q_i . k_j) * scale                      scale = Dh^-1/2, float32
 //   s_j   = softcap * tanh(s_j / softcap)            if softcap > 0
 //   mask  : i + (Sk - Sq) >= j                       if causal
+//           i + (Sk - Sq) - j < window                 always (window >= Sk + Sq: none)
 //   out_i = sum_j p_j v_j / sum_j p_j,  p = exp(s - running max), masked p = 0
+//
+// The window is gemma2's sliding window, the mask q_pos - k_pos < window of
+// the JAX model's _sdpa (src/repro/models/layers.py); the TPU kernel has
+// none. The wrapper hands every form only the keys from the first one that
+// row 0 sees (ops.py, visible_keys), so the decode and f32 forms' splits
+// cover visible keys only; each form masks a row's lower edge beside its
+// causal one, and the prefill form starts each block at the first tile its
+// rows see, so a window of W keys costs about W keys a row, not Sk.
 //
 // with the running max initialised to -1e30 and a row that sees no key
 // giving 0 (acc / max(l, 1e-30)), as the TPU kernel does. The output is in
@@ -44,8 +53,10 @@
 //   mbarriers; each consumer warp frees a stage's K once S is computed and
 //   its V once P V has landed. setmaxnreg moves registers from the producer
 //   (40) to the consumers (232). Tiles that every row of a warpgroup sees
-//   whole skip the mask; only tiles on the diagonal or at the Sk edge
-//   compute it, and a warpgroup skips tiles none of its rows sees. The
+//   whole skip the mask; only tiles on the diagonal, at the window's lower
+//   edge or at the Sk edge compute it, and a warpgroup skips tiles none of
+//   its rows sees. A block's tiles start at the first its rows' window
+//   reaches and end at its last row's diagonal. The
 //   softmax spends one multiply-add and one ex2.approx per score (the scale
 //   and log2 e folded together), and the softcap's tanh is compiled only
 //   into the kernels that need it: with exp2f and a per-score softcap test
@@ -58,7 +69,8 @@
 //   V, read once at 3.35 TB/s. One block per (KV row, key split): the group's
 //   query heads and their Sq rows are packed into the rows of one tile, so a
 //   KV head's keys are staged once (cp.async, 16 bytes a thread, zero-filled
-//   past the split), not once per query head; the causal diagonal is per row.
+//   past the split), not once per query head; the causal diagonal and the
+//   window's lower edge are per row.
 //   The wrapper sizes the splits so that about four blocks run on each SM.
 //   Each block writes float32 partials (m, l, acc) per row to scratch that
 //   the wrapper allocates; the merge kernel combines them by log-sum-exp (a
@@ -120,6 +132,7 @@ struct Params {
   float scale;
   float softcap;     // <= 0: none
   int causal;
+  int window;        // row i sees keys j > i + sk - sq - window; >= sk + sq: no window
 };
 
 __device__ __forceinline__ int64_t q_base(const Operand& op, int bh, int hq) {
@@ -421,12 +434,13 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // where x is the (soft-capped) score before the scale and c folds the scale
 // and log2 e into one multiply-add; m is kept in those base-2 units. Element
 // 4j + i of s is row a (+8 for i >= 2), key k0 + 8j + 2t + (i & 1); keys at
-// or past lim_a / lim_b are masked. alpha: the factor the rows' O must be
-// scaled by.
+// or past lim_a / lim_b, and below lo_a / lo_b, are masked. alpha: the
+// factor the rows' O must be scaled by.
 template <bool MASK, bool SOFTCAP, int NS>
 __device__ __forceinline__ void online_softmax(float (&s)[NS], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], const Params& p, int k0,
-                                               int t, int lim_a, int lim_b) {
+                                               int t, int lo_a, int lim_a, int lo_b,
+                                               int lim_b) {
   const float c = SOFTCAP ? kLog2e : p.scale * kLog2e;
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -435,7 +449,8 @@ __device__ __forceinline__ void online_softmax(float (&s)[NS], float (&m)[2], fl
     for (int i = 0; i < 4; ++i) {
       float x = s[4 * j + i];
       if (SOFTCAP) x = p.softcap * tanhf(x * p.scale / p.softcap);
-      if (MASK && k0 + 8 * j + 2 * t + (i & 1) >= (i < 2 ? lim_a : lim_b)) x = -INFINITY;
+      const int key = k0 + 8 * j + 2 * t + (i & 1);
+      if (MASK && (key >= (i < 2 ? lim_a : lim_b) || key < (i < 2 ? lo_a : lo_b))) x = -INFINITY;
       s[4 * j + i] = x;
       mx[i >> 1] = fmaxf(mx[i >> 1], x);
     }
@@ -472,13 +487,14 @@ struct FwdBars {
 };
 
 // A consumer warpgroup: 64 query rows from row_lo, over the block's n_tiles
-// K/V tiles as the producer delivers them. Tile n's S = Q K^T is issued
-// together with tile n-1's O += P V, and tile n's softmax runs while that
-// product is in flight.
+// K/V tiles (key tiles t0 .. t0 + n_tiles - 1; the ring counts them from 0)
+// as the producer delivers them. Tile n's S = Q K^T is issued together with
+// tile n-1's O += P V, and tile n's softmax runs while that product is in
+// flight.
 template <int DH, bool SOFTCAP>
 __device__ __forceinline__ void fwd_consumer(const Params& p, uint32_t qs, uint32_t ks,
                                              uint32_t vs, FwdBars<FwdCfg<DH>::STAGES>& bar,
-                                             int bh, int q0, int n_tiles) {
+                                             int bh, int q0, int t0, int n_tiles) {
   using C = FwdCfg<DH>;
   constexpr int NS = C::BK / 2;  // S accumulators a thread: BK/8 n8 tiles x 4
   constexpr int NO = DH / 2;     // O accumulators a thread
@@ -489,16 +505,22 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, uint32_t qs, uint3
   const int offset = p.sk - p.sq;
   const int row_lo = q0 + 64 * wg;             // the warpgroup's first row
   const int row_a = row_lo + 16 * warp + g;    // the thread's rows: row_a and row_a + 8
-  // Row r sees keys below lim(r); tiles [0, n_plain) are seen whole by every
-  // row of the warpgroup, tiles from n_seen on by none.
+  // Row r sees keys [lo(r), lim(r)). Global key tiles [plain_lo, plain_hi)
+  // are seen whole by every row of the warpgroup; of the block's tiles the
+  // warpgroup sees some key of [n_first, n_seen) only (block-relative).
   const int lim_a = p.causal ? min(p.sk, row_a + offset + 1) : p.sk;
   const int lim_b = p.causal ? min(p.sk, row_a + 8 + offset + 1) : p.sk;
-  int n_plain = 0, n_seen = 0;
+  const int lo_a = row_a + offset - p.window + 1, lo_b = lo_a + 8;
+  int plain_lo = 0, plain_hi = 0, n_first = 0, n_seen = 0;
   if (row_lo < p.sq) {
+    const int row_hi = min(row_lo + 63, p.sq - 1);
     const int first = p.causal ? min(p.sk, row_lo + offset + 1) : p.sk;
-    const int last = p.causal ? min(p.sk, min(row_lo + 63, p.sq - 1) + offset + 1) : p.sk;
-    n_plain = max(first, 0) / C::BK;
-    n_seen = min(n_tiles, (max(last, 0) + C::BK - 1) / C::BK);
+    const int last = p.causal ? min(p.sk, row_hi + offset + 1) : p.sk;
+    plain_lo = (max(0, row_hi + offset - p.window + 1) + C::BK - 1) / C::BK;
+    plain_hi = max(first, 0) / C::BK;
+    n_first = max(0, row_lo + offset - p.window + 1) / C::BK - t0;
+    n_seen = min(n_tiles, (max(last, 0) + C::BK - 1) / C::BK - t0);
+    if (n_seen <= n_first) n_first = n_seen = 0;
   }
 
   float o[NO];
@@ -548,12 +570,27 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, uint32_t qs, uint3
     }
     wgmma_commit();
   };
-  // Softmax of tile n's S in place (S becomes P in float32).
+  // Softmax of tile n's S in place (S becomes P in float32); only tiles at
+  // the window's or the diagonal's edge compute the mask.
   auto softmax = [&](int n, float (&s)[NS], float (&alpha)[2]) {
-    if (n >= n_plain) {
-      online_softmax<true, SOFTCAP>(s, m, l, alpha, p, n * C::BK, t, lim_a, lim_b);
+    const int tile = t0 + n;
+    if (tile < plain_lo || tile >= plain_hi) {
+      online_softmax<true, SOFTCAP>(s, m, l, alpha, p, tile * C::BK, t, lo_a, lim_a, lo_b,
+                                    lim_b);
     } else {
-      online_softmax<false, SOFTCAP>(s, m, l, alpha, p, n * C::BK, t, lim_a, lim_b);
+      online_softmax<false, SOFTCAP>(s, m, l, alpha, p, tile * C::BK, t, lo_a, lim_a, lo_b,
+                                     lim_b);
+    }
+  };
+  // A tile none of the warpgroup's rows sees: only released.
+  auto release = [&](int n) {
+    const int st = n % C::STAGES;
+    const uint32_t parity = (n / C::STAGES) & 1;
+    mbar_wait(&bar.k_full[st], parity);
+    mbar_wait(&bar.v_full[st], parity);
+    if (lane == 0) {
+      mbar_arrive(&bar.k_empty[st]);
+      mbar_arrive(&bar.v_empty[st]);
     }
   };
   // P in bf16: the accumulators of S tiles 2kk, 2kk+1 are the A fragment of
@@ -581,16 +618,17 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, uint32_t qs, uint3
   // instructions before the wait that completes it: P is packed and O
   // rescaled only once the P V product that uses them has landed.
   mbar_wait(&bar.q_full, 0);
-  if (n_seen > 0) {
+  for (int n = 0; n < n_first; ++n) release(n);
+  if (n_seen > n_first) {
     float s[NS], alpha[2];
     uint32_t pa[KS][4];
-    issue_qk(0, s);
+    issue_qk(n_first, s);
     wgmma_wait<0>();
     fence_regs(s);
-    if (lane == 0) mbar_arrive(&bar.k_empty[0]);
-    softmax(0, s, alpha);  // O is still 0: rescaling it by alpha changes nothing
+    if (lane == 0) mbar_arrive(&bar.k_empty[n_first % C::STAGES]);
+    softmax(n_first, s, alpha);  // O is still 0: rescaling it by alpha changes nothing
     pack(s, pa);
-    for (int n = 1; n < n_seen; ++n) {
+    for (int n = n_first + 1; n < n_seen; ++n) {
       issue_qk(n, s);
       rescale(alpha);  // O of tiles < n-1, to tile n-1's running max
       issue_pv(n - 1, pa);
@@ -610,17 +648,7 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, uint32_t qs, uint3
     fence_regs(o);
     if (lane == 0) mbar_arrive(&bar.v_empty[(n_seen - 1) % C::STAGES]);
   }
-  // Tiles none of the warpgroup's rows sees: only released.
-  for (int n = n_seen; n < n_tiles; ++n) {
-    const int st = n % C::STAGES;
-    const uint32_t parity = (n / C::STAGES) & 1;
-    mbar_wait(&bar.k_full[st], parity);
-    mbar_wait(&bar.v_full[st], parity);
-    if (lane == 0) {
-      mbar_arrive(&bar.k_empty[st]);
-      mbar_arrive(&bar.v_empty[st]);
-    }
-  }
+  for (int n = n_seen; n < n_tiles; ++n) release(n);
 
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(const_cast<void*>(p.o.ptr)) +
                       q_base(p.o, bh, p.hq);
@@ -656,9 +684,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int n_qblk = (p.sq + C::BQ - 1) / C::BQ;
   const int bh = blockIdx.x % p.bhq, qblk = blockIdx.x / p.bhq;
   const int q0 = (n_qblk - 1 - qblk) * C::BQ;  // the longest causal rows start first
+  // Key tiles t0 .. t0 + n_tiles - 1: from the window's edge for row q0 to
+  // the causal diagonal of the block's last row.
   int kv_end = p.sk;
   if (p.causal) kv_end = min(kv_end, min(q0 + C::BQ, p.sq) + p.sk - p.sq);
-  const int n_tiles = kv_end > 0 ? (kv_end + C::BK - 1) / C::BK : 0;
+  const int t0 = max(0, q0 + p.sk - p.sq - p.window + 1) / C::BK;
+  const int n_tiles = kv_end > 0 ? (kv_end + C::BK - 1) / C::BK - t0 : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(&bar.q_full, 1);
@@ -687,17 +718,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         mbar_expect_tx(&bar.k_full[st], C::KV_BYTES);
         for (int c = 0; c < C::CB; ++c)
           tma_load(ks + st * C::KV_BYTES + c * C::BK * 128, &tk, &bar.k_full[st], c * 64,
-                   n * C::BK, kh, kb);
+                   (t0 + n) * C::BK, kh, kb);
         if (n >= C::STAGES) mbar_wait(&bar.v_empty[st], parity);
         mbar_expect_tx(&bar.v_full[st], C::KV_BYTES);
         for (int c = 0; c < C::CB; ++c)
           tma_load(vs + st * C::KV_BYTES + c * C::BK * 128, &tv, &bar.v_full[st], c * 64,
-                   n * C::BK, kh, kb);
+                   (t0 + n) * C::BK, kh, kb);
       }
     }
   } else {
     setmaxnreg_inc<232>();
-    fwd_consumer<DH, SOFTCAP>(p, qs, ks, vs, bar, bh, q0, n_tiles);
+    fwd_consumer<DH, SOFTCAP>(p, qs, ks, vs, bar, bh, q0, t0, n_tiles);
   }
 }
 
@@ -775,6 +806,8 @@ flash_decode_kernel(Params p, int rows, int split_keys, int stages, float* part_
   const int ra = warp * 16 + g;  // the thread's packed rows: ra and ra + 8
   const int lim_a = p.causal ? min(k_hi, ra % p.sq + offset + 1) : k_hi;
   const int lim_b = p.causal ? min(k_hi, (ra + 8) % p.sq + offset + 1) : k_hi;
+  const int lo_a = ra % p.sq + offset - p.window + 1;
+  const int lo_b = (ra + 8) % p.sq + offset - p.window + 1;
 
   for (int n = 0; n < n_tiles; ++n) {
     const int st = stages == 2 ? (n & 1) : 0;
@@ -806,9 +839,11 @@ flash_decode_kernel(Params p, int rows, int split_keys, int stages, float* part_
       }
       float alpha[2];
       if (p.softcap > 0.f) {
-        online_softmax<true, true>(s, m, l, alpha, p, k_lo + n * C::BK, t, lim_a, lim_b);
+        online_softmax<true, true>(s, m, l, alpha, p, k_lo + n * C::BK, t, lo_a, lim_a, lo_b,
+                                   lim_b);
       } else {
-        online_softmax<true, false>(s, m, l, alpha, p, k_lo + n * C::BK, t, lim_a, lim_b);
+        online_softmax<true, false>(s, m, l, alpha, p, k_lo + n * C::BK, t, lo_a, lim_a, lo_b,
+                                    lim_b);
       }
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
@@ -972,9 +1007,10 @@ __device__ __forceinline__ void stage_f32(float* dst, int ld, int rows, int dh, 
 // (columns 4kg + BK*c). K and V have one buffer each, refilled by cp.async
 // as soon as the previous tile's last reader is past a barrier: tile n+1's K
 // loads during tile n's softmax and P V, tile n+1's V during tile n+1's
-// Q K^T. Tiles every row sees whole skip the mask, tiles no row sees are
-// never loaded. part_acc == null: one split, the block writes the output;
-// else float32 partials (acc; m, l) per row for flash_merge_kernel<float>.
+// Q K^T. Tiles every row sees whole skip the mask, tiles no row sees (past
+// the diagonal or before the window) are never loaded. part_acc == null:
+// one split, the block writes the output; else float32 partials (acc; m, l)
+// per row for flash_merge_kernel<float>.
 template <int DH, bool SOFTCAP>
 __global__ void __launch_bounds__(F32Cfg<DH>::kThreads, F32Cfg<DH>::kMinBlocks)
 flash_f32_kernel(Params p, int rows, int split_keys, int vec, float* part_acc, float2* part_ml) {
@@ -999,21 +1035,30 @@ flash_f32_kernel(Params p, int rows, int split_keys, int vec, float* part_acc, f
   const int offset = p.sk - p.sq;
   const int k_lo = split * split_keys, k_hi = min(p.sk, k_lo + split_keys);
 
-  // Keys [k_lo, lim[i]) are seen by the thread's row i; hi and lo: the most
-  // and the fewest any row of the block sees.
-  int lim[4];
+  // Keys [low[i], lim[i]) of the split are seen by the thread's row i. Of
+  // the block's rows, the earliest (in its head) sees keys from ``from`` up
+  // to ``lo``, the latest from ``whole`` up to ``hi``: tiles [n0, n_tiles)
+  // hold every key some row sees, and tiles [n_whole, n_plain) are seen
+  // whole by every row.
+  int lim[4], low[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + 4 * rg + i;
     lim[i] = r >= rows ? k_lo : p.causal ? min(k_hi, r % p.sq + offset + 1) : k_hi;
+    low[i] = r % p.sq + offset - p.window + 1;
   }
+  const bool wraps = r0 / p.sq != (r1 - 1) / p.sq;
+  const int first_row = wraps ? 0 : r0 % p.sq, last_row = wraps ? p.sq - 1 : (r1 - 1) % p.sq;
   int hi = k_hi, lo = k_hi;
   if (p.causal) {
-    const bool wraps = r0 / p.sq != (r1 - 1) / p.sq;
-    hi = min(k_hi, (wraps ? p.sq - 1 : (r1 - 1) % p.sq) + offset + 1);
-    lo = min(k_hi, (wraps ? 0 : r0 % p.sq) + offset + 1);
+    hi = min(k_hi, last_row + offset + 1);
+    lo = min(k_hi, first_row + offset + 1);
   }
+  const int from = max(k_lo, first_row + offset - p.window + 1);
+  const int whole = max(k_lo, last_row + offset - p.window + 1);
   const int n_tiles = hi > k_lo ? (hi - k_lo + BK - 1) / BK : 0;
+  const int n0 = min(n_tiles, (from - k_lo) / BK);
+  const int n_whole = (whole - k_lo + BK - 1) / BK;
   const int n_plain = lo > k_lo ? (lo - k_lo) / BK : 0;
 
   const float* qg = static_cast<const float*>(p.q.ptr);
@@ -1031,10 +1076,10 @@ flash_f32_kernel(Params p, int rows, int split_keys, int vec, float* part_acc, f
     stage_f32<DH>(dst, ld, BK, p.dh, vec, [&](int r) { return base + (k0 + r) * ss; },
                   [&](int r) { return r < valid; });
   };
-  if (n_tiles > 0) issue(ks, LQ, kg0, p.k.ss, 0);
-  cp_async_commit();  // Q and K_0
-  if (n_tiles > 0) issue(vs, DH, vg0, p.v.ss, 0);
-  cp_async_commit();  // V_0
+  if (n_tiles > n0) issue(ks, LQ, kg0, p.k.ss, n0);
+  cp_async_commit();  // Q and K_n0
+  if (n_tiles > n0) issue(vs, DH, vg0, p.v.ss, n0);
+  cp_async_commit();  // V_n0
 
   float o[4][NC][4], m[4], l[4];
 #pragma unroll
@@ -1047,7 +1092,7 @@ flash_f32_kernel(Params p, int rows, int split_keys, int vec, float* part_acc, f
   // A score in base 2: the scale and log2 e folded into one multiply.
   const float to_log2 = SOFTCAP ? kLog2e : p.scale * kLog2e;
 
-  for (int n = 0; n < n_tiles; ++n) {
+  for (int n = n0; n < n_tiles; ++n) {
     cp_async_wait<1>();  // K_n has landed (V_n may still be in flight)
     __syncthreads();
     float s[4][4];
@@ -1076,7 +1121,7 @@ flash_f32_kernel(Params p, int rows, int split_keys, int vec, float* part_acc, f
     cp_async_commit();
 
     const int k0 = k_lo + n * BK;
-    const bool masked = n >= n_plain;
+    const bool masked = n < n_whole || n >= n_plain;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = m[i];
@@ -1085,7 +1130,8 @@ flash_f32_kernel(Params p, int rows, int split_keys, int vec, float* part_acc, f
         float x = s[i][j];
         if (SOFTCAP) x = p.softcap * tanhf(x * p.scale / p.softcap);
         x *= to_log2;
-        if (masked && k0 + kg + KG * j >= lim[i]) x = kNegInf;
+        const int key = k0 + kg + KG * j;
+        if (masked && (key >= lim[i] || key < low[i])) x = kNegInf;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -1096,7 +1142,8 @@ flash_f32_kernel(Params p, int rows, int split_keys, int vec, float* part_acc, f
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool seen = !masked || k0 + kg + KG * j < lim[i];
+        const int key = k0 + kg + KG * j;
+        const bool seen = !masked || (key < lim[i] && key >= low[i]);
         s[i][j] = seen ? exp2f(s[i][j] - mx) : 0.f;
         sum += s[i][j];
       }
@@ -1305,14 +1352,16 @@ enum Form { kFormF32 = 0, kFormPrefill = 1, kFormDecode = 2 };  // ops.py: FORMS
 }  // namespace
 
 // q, k, v, o: device pointers; strides: 12 host int64 values, (sb, sh, ss)
-// of q, k, v and o in elements. form: one of Form (ops.py picks it). Decode
+// of q, k, v and o in elements. window: row i sees keys j > i + sk - sq -
+// window (sk + sq or more: no window). form: one of Form (ops.py picks it). Decode
 // only: ``splits`` key splits of ``split_keys`` keys and, when splits > 1,
 // float32 scratch part_acc [splits, BHq/group, Sq*group, Dh] and part_ml
 // [splits, BHq/group, Sq*group, 2]. Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const int64_t* strides, int bhq, int hq, int hkv,
                                       int group, int sq, int sk, int dh, float scale,
-                                      float softcap, int causal, int form, int splits,
+                                      float softcap, int causal, int window, int form,
+                                      int splits,
                                       int split_keys, void* part_acc, void* part_ml,
                                       void* stream) {
   Params p;
@@ -1330,8 +1379,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.scale = scale;
   p.softcap = softcap;
   p.causal = causal;
+  p.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh < 1 || dh > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (dh < 1 || dh > 256 || window < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (form) {
     case kFormPrefill:
       if (dh % 8) break;

@@ -32,6 +32,12 @@ refuses (Dh % 8 ≠ 0, or a pointer or stride off 16 bytes) is handed to them
 as an aligned copy, zero-padded to a Dh that is a multiple of 8, and the
 output is sliced back to Dh.
 
+A sliding ``window`` (gemma2's local layers) masks the keys more than
+``window − 1`` positions behind a query. The wrapper hands every form only
+the keys from ``visible_keys`` on (a view, no copy), and the kernel masks
+each row's lower edge beside its causal one; the prefill form starts each
+block at the first tile its rows see.
+
 ``launches["flash_attention"]`` counts the calls that ran the kernel, one
 each whatever the launches inside (``reset_launches`` zeroes it), so a run
 can show that it went through the kernel; ``launches_by_form`` splits that
@@ -48,7 +54,7 @@ import torch
 
 from repro_torch.core.faults import KernelFault
 from repro_torch.kernels.build import CudaLibrary
-from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv
+from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv, visible
 
 MAX_HEAD_DIM = 256  # the kernel's widest head (gemma2's)
 MAX_GRID_Y = 65535  # grid rows: the decode form's KV rows (at most the query rows bh)
@@ -61,7 +67,7 @@ F32_ROWS = 64  # packed query rows of a KV head an f32-form block takes (csrc's 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = ([p, p, p, p, p] + [i32] * 7 + [f32, f32]
-                                           + [i32] * 4 + [p, p, p])
+                                           + [i32] * 5 + [p, p, p])
     lib.flash_attention_launch.restype = ctypes.c_int
 
 
@@ -100,9 +106,17 @@ def _splits(blocks: int, sk: int, tile: int, sms: int) -> Tuple[int, int]:
     return -(-tiles // per), per * tile
 
 
+def visible_keys(sq: int, sk: int, window: int | None) -> int:
+    """The first key any query row sees: under a sliding window row 0 (the
+    earliest) sees keys from ``Sk − Sq − window + 1`` on, and no row sees an
+    earlier one. The kernel is handed keys ``[first, Sk)`` only, so that the
+    decode and f32 forms' splits cover just the keys some row can see."""
+    return 0 if window is None else max(0, sk - sq - window + 1)
+
+
 def decode_splits(kv_rows: int, sk: int, dh: int, sms: int) -> Tuple[int, int]:
-    """(splits, keys a split) of the decode form: one block per KV row and
-    split."""
+    """(splits, keys a split) of the decode form over ``sk`` keys (the
+    visible ones, ``visible_keys``): one block per KV row and split."""
     return _splits(kv_rows, sk, decode_tile(dh), sms)
 
 
@@ -128,10 +142,12 @@ def _sm_count(index: int) -> int:
 
 
 def attention_chunked(q, k, v, *, causal: bool = True, softcap: float | None = None,
-                      chunk: int = 512):
+                      chunk: int = 512, window: int | None = None):
     """Online-softmax attention walked over KV chunks of ``chunk`` keys, the
-    JAX package's ``attention_chunked``: peak memory O(Sq·chunk), a ragged Sk
-    padded to a chunk multiple and masked. 3-D inputs only."""
+    JAX package's ``attention_chunked`` (with ``_sdpa``'s sliding window):
+    peak memory O(Sq·chunk), a ragged Sk padded to a chunk multiple and
+    masked. A chunk that the mask hides wholly from a row adds nothing to it:
+    its p is zeroed under the mask, as ``_sdpa`` does. 3-D inputs only."""
     bh, sq, dh = q.shape
     k, v = expand_kv(q, k, v)
     sk = k.shape[1]
@@ -143,7 +159,6 @@ def attention_chunked(q, k, v, *, causal: bool = True, softcap: float | None = N
     f32 = torch.float32
     dev = q.device
     qf = q.to(f32) / (dh ** 0.5)
-    q_pos = torch.arange(sq, device=dev)
     acc = torch.zeros((bh, sq, dh), dtype=f32, device=dev)
     m = torch.full((bh, sq, 1), NEG_INF, dtype=f32, device=dev)
     l = torch.zeros((bh, sq, 1), dtype=f32, device=dev)
@@ -154,9 +169,7 @@ def attention_chunked(q, k, v, *, causal: bool = True, softcap: float | None = N
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
         k_pos = c0 + torch.arange(chunk, device=dev)
-        mask = (k_pos < sk)[None, :]  # padding
-        if causal:
-            mask = mask & (q_pos[:, None] + (sk - sq) >= k_pos[None, :])
+        mask = (k_pos < sk)[None, :] & visible(sq, sk, k_pos, causal, window)  # and padding
         s = torch.where(mask[None], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.where(mask[None], torch.exp(s - m_new), 0.0)
@@ -218,22 +231,30 @@ def _strides(x: torch.Tensor):
 
 
 def attention(q, k, v, *, causal: bool = True, softcap: float | None = None,
-              chunk: int = 512):
+              chunk: int = 512, window: int | None = None):
     """Causal (or full) softmax attention with scores ``(q·k)/√Dh``, optionally
     soft-capped; under ``causal`` query i sees key j iff ``i + Sk − Sq ≥ j``
-    (q is the suffix of the key sequence). Returns q's dtype and leading
+    (q is the suffix of the key sequence), and under a sliding ``window``
+    also iff ``i + Sk − Sq − j < window``. Returns q's dtype and leading
     shape. ``chunk`` is the CPU path's chunk length; the kernel takes any
-    Sq, Sk ≥ 1 and Dh ≤ 256."""
+    Sq, Sk ≥ 1 and Dh ≤ 256, and reads only the keys some row sees
+    (``visible_keys``)."""
     _check_shapes(q, k, v)
     if softcap is not None and not softcap > 0:
         raise ValueError(f"attention: softcap must be positive, got {softcap}")
+    if window is not None and not (isinstance(window, int) and window >= 1):
+        raise ValueError(f"attention: window must be a positive int, got {window!r}")
     if not _on_cuda(q, k, v):
         lead = q.shape[:-2]
         flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v)]
-        return attention_chunked(*flat, causal=causal, softcap=softcap,
-                                 chunk=chunk).reshape(*lead, *q.shape[-2:])
+        return attention_chunked(*flat, causal=causal, softcap=softcap, chunk=chunk,
+                                 window=window).reshape(*lead, *q.shape[-2:])
     sq, dh = q.shape[-2:]
+    first = visible_keys(sq, k.shape[-2], window)
+    k, v = k[..., first:, :], v[..., first:, :]
     sk = k.shape[-2]
+    # The kernel's window: one of at least Sk + Sq masks nothing, as None.
+    win = sk + sq if window is None else min(window, sk + sq)
     bhq = q.shape[:-2].numel()
     if min(bhq, sq, sk, dh) < 1:
         raise ValueError(f"attention: empty operand q={tuple(q.shape)} k={tuple(k.shape)}")
@@ -276,7 +297,7 @@ def attention(q, k, v, *, causal: bool = True, softcap: float | None = None,
     rc = LIB.load().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(stride_arr),
         bhq, hq, hkv, group, sq, sk, width, 1.0 / (dh ** 0.5),
-        0.0 if softcap is None else float(softcap), int(bool(causal)), FORMS.index(form),
+        0.0 if softcap is None else float(softcap), int(bool(causal)), win, FORMS.index(form),
         splits, split_keys, None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,

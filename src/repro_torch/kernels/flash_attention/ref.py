@@ -4,7 +4,9 @@ attention, the JAX package's ``kernels/flash_attention/ref.py``.
 q [BHq, Sq, Dh], k and v [BHkv, Sk, Dh] with BHkv dividing BHq (grouped-query
 attention: query row ``bh`` reads KV row ``bh // (BHq // BHkv)``) → out
 [BHq, Sq, Dh] in q's dtype. Scores are ``(q·k)/√Dh`` in float32, optionally
-soft-capped, and under ``causal`` query i sees key j iff ``i + Sk − Sq ≥ j``.
+soft-capped; under ``causal`` query i sees key j iff ``i + Sk − Sq ≥ j``, and
+under a sliding ``window`` also iff ``i + Sk − Sq − j < window`` (the JAX
+model's ``_sdpa`` mask ``q_pos − k_pos < window`` with q_pos = i + Sk − Sq).
 A query row that sees no key gets the softmax of a row of −1e30s here (the
 mean of v), as in the JAX twin; the kernel and the chunked path give 0 there.
 
@@ -30,7 +32,19 @@ def expand_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return k.repeat_interleave(groups, dim=0), v.repeat_interleave(groups, dim=0)
 
 
-def attention_ref(q, k, v, *, causal: bool = True, softcap: float | None = None):
+def visible(sq: int, sk: int, k_pos: torch.Tensor, causal: bool, window: int | None):
+    """[Sq, len(k_pos)] mask: query i sees key k_pos[j]."""
+    ahead = torch.arange(sq, device=k_pos.device)[:, None] + (sk - sq) - k_pos[None, :]
+    mask = torch.ones(ahead.shape, dtype=torch.bool, device=k_pos.device)
+    if causal:
+        mask = mask & (ahead >= 0)
+    if window is not None:
+        mask = mask & (ahead < window)
+    return mask
+
+
+def attention_ref(q, k, v, *, causal: bool = True, softcap: float | None = None,
+                  window: int | None = None):
     dh = q.shape[-1]
     k, v = expand_kv(q, k, v)
     f32 = torch.float32
@@ -38,16 +52,16 @@ def attention_ref(q, k, v, *, causal: bool = True, softcap: float | None = None)
     s = s / (dh ** 0.5)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    if causal:
+    if causal or window is not None:
         sq, sk = s.shape[-2:]
-        mask = torch.ones((sq, sk), dtype=torch.bool, device=s.device).tril(diagonal=sk - sq)
+        mask = visible(sq, sk, torch.arange(sk, device=s.device), causal, window)
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.to(f32)).to(q.dtype)
 
 
 def attention_split_ref(q, k, v, split: int, *, causal: bool = True,
-                        softcap: float | None = None):
+                        softcap: float | None = None, window: int | None = None):
     """Attention over the keys cut into splits of ``split`` keys (the last
     may be shorter): each split's row max m, sum l = Σ exp(s − m) and
     acc = Σ exp(s − m)·v in float32, then out = Σ w·acc / Σ w·l with
@@ -60,17 +74,13 @@ def attention_split_ref(q, k, v, split: int, *, causal: bool = True,
     f32 = torch.float32
     sq, sk = q.shape[1], k.shape[1]
     qf = q.to(f32) / (dh ** 0.5)
-    q_pos = torch.arange(sq, device=q.device)
     parts = []
     for k0 in range(0, sk, split):
         kb, vb = k[:, k0 : k0 + split].to(f32), v[:, k0 : k0 + split].to(f32)
         s = torch.einsum("bqd,bkd->bqk", qf, kb)
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
-        mask = torch.ones((sq, kb.shape[1]), dtype=torch.bool, device=q.device)
-        if causal:
-            k_pos = k0 + torch.arange(kb.shape[1], device=q.device)
-            mask = q_pos[:, None] + (sk - sq) >= k_pos[None, :]
+        mask = visible(sq, sk, k0 + torch.arange(kb.shape[1], device=q.device), causal, window)
         s = torch.where(mask, s, NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.where(mask, torch.exp(s - m), 0.0)

@@ -7,7 +7,7 @@ RoPE compute in float32 and return the input's dtype. Parameters live in
 ``nn.Module``s (never trained here: ``requires_grad=False``). The JAX
 package's sharding annotations are the identity off a mesh and are dropped.
 Attention runs the flash attention kernel (``kernels/flash_attention``) on
-the card; sliding-window (local) layers are not ported.
+the card, a local layer's sliding window (``AttnSpec.window``) inside it.
 """
 from __future__ import annotations
 
@@ -138,11 +138,11 @@ def attention_block(p: Attention, x: torch.Tensor, spec: AttnSpec, positions: to
     prefix ``[:len + S]``. Causality comes from the kernel's diagonal offset
     (query i is key position ``len + i``), which equals the JAX package's
     position mask because the caller's ``positions`` are ``len + arange(S)``
-    (``transformer.decode_step`` checks it). Unlike ``jax.lax.
+    (``transformer.decode_step`` checks it); so does the sliding window of a
+    local layer (``spec.window``), which the kernel applies on the same
+    diagonal. Unlike ``jax.lax.
     dynamic_update_slice``, which clamps the write start to ``max_len − S``, a
     write past ``max_len`` raises."""
-    if spec.window is not None:
-        raise NotImplementedError("sliding-window (local) attention is not ported")
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, spec)
     q = apply_rope(q, positions, spec.rope_theta, spec.rope_fraction)
@@ -159,7 +159,8 @@ def attention_block(p: Attention, x: torch.Tensor, spec: AttnSpec, positions: to
         new_cache = {"k": kc, "v": vc, "len": insert + s}
     # [B, S, H, hd] → [B, H, S, hd] views; the kernel reads them through strides.
     out = attn_ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                             causal=spec.causal, softcap=spec.attn_softcap, chunk=chunk)
+                             causal=spec.causal, softcap=spec.attn_softcap, chunk=chunk,
+                             window=spec.window)
     out = out.transpose(1, 2).reshape(b, s, spec.num_heads * spec.head_dim)
     return out @ p.wo, new_cache
 

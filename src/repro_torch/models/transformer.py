@@ -2,7 +2,8 @@
 
 ``ModelConfig`` is the JAX package's config, copied whole. The stack is a
 ``ModuleList`` of layers (not a scanned stack of stacked parameters); only
-``attn`` (global GQA attention) and ``rwkv`` mixers and ``dense`` MLPs are
+``attn`` (global GQA attention), ``attn_local`` (the same with a sliding
+window of ``local_window`` keys) and ``rwkv`` mixers and ``dense`` MLPs are
 ported, and any other mixer or MLP raises ``NotImplementedError`` by name.
 
 API (the JAX package's, with an explicit device and generator):
@@ -18,11 +19,12 @@ unless the caller asks for the CPU, and the parameters must live there.
 Everything runs under ``torch.inference_mode()``. The decode cache has the
 JAX package's layout, with G the number of layer groups: ``{"pos<p>":
 {"attn": {"k", "v": [G, B, max_len, KV, hd], "len": [G] int32}}}`` for an
-attention position and ``{"pos<p>": {"rwkv": (x_prev [G, B, d], S [G, B, H,
-hd, hd])}}`` for an RWKV one. It is updated in place: ``decode_step``
-returns the cache it was given, which saves a copy of the whole state at
-every step. ``len`` lives on the host, so reading the valid prefix of the KV
-cache needs no device sync.
+attention position (a local one too: ``max_len`` positions, as the JAX
+package allocates, not a ring of ``local_window``) and ``{"pos<p>":
+{"rwkv": (x_prev [G, B, d], S [G, B, H, hd, hd])}}`` for an RWKV one. It
+is updated in place: ``decode_step`` returns the cache it was given, which
+saves a copy of the whole state at every step. ``len`` lives on the host, so
+reading the valid prefix of the KV cache needs no device sync.
 """
 from __future__ import annotations
 
@@ -181,9 +183,12 @@ class ModelConfig:
 # Parameters
 # ---------------------------------------------------------------------------
 
+ATTN_MIXERS = ("attn", "attn_local")
+
+
 def _check_ported(cfg: ModelConfig, layer: int) -> None:
     mixer, mlp = cfg.mixer_at(layer), cfg.mlp_at(layer)
-    if mixer not in ("attn", "rwkv"):
+    if mixer not in ATTN_MIXERS + ("rwkv",):
         raise NotImplementedError(f"mixer {mixer!r} (layer {layer} of {cfg.name}) is not ported")
     if mlp != "dense":
         raise NotImplementedError(f"mlp {mlp!r} (layer {layer} of {cfg.name}) is not ported")
@@ -197,10 +202,13 @@ class Block(nn.Module):
         _check_ported(cfg, layer)
         dt = dtype_of(cfg.dtype)
         self.mixer = cfg.mixer_at(layer)
+        # An attention layer's spec (a local one's carries the window), fixed here.
+        self.spec = (cfg.attn_spec(self.mixer == "attn_local") if self.mixer in ATTN_MIXERS
+                     else None)
         self.ln1 = empty_param((cfg.d_model,), torch.float32, device)
         self.ln2 = empty_param((cfg.d_model,), torch.float32, device)
-        if self.mixer == "attn":
-            self.attn = Attention(cfg.d_model, cfg.attn_spec(False), dt, device)
+        if self.spec is not None:
+            self.attn = Attention(cfg.d_model, self.spec, dt, device)
         else:
             self.rwkv = ssm_mod.RWKV6(cfg.d_model, cfg.num_heads, dt, device=device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
@@ -245,8 +253,8 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *, seed
     for blk in lm.blocks:
         blk.ln1.zero_()
         blk.ln2.zero_()
-        if blk.mixer == "attn":
-            blk.attn = attn_init(gen, cfg.d_model, cfg.attn_spec(False), dt)
+        if blk.spec is not None:
+            blk.attn = attn_init(gen, cfg.d_model, blk.spec, dt)
         else:
             blk.rwkv = ssm_mod.rwkv6_init(gen, cfg.d_model, cfg.num_heads, dtype=dt)
         blk.mlp = mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
@@ -282,7 +290,9 @@ def _logits(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = x @ head
     if cfg.logit_softcap is not None:
-        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        # cap * tanh(logits / cap), each op rounded as JAX rounds it, in place:
+        # gemma2's [B, S, 256000] logits take no second and third copy.
+        logits = logits.div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
     if cfg.vocab_padded != cfg.vocab_size:
         pad = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab_size
         logits = torch.where(pad, logits, torch.tensor(-1e30, dtype=logits.dtype,
@@ -297,8 +307,8 @@ def _positions(start: int, s: int, dev: torch.device) -> torch.Tensor:
 def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, positions: torch.Tensor,
                  state=None):
     h = rmsnorm(x, blk.ln1, cfg.norm_eps)
-    if blk.mixer == "attn":
-        y, new_state = attention_block(blk.attn, h, cfg.attn_spec(False), positions, state,
+    if blk.spec is not None:
+        y, new_state = attention_block(blk.attn, h, blk.spec, positions, state,
                                        chunk=cfg.attn_chunk)
     else:
         y, new_state = ssm_mod.rwkv6_block(blk.rwkv, h, cfg.num_heads, state)
@@ -349,7 +359,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> Di
     cache = {}
     for pos in range(cfg.period):
         _check_ported(cfg, pos)
-        if cfg.mixer_at(pos) == "attn":
+        if cfg.mixer_at(pos) in ATTN_MIXERS:
             shape = (ng, batch, max_len, cfg.num_kv_heads, cfg.hd)
             cache[f"pos{pos}"] = {"attn": {
                 "k": torch.zeros(shape, dtype=dt, device=dev),
@@ -379,7 +389,7 @@ def _run_with_cache(cfg: ModelConfig, params: LM, x: torch.Tensor, positions: to
     for layer, blk in enumerate(params.blocks):
         g, pos = divmod(layer, cfg.period)
         entry = cache[f"pos{pos}"]
-        if blk.mixer == "attn":
+        if blk.spec is not None:
             kv = entry["attn"]
             x, new = _apply_layer(cfg, blk, x, positions, {
                 "k": kv["k"][g], "v": kv["v"][g], "len": int(kv["len"][g])})

@@ -7,6 +7,10 @@ The same numpy inputs (seeded) go through the JAX package's
 ``attention_chunked``). Shapes are those of ``tests/test_kernels.py``'s
 flash attention test; the tolerances are its own: 2e-5 in float32 (another
 summation order) and 2e-2 in bfloat16 (the output is rounded to bfloat16).
+The JAX kernel functions have no sliding window, so the port's windowed
+plain versions are held against the JAX model's ``_sdpa`` with
+``AttnSpec(window=...)``, whose mask they take over, under the same
+tolerances.
 """
 import functools
 
@@ -19,8 +23,15 @@ import torch
 from repro.kernels.flash_attention.flash_attention import flash_attention_kernel as jax_kernel
 from repro.kernels.flash_attention.ops import attention_chunked as jax_chunked
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro.models.layers import AttnSpec as JaxAttnSpec
+from repro.models.layers import _sdpa as jax_sdpa
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import attention_ref, attention_split_ref, expand_kv
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    attention_split_ref,
+    expand_kv,
+    visible,
+)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SHAPES = [  # bh, sq, sk, dh, causal, softcap, scale of q
@@ -299,3 +310,118 @@ def test_f32_splits_cover_the_keys_with_no_empty_split():
                     assert (splits - 1) * keys < sk <= splits * keys
                     assert splits == 1 or (keys % ops.f32_tile(dh) == 0 and blocks < 132
                                            and splits * blocks <= 2 * ops.BLOCKS_PER_SM * 132)
+
+
+# ---------------------------------------------------------------------------
+# The sliding window (gemma2's local layers)
+# ---------------------------------------------------------------------------
+
+# (bhq, bhkv, sq, sk, window, softcap, chunk): causal; q is the suffix of the
+# keys, so query i sits at position i + Sk - Sq and sees keys j with
+# 0 <= i + Sk - Sq - j < window.
+WINDOW_CASES = {
+    "window 1": (2, 2, 40, 40, 1, None, 16),
+    "window below the chunk": (2, 2, 64, 64, 5, None, 32),
+    "chunks masked wholly for late rows": (2, 2, 80, 80, 20, None, 16),
+    "window at Sk": (2, 2, 48, 48, 48, None, 16),
+    "decode Sq=1, Sk > window": (8, 2, 1, 100, 40, None, 32),
+    "decode Sq=3, group 4": (8, 2, 3, 100, 17, None, 32),
+    "grouped queries": (8, 2, 24, 60, 10, None, 16),
+    "softcap with a window": (4, 2, 48, 48, 12, 30.0, 16),
+    "q a suffix of the keys": (2, 2, 20, 70, 25, None, 32),
+}
+
+
+def _jax_sdpa(arrs, window, cap):
+    """``_sdpa`` on the port's [BH, S, Dh] layout: one batch row, BHq query
+    heads over BHkv KV heads, queries at positions Sk - Sq .. Sk - 1."""
+    q, k, v = (jnp.asarray(a)[None].transpose(0, 2, 1, 3) for a in arrs)
+    sq, sk = q.shape[1], k.shape[1]
+    spec = JaxAttnSpec(num_heads=q.shape[2], num_kv_heads=k.shape[2], head_dim=q.shape[3],
+                       window=window, attn_softcap=cap)
+    pos = jnp.arange(sk - sq, sk)[None]
+    out = jax_sdpa(q, k, v, spec, pos, chunk=16)
+    return np.asarray(out.astype(jnp.float32))[0].transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_matches_jax_sdpa(case, dtype):
+    """attention_ref, attention_split_ref, attention_chunked and the CPU path
+    of attention, each with the window, against ``_sdpa``; and the window
+    moves the output at these shapes (except where it reaches Sk)."""
+    bhq, bhkv, sq, sk, window, cap, chunk = WINDOW_CASES[case]
+    arrs = _inputs(200 + sq + sk + window, bhq, bhkv, sq, sk, 16, dtype)
+    if cap is not None:  # scores that reach the cap
+        arrs[0] = (np.asarray(arrs[0], np.float32) * 20.0).astype(arrs[0].dtype)
+    want = _jax_sdpa(arrs, window, cap)
+    q, k, v = _torch(arrs, dtype)
+    versions = {
+        "ref": lambda w: attention_ref(q, k, v, softcap=cap, window=w),
+        "split": lambda w: attention_split_ref(q, k, v, 16, softcap=cap, window=w),
+        "chunked": lambda w: ops.attention_chunked(q, k, v, softcap=cap, chunk=chunk, window=w),
+        "attention": lambda w: ops.attention(q, k, v, softcap=cap, chunk=chunk, window=w),
+    }
+    for name, fn in versions.items():
+        got = fn(window)
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert _err(got, want) < TOL[dtype], name
+        if window < sk:
+            assert _err(fn(None), want) > 10 * TOL[dtype], name
+
+
+@pytest.mark.parametrize("window", [70, 71, 200, 1 << 30])
+def test_window_at_or_past_the_keys_is_no_window(window):
+    """A window of at least Sk (here 70, against Sq = 20) masks nothing: each
+    version gives exactly its result without a window."""
+    q, k, v = _torch(_inputs(9, 4, 2, 20, 70, 16, "float32"), "float32")
+    assert torch.equal(attention_ref(q, k, v, window=window), attention_ref(q, k, v))
+    assert torch.equal(attention_split_ref(q, k, v, 16, window=window),
+                       attention_split_ref(q, k, v, 16))
+    assert torch.equal(ops.attention(q, k, v, window=window, chunk=32),
+                       ops.attention(q, k, v, chunk=32))
+    assert ops.visible_keys(20, 70, window) == 0 == ops.visible_keys(20, 70, None)
+
+
+def test_window_rejects_what_is_not_a_positive_int():
+    q = torch.zeros((2, 4, 16))
+    for window in (0, -3, 2.5):
+        with pytest.raises(ValueError, match="window"):
+            ops.attention(q, q, q, window=window)
+
+
+@pytest.mark.parametrize("sq,sk,window,first", [
+    (1, 4640, 4096, 544),    # gemma2's local decode step: the last 4,096 keys
+    (1, 4096, 4096, 0),
+    (1, 4097, 4096, 1),
+    (3, 100, 17, 81),        # row 0 (position 97) sees keys 81..97
+    (8192, 8192, 4096, 0),   # a prefill: row 0 sees key 0
+    (16, 4112, 4096, 1),
+])
+def test_visible_keys_is_the_first_key_row_zero_sees(sq, sk, window, first):
+    assert ops.visible_keys(sq, sk, window) == first
+    seen = visible(sq, sk, torch.arange(sk), True, window)
+    assert int(seen.any(dim=0).nonzero().min()) == first  # no row sees an earlier key
+
+
+@pytest.mark.parametrize("sq,group,sk,window", [
+    (1, 2, 4640, 4096),      # gemma2's local decode (16 query / 8 KV heads)
+    (1, 16, 4640, 4096),     # chatglm3's group of 16
+    (1, 2, 300, 64),
+    (3, 4, 1000, 500),
+    (1, 8, 5000, 1),
+])
+def test_window_splits_cover_only_visible_keys(sq, group, sk, window):
+    """The keys the kernel is handed, [visible_keys, Sk), split by
+    ``decode_splits`` and ``f32_splits``: every split holds keys, the splits
+    cover every key some row sees and none before."""
+    first = ops.visible_keys(sq, sk, window)
+    seen = visible(sq, sk, torch.arange(sk), True, window).any(dim=0)
+    assert not seen[:first].any() and seen[first:].all()
+    n = sk - first
+    for kv_rows in (1, 8, 64, 256):
+        for dh in (128, 256):
+            for splits, keys in (ops.decode_splits(kv_rows, n, dh, 132),
+                                 ops.f32_splits(kv_rows, sq * group, n, dh, 132)):
+                assert (splits - 1) * keys < n <= splits * keys
+                assert splits == 1 or keys < n

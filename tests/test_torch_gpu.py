@@ -20,7 +20,11 @@ prefill (wgmma) and decode (split KV, then a merge); an unaligned operand
 (Dh % 8 != 0, or a pointer or stride off 16 bytes) reaches them as an
 aligned copy. The form tests assert, through ``launches_by_form``, that the
 form the shape names is the one that ran; the float32 form's tests sit at
-its tile edges (64 packed query rows, 32-key tiles). The RWKV6 kernel walks
+its tile edges (64 packed query rows, 32-key tiles). The sliding window
+(gemma2's local layers) is held in all three forms (``-k window``), each
+case also showing that the plain version without the window fails the
+check; the dense models' smoke configs run on the card as on the CPU
+(``-k dense``). The RWKV6 kernel walks
 16-step chunks with decay factors as products; its tests sit at the decay
 edges (logdecay -8 and 1.2, w = 1.0, w = 1e-12) and the chunk edges. The
 fused extend kernel reads only each slab's valid prefix (slabs are sorted and
@@ -942,6 +946,65 @@ def test_flash_attention_decode_form_merges_splits(cuda):
     assert _flash_close(got, want, torch.bfloat16), _flash_errs(got, want)
 
 
+# The sliding window in each form: (bhq, bhkv, sq, sk, dh, window, softcap,
+# the form kernel_form picks), causal; q is the suffix of the keys.
+WINDOW_CASES = [
+    # prefill: blocks start at the first tile their rows' window reaches
+    (2, 2, 300, 300, 128, 100, None, "prefill"),
+    (2, 2, 1000, 1000, 64, 257, None, "prefill"),
+    (2, 2, 200, 200, 128, 1, None, "prefill"),         # window 1: the diagonal only
+    (2, 2, 300, 300, 128, 64, None, "prefill"),        # window below a tile of 128
+    (8, 1, 130, 517, 128, 64, None, "prefill"),        # group 8, shifted diagonal
+    (2, 2, 1024, 1024, 256, 300, 50.0, "prefill"),     # gemma2's Dh and softcap, 64-key tiles
+    (2, 2, 600, 600, 128, 1200, None, "prefill"),      # window past Sk + Sq: none
+    # decode: each packed row's lower edge
+    (16, 8, 1, 4640, 256, 4096, 50.0, "decode"),       # gemma2's local decode step
+    (32, 2, 1, 700, 128, 100, None, "decode"),         # chatglm3's group of 16
+    (8, 2, 3, 300, 128, 17, None, "decode"),           # Sq 3: a lower edge per row
+    (8, 2, 1, 300, 128, 1, None, "decode"),
+    (8, 1, 8, 500, 128, 33, None, "decode"),           # 64 packed rows
+]
+F32_WINDOW_CASES = [
+    (2, 2, 130, 130, 256, 40, None),
+    (4, 2, 63, 65, 128, 10, None),
+    (2, 2, 300, 300, 64, 70, 30.0),
+    (32, 8, 1, 544, 128, 100, None),      # decode: split keys over the window
+    (8, 2, 20, 90, 64, 15, None),         # tiles straddle two heads
+    (64, 16, 256, 256, 128, 33, None),    # the blocks fill the card: one split
+]
+
+
+def _window_case(cuda, bhq, bhkv, sq, sk, dh, window, cap, dtype, form):
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    q, k, v = _qkv(bhq, bhkv, sq, sk, dh, dtype, cuda, seed=sq * 3 + sk + window)
+    if cap is not None:
+        q = (q.float() * SOFTCAP_Q_SCALE).to(dtype)
+    assert fa.kernel_form(dtype, sq, bhq // bhkv) == form
+    before = dict(fa.launches_by_form)
+    got = fa.attention(q, k, v, causal=True, softcap=cap, window=window)
+    torch.cuda.synchronize()
+    assert _form_ran(before, form)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.attention_chunked(q, k, v, causal=True, softcap=cap, chunk=96, window=window)
+    assert _flash_close(got, want, dtype), _flash_errs(got, want)
+    if window < sk:  # the window matters here: without it the check fails
+        wide = fa.attention_chunked(q, k, v, causal=True, softcap=cap, chunk=96)
+        assert not _flash_close(wide, want, dtype), _flash_errs(wide, want)
+
+
+@pytest.mark.parametrize("bhq,bhkv,sq,sk,dh,window,cap,form", WINDOW_CASES)
+def test_flash_attention_window_in_bf16_forms(cuda, bhq, bhkv, sq, sk, dh, window, cap, form):
+    """The sliding window in the prefill and decode forms against the plain
+    chunked version with the same window."""
+    _window_case(cuda, bhq, bhkv, sq, sk, dh, window, cap, torch.bfloat16, form)
+
+
+@pytest.mark.parametrize("bhq,bhkv,sq,sk,dh,window,cap", F32_WINDOW_CASES)
+def test_flash_attention_window_in_f32_form(cuda, bhq, bhkv, sq, sk, dh, window, cap):
+    _window_case(cuda, bhq, bhkv, sq, sk, dh, window, cap, torch.float32, "f32")
+
+
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     from repro_torch.core.faults import KernelFault
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1023,3 +1086,31 @@ def test_paper_suite_registry_runs_exp6_on_card(cuda, monkeypatch, capsys, tmp_p
         for key in ("matches", "pulled_bytes", "pushed_bytes", "cache_hits", "cache_misses",
                     "peak_queue_rows", "steps", "per_machine_rows"):
             assert e[key] == p[key], (e["name"], key)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "chatglm3-6b", "command-r-35b"])
+def test_dense_smoke_on_card_equals_cpu_port(cuda, arch):
+    """The dense models' smoke configs in float32, 40 tokens (past gemma2's
+    smoke window of 16): forward logits on the card equal the CPU port's
+    (which the CPU tests hold to the JAX package), every layer's attention
+    running the kernel; prefill + decode steps on the card equal the
+    forward."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as T
+
+    cfg = smoke_config(arch).scaled(dtype="float32")
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    gpu_params = T.init_params(cfg, seed=0, device="cpu").to(cuda)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+    fa.reset_launches()
+    got = T.forward(cfg, gpu_params, {"tokens": toks}, device=cuda)
+    assert fa.launches["flash_attention"] == cfg.num_layers
+    want = T.forward(cfg, cpu_params, {"tokens": toks}, device="cpu")
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    cache, last = T.prefill(cfg, gpu_params, {"tokens": toks[:, :36]}, 48, device=cuda)
+    steps = [last]
+    for i in range(36, 40):
+        logits, cache = T.decode_step(cfg, gpu_params, cache, toks[:, i : i + 1], i, device=cuda)
+        steps.append(logits)
+    assert float((torch.cat(steps, 1).cpu() - want[:, 35:40]).abs().max()) < 1e-4

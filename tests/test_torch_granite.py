@@ -221,13 +221,41 @@ def test_attention_block_matches_jax(f32, branch):
         assert _err(tc["k"], jc["k"]) < TOL_F32 and _err(tc["v"], jc["v"]) < TOL_F32
 
 
-def test_local_attention_is_not_ported():
-    gemma = T.ModelConfig(**dataclasses.asdict(jax_smoke_config("gemma2-9b")))
-    with pytest.raises(NotImplementedError, match="'attn_local'"):
-        T.LM(gemma, device="cpu")
-    spec = dataclasses.replace(smoke_config(ARCH).attn_spec(False), window=8)
-    with pytest.raises(NotImplementedError, match="window"):
-        L.attention_block(None, torch.zeros((1, 4, 64)), spec, torch.arange(4)[None])
+@pytest.mark.parametrize("branch", ["none", "prefill", "decode"])
+def test_local_attention_block_matches_jax(f32, branch):
+    """granite's layer with a sliding window of 8 keys (gemma2's local
+    layers' mask) against JAX's ``attention_block`` with the same window:
+    a 13-token prompt, or one decode step at position 13 over a cache, both
+    past the window; the window moves the output here."""
+    jcfg, pcfg, jp, lm = f32
+    spec = dataclasses.replace(pcfg.attn_spec(False), window=8)
+    jspec = dataclasses.replace(jcfg.attn_spec(False), window=8)
+    rng = np.random.default_rng(8)
+    b, max_len = 2, 24
+    s = 1 if branch == "decode" else 13
+    start = 13 if branch == "decode" else 0
+    x = rng.standard_normal((b, s, pcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(start, start + s)[None], (b, s)).astype(np.int32)
+    jparams = jax.tree.map(lambda a: a[1], jp["blocks"][0]["attn"])  # layer 1
+    jcache = tcache = None
+    if branch != "none":
+        kv0 = rng.standard_normal((2, b, max_len, pcfg.num_kv_heads, pcfg.hd)).astype(np.float32)
+        kv0[:, :, start:] = 0.0
+        jcache = {"k": jnp.asarray(kv0[0]), "v": jnp.asarray(kv0[1]), "len": jnp.int32(start)}
+        tcache = {"k": torch.from_numpy(kv0[0].copy()), "v": torch.from_numpy(kv0[1].copy()),
+                  "len": start}
+    jy, jc = JL.attention_block(jparams, jnp.asarray(x), jspec, jnp.asarray(pos), jcache,
+                                chunk=jcfg.attn_chunk)
+    ty, tc = L.attention_block(lm.blocks[1].attn, torch.from_numpy(x), spec,
+                               torch.from_numpy(pos), tcache, chunk=pcfg.attn_chunk)
+    assert ty.shape == (b, s, pcfg.d_model) and _err(ty, jy) < TOL_F32
+    if branch != "none":
+        assert tc["len"] == int(jc["len"]) == start + s
+        assert _err(tc["k"], jc["k"]) < TOL_F32 and _err(tc["v"], jc["v"]) < TOL_F32
+        tcache["len"] = start  # the same call again without the window
+    wide, _ = L.attention_block(lm.blocks[1].attn, torch.from_numpy(x), pcfg.attn_spec(False),
+                                torch.from_numpy(pos), tcache, chunk=pcfg.attn_chunk)
+    assert _err(wide, jy) > 10 * TOL_F32
 
 
 # ---------------------------------------------------------------------------

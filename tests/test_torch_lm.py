@@ -84,7 +84,7 @@ def test_config_equals_jax(which):
     assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
     assert pc.param_count() == jc.param_count()
     assert pc.num_groups == jc.num_groups and pc.vocab_padded == jc.vocab_padded
-    assert ARCH_NAMES == [ARCH, "granite-3-8b"]
+    assert ARCH_NAMES == [ARCH, "granite-3-8b", "gemma2-9b", "chatglm3-6b", "command-r-35b"]
 
 
 def test_full_config_is_the_7b_model():
@@ -95,11 +95,11 @@ def test_full_config_is_the_7b_model():
 
 
 def test_unported_mixer_raises_by_name():
-    gemma = T.ModelConfig(**dataclasses.asdict(jax_smoke_config("gemma2-9b")))
-    with pytest.raises(NotImplementedError, match="'attn_local'"):
-        T.LM(gemma, device="cpu")
-    with pytest.raises(NotImplementedError, match="'attn_local'"):
-        T.init_cache(gemma, 1, 8, device="cpu")
+    jamba = T.ModelConfig(**dataclasses.asdict(jax_smoke_config("jamba-v0.1-52b")))
+    with pytest.raises(NotImplementedError, match="'mamba'"):
+        T.LM(jamba, device="cpu")
+    with pytest.raises(NotImplementedError, match="'mamba'"):
+        T.init_cache(jamba, 1, 8, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
