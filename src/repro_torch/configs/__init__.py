@@ -18,6 +18,8 @@ ARCH_MODULES: Dict[str, str] = {
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "command-r-35b": "repro_torch.configs.command_r_35b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     "huge-enum": "repro_torch.configs.huge_enum",
 }
 

@@ -108,8 +108,12 @@ class Comm:
     ``a2a`` is the tiled all-to-all of the JAX engine (``split_axis=0,
     concat_axis=0``): a contiguous tensor whose leading dimension is the
     world size, block ``d`` sent to rank ``d``, block ``s`` of the result
-    received from rank ``s``. ``all_max`` and ``all_sum`` reduce host
-    integers on the control group. The counters say what the rank moved."""
+    received from rank ``s``. ``all_gather`` is the tiled all-gather
+    (``axis=0``): every rank's tensor, in rank order, along the leading
+    dimension. ``all_max`` and ``all_sum`` reduce host integers on the
+    control group. The counters say what the rank moved: ``a2a_bytes`` the
+    tensors it handed to ``a2a``, ``ag_bytes`` the tensors ``all_gather``
+    returned to it (its own block counted in both)."""
 
     def __init__(self, rank: int, world_size: int, device: torch.device, backend: str,
                  group=None, ctrl=None):
@@ -121,6 +125,8 @@ class Comm:
         self.ctrl = ctrl
         self.a2a_calls = 0
         self.a2a_bytes = 0
+        self.ag_calls = 0
+        self.ag_bytes = 0
         self.ctrl_calls = 0
 
     def a2a(self, t: torch.Tensor) -> torch.Tensor:
@@ -132,6 +138,15 @@ class Comm:
         self.a2a_bytes += t.numel() * t.element_size()
         out = torch.empty_like(t)
         dist.all_to_all_single(out, t, group=self.group)
+        return out
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.world_size)]
+        dist.all_gather(parts, t, group=self.group)
+        out = torch.cat(parts)
+        self.ag_calls += 1
+        self.ag_bytes += out.numel() * out.element_size()
         return out
 
     def _reduce(self, vals: Sequence[int], op) -> List[int]:

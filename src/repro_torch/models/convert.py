@@ -37,7 +37,13 @@ def _copy(dst: torch.Tensor, src: Any, where: str) -> None:
 
 
 def _copy_tree(module: torch.nn.Module, tree: Mapping, group: int, where: str) -> None:
+    """Each leaf of ``tree`` into the attribute of ``module`` of its name
+    (the MoE layer's ``router``, ``w_gate``, ``w_up`` and ``w_down`` too);
+    a leaf the port has no place for, or of another shape, raises naming it."""
     for name, leaf in tree.items():
+        if not hasattr(module, name):
+            raise ValueError(f"{where}.{name}: no such parameter in the port's "
+                             f"{type(module).__name__}")
         if isinstance(leaf, Mapping):
             _copy_tree(getattr(module, name), leaf, group, f"{where}.{name}")
         else:

@@ -3,8 +3,12 @@
 ``ModelConfig`` is the JAX package's config, copied whole. The stack is a
 ``ModuleList`` of layers (not a scanned stack of stacked parameters); only
 ``attn`` (global GQA attention), ``attn_local`` (the same with a sliding
-window of ``local_window`` keys) and ``rwkv`` mixers and ``dense`` MLPs are
-ported, and any other mixer or MLP raises ``NotImplementedError`` by name.
+window of ``local_window`` keys) and ``rwkv`` mixers and ``dense``, ``moe``
+and ``moe_dense`` (a dense MLP and the MoE layer side by side, their outputs
+summed) MLPs are ported, and any other mixer raises ``NotImplementedError``
+by name. The LM runs on one process: its MoE layers take the ``local``
+dispatch (``_moe_comm_mode`` without a group); ``models.moe.moe_block``
+takes a group itself.
 
 API (the JAX package's, with an explicit device and generator):
   init_params(cfg, gen=None, *, seed=0, device=None)      → LM
@@ -35,7 +39,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.core.hybrid_comm import moe_dispatch_mode
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     MLP,
@@ -184,18 +190,20 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 ATTN_MIXERS = ("attn", "attn_local")
+MLPS = ("dense", "moe", "moe_dense")
 
 
 def _check_ported(cfg: ModelConfig, layer: int) -> None:
     mixer, mlp = cfg.mixer_at(layer), cfg.mlp_at(layer)
     if mixer not in ATTN_MIXERS + ("rwkv",):
         raise NotImplementedError(f"mixer {mixer!r} (layer {layer} of {cfg.name}) is not ported")
-    if mlp != "dense":
+    if mlp not in MLPS:
         raise NotImplementedError(f"mlp {mlp!r} (layer {layer} of {cfg.name}) is not ported")
 
 
 class Block(nn.Module):
-    """One layer: ln1 → mixer → residual, ln2 → MLP → residual."""
+    """One layer: ln1 → mixer → residual, ln2 → MLP → residual. The MLP is
+    ``mlp`` (dense), ``moe`` or both (``moe_dense``)."""
 
     def __init__(self, cfg: ModelConfig, layer: int, device=None):
         super().__init__()
@@ -211,7 +219,11 @@ class Block(nn.Module):
             self.attn = Attention(cfg.d_model, self.spec, dt, device)
         else:
             self.rwkv = ssm_mod.RWKV6(cfg.d_model, cfg.num_heads, dt, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+        kind = cfg.mlp_at(layer)
+        if kind in ("dense", "moe_dense"):
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+        if kind in ("moe", "moe_dense"):
+            self.moe = moe_mod.MoE(cfg.d_model, cfg.moe_d_ff, cfg.num_experts, dt, device)
 
 
 class LM(nn.Module):
@@ -257,7 +269,10 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *, seed
             blk.attn = attn_init(gen, cfg.d_model, blk.spec, dt)
         else:
             blk.rwkv = ssm_mod.rwkv6_init(gen, cfg.d_model, cfg.num_heads, dtype=dt)
-        blk.mlp = mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+        if hasattr(blk, "mlp"):
+            blk.mlp = mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+        if hasattr(blk, "moe"):
+            blk.moe = moe_mod.moe_init(gen, cfg.d_model, cfg.moe_d_ff, cfg.num_experts, dt)
     lm.embed.copy_(dense_init(gen, (cfg.vocab_padded, cfg.d_model), dt, scale=0.02))
     lm.final_norm.zero_()
     if not cfg.tie_embeddings:
@@ -304,6 +319,22 @@ def _positions(start: int, s: int, dev: torch.device) -> torch.Tensor:
     return torch.arange(start, start + s, device=dev)[None]  # [1, S], broadcast over B
 
 
+def _moe_comm_mode(cfg: ModelConfig, tokens_per_step: int, comm=None) -> str:
+    """The MoE dispatch of a pass of ``tokens_per_step`` tokens: the
+    config's, unless ``auto``; with no group or a group of one ``local``;
+    else ``moe_dispatch_mode``'s Eq.-3 choice over the group's ranks."""
+    if cfg.moe_comm != "auto":
+        return cfg.moe_comm
+    dp = 1 if comm is None else comm.world_size
+    if dp <= 1:
+        return "local"
+    return moe_dispatch_mode(
+        tokens_per_step=tokens_per_step, d_model=cfg.d_model, d_ff=cfg.moe_d_ff,
+        num_experts=cfg.num_experts, experts_per_token=cfg.experts_per_token,
+        dp_degree=dp,
+    ).mode
+
+
 def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, positions: torch.Tensor,
                  state=None):
     h = rmsnorm(x, blk.ln1, cfg.norm_eps)
@@ -313,8 +344,13 @@ def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, positions: torch
     else:
         y, new_state = ssm_mod.rwkv6_block(blk.rwkv, h, cfg.num_heads, state)
     x = x + y
-    x = x + mlp_block(blk.mlp, rmsnorm(x, blk.ln2, cfg.norm_eps))
-    return x, new_state
+    h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
+    delta = mlp_block(blk.mlp, h2) if hasattr(blk, "mlp") else None
+    if hasattr(blk, "moe"):  # in the model dtype: the dense MLP's output first
+        m = moe_mod.moe_block(blk.moe, h2, experts_per_token=cfg.experts_per_token,
+                              comm_mode=_moe_comm_mode(cfg, h2.shape[0] * h2.shape[1]))
+        delta = m if delta is None else delta + m
+    return x + delta, new_state
 
 
 @torch.inference_mode()

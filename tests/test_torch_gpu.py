@@ -35,7 +35,12 @@ port's ticket by ticket, with the three enumeration kernels launched; so
 must four distributed-engine ranks on the card equal four on the CPU
 (``-k distributed``), the kernels launched inside the ranks. The paper-suite
 registry runs Exp-6 fused on the card (``-k paper``), its rows equal to the
-CPU port's.
+CPU port's. The MoE layer (``-k moe``; no kernel of its own: routing,
+dispatch and combine in torch, the experts' products in ``torch.bmm``) must
+equal the CPU port's within 1e-5 (float32) and 1e-2 (bfloat16) of the
+largest CPU output, with routing and the dispatch's bookkeeping bit-equal
+in both capacity regimes; two card runs must be bit-equal (the combine adds
+each token's pairs in order) and zero rows must take experts 0..k-1.
 """
 import dataclasses
 import math
@@ -1100,6 +1105,90 @@ def test_dense_smoke_on_card_equals_cpu_port(cuda, arch):
     from repro_torch.models import transformer as T
 
     cfg = smoke_config(arch).scaled(dtype="float32")
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    gpu_params = T.init_params(cfg, seed=0, device="cpu").to(cuda)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+    fa.reset_launches()
+    got = T.forward(cfg, gpu_params, {"tokens": toks}, device=cuda)
+    assert fa.launches["flash_attention"] == cfg.num_layers
+    want = T.forward(cfg, cpu_params, {"tokens": toks}, device="cpu")
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    cache, last = T.prefill(cfg, gpu_params, {"tokens": toks[:, :36]}, 48, device=cuda)
+    steps = [last]
+    for i in range(36, 40):
+        logits, cache = T.decode_step(cfg, gpu_params, cache, toks[:, i : i + 1], i, device=cuda)
+        steps.append(logits)
+    assert float((torch.cat(steps, 1).cpu() - want[:, 35:40]).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The MoE layer
+# ---------------------------------------------------------------------------
+
+MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _moe_inputs(dtype, dev, b, s, d=32, ff=48, e=8, seed=0):
+    """An MoE layer and [B, S, d] inputs about a mean of 1 (uneven expert
+    loads), the first 5 token rows zero (all experts tied)."""
+    from repro_torch.models import moe as PM
+
+    gen = torch.Generator().manual_seed(seed)
+    m = PM.moe_init(gen, d, ff, e, dtype)
+    x = 1.0 + torch.randn((b, s, d), generator=gen)
+    x.view(-1, d)[:5] = 0.0
+    return m.to(dev), x.to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(2, 16), (2, 2304)], ids=["lossless", "drops"])
+def test_moe_on_card_equals_cpu_port(cuda, b, s, dtype):
+    """``moe_block`` (local) on the card against the same call on the CPU;
+    the routing (idx) and the dispatch's pos/keep bit-equal, in both
+    capacity regimes (32 tokens, and 4,608 tokens: 9,216 routed pairs over 8
+    experts, cap 1,441); zero rows take experts 0 and 1."""
+    from repro_torch.models import moe as PM
+
+    m, x = _moe_inputs(dtype, cuda, b, s)
+    mc, xc = _moe_inputs(dtype, "cpu", b, s)
+    got = PM.moe_block(m, x, experts_per_token=2)
+    want = PM.moe_block(mc, xc, experts_per_token=2)
+    err = float((got.cpu().float() - want.float()).abs().max() / want.float().abs().max())
+    assert got.dtype == dtype and err < MOE_TOL[dtype], err
+    books = []
+    for mm, xx in ((m, x), (mc, xc)):
+        xt = xx.reshape(-1, 32)
+        gates, idx = PM._route(xt, mm.router, 2)
+        cap = PM._capacity(xt.shape[0] * 2, 8, 1.25)
+        _, book = PM._dispatch_local(xt, gates, idx, cap, 8)
+        books.append([t.cpu() for t in (idx,) + tuple(book)] + [gates.cpu()])
+    for a, c in zip(books[0][:5], books[1][:5]):
+        assert torch.equal(a, c)
+    assert float((books[0][5] - books[1][5]).abs().max()) < 1e-6
+    assert books[0][0][:5].tolist() == [[0, 1]] * 5
+    keep = books[0][3]
+    assert bool(keep.all()) == (s == 16)
+
+
+def test_moe_on_card_is_deterministic(cuda):
+    """Two card runs in bf16 in the drop regime give bit-equal outputs."""
+    from repro_torch.models import moe as PM
+
+    m, x = _moe_inputs(torch.bfloat16, cuda, 2, 2304, seed=3)
+    a = PM.moe_block(m, x, experts_per_token=2)
+    b = PM.moe_block(m, x, experts_per_token=2)
+    assert torch.equal(a, b)
+
+
+def test_moe_smoke_on_card_equals_cpu_port(cuda):
+    """qwen3-moe-30b-a3b's smoke config in float32: the forward on the card
+    equals the CPU port's (every layer's attention on the kernel), and
+    prefill + decode steps on the card equal the forward."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as T
+
+    cfg = smoke_config("qwen3-moe-30b-a3b").scaled(dtype="float32")
     cpu_params = T.init_params(cfg, seed=0, device="cpu")
     gpu_params = T.init_params(cfg, seed=0, device="cpu").to(cuda)
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))

@@ -43,7 +43,8 @@ def test_port_imports_without_jax_or_repro():
               "repro_torch.launch.exp9_plans", "repro_torch.launch.exp10_scaling",
               "repro_torch.launch.exp_chaos", "repro_torch.launch.exp_streaming",
               "repro_torch.analysis.__main__", "repro_torch.analysis.lint",
-              "repro_torch.configs.huge_enum"):
+              "repro_torch.configs.huge_enum", "repro_torch.models.moe",
+              "repro_torch.configs.qwen3_moe_30b_a3b", "repro_torch.configs.arctic_480b"):
         assert m in mods, m
     code = (
         "import sys\n"

@@ -84,7 +84,8 @@ def test_config_equals_jax(which):
     assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
     assert pc.param_count() == jc.param_count()
     assert pc.num_groups == jc.num_groups and pc.vocab_padded == jc.vocab_padded
-    assert ARCH_NAMES == [ARCH, "granite-3-8b", "gemma2-9b", "chatglm3-6b", "command-r-35b"]
+    assert ARCH_NAMES == [ARCH, "granite-3-8b", "gemma2-9b", "chatglm3-6b", "command-r-35b",
+                          "qwen3-moe-30b-a3b", "arctic-480b"]
 
 
 def test_full_config_is_the_7b_model():
