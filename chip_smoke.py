@@ -2,8 +2,9 @@
 
 Phases (each prints its results; any failure exits non-zero):
 
-1. set-up: the card's name and power limit, versions, the kernel builds (one
-   nvcc per source, started together);
+1. set-up: the card's name and power limit, versions, the four kernel
+   libraries' builds and the probe's (one nvcc per source, started
+   together);
 2. each intersect kernel against its plain PyTorch version, on the card, at
    the shapes of the full-width run (bit-equal outputs), with device times
    (``queued_ms``: median and spread of 5 windows of calls queued behind a
@@ -33,9 +34,9 @@ Phases (each prints its results; any failure exits non-zero):
    fused, at full width on a world of one rank over NCCL in this process
    (44 matches, every lookup local); then four ranks on the one card over
    gloo (``run_ranks``; gloo stages its all-to-alls through host memory,
-   and four processes share one GPU, so no multi-GPU time) on the table4 graph: q2 and q3 under ``huge``,
-   q2 under ``seed`` (PUSH-JOIN: ``lex_bounds``) and q3 under ``rads``
-   (VERIFY: ``fused_verify``) fused, and q3 under ``huge`` unfused, whose
+   and four processes share one GPU, so no multi-GPU time) on the table4 graph: q2 and q3 under ``huge``
+   and q3 under ``rads`` (PUSH-JOIN: ``lex_bounds``; VERIFY:
+   ``fused_verify``) fused, and q3 under ``huge`` unfused, whose
    schedule and traffic must equal the fused run's; the ranks' kernel
    launches count on the main path; then, in the same ranks, one MoE layer
    at qwen3-moe-30b-a3b's widths (32 of its 128 experts a rank): its push
@@ -47,8 +48,8 @@ Phases (each prints its results; any failure exits non-zero):
    fused (59,500 matches, appended to BENCH_torch_service.json); four
    tenants on the table4 graph (q1/huge, q2/seed, q3/rads, q3/huge) with a
    lease-oom at admission and a queue-overflow under per-tick checkpoints,
-   then standing triangle and q2 over a batch of inserts; three tenants at
-   full width (q3, triangle, q2) against their full counts, with a profiled
+   then standing triangle and q2 over a batch of inserts; two tenants at
+   full width (q3, triangle) against their full counts, with a profiled
    window, latencies, and device memory back to its pre-submit level with
    the cycle collector off;
 5b. the engine's other paths: every injected fault kind recovered on the
@@ -101,7 +102,19 @@ Phases (each prints its results; any failure exits non-zero):
    lossless forward of 2 x 512 tokens, one served group of 8 requests of
    512 + 32 tokens, each pass's dropped pairs and bucket fill logged; then,
    the bf16 model freed, a float32 leg on 16 of its layers (prefill of
-   2 x 253 + 3 decode steps against a forward of 2 x 256).
+   2 x 253 + 3 decode steps against a forward of 2 x 256);
+15. Mamba's selective-scan kernel against its plain version at jamba's
+   shapes (forward B=2 x 4,096, served prefill B=8 x 512, a decode step from
+   a non-zero state; Di 8,192, N 16), with its times and bound, then
+   untimed at the decay edges (underflow to 0; about 1 over 4,096 steps)
+   and against two faults put into the plain version; then jamba-v0.1-52b
+   at full width cut to 16 of its 32 layers (14 Mamba, 2 attention, 8 MoE;
+   52.04 GB of weights): ``loss_fn`` and ``forward`` on 2 x 4096 tokens (14
+   scan and 2 flash launches a pass), a profiled forward, ``prefill`` of 2 x
+   512 tokens + 3 decode steps against a lossless forward of 2 x 640, one
+   served group of 8 requests of 512 + 32 tokens, and, the bf16 model
+   freed, a float32 leg on 8 of its layers (prefill of 2 x 128 + 3 decode
+   steps against a forward of 2 x 256).
 
 The line before the last holds the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. It imports torch, numpy and the port only.
@@ -118,7 +131,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -194,7 +207,52 @@ DENSE_SERVE = (8, 512, 32, 8)
 # 2 x 256 tokens. Serving takes DENSE_SERVE (its prefill routes 32,768 pairs:
 # cap 321).
 QWEN3_FORWARD = (2, 4096, 509, 3)
-QWEN3_F32 = (16, 253, 3)
+QWEN3_F32 = (16, 253, 3, 256)
+# Phase 15: jamba-v0.1-52b cut to 16 of its 32 layers (two groups of its
+# 8-layer period: 14 Mamba and 2 attention layers, 8 dense and 8 MoE MLPs;
+# 52.04 GB of bf16 weights; the whole takes 103.0 GB). Its Mamba layers take
+# a multi-token pass only at 128 tokens or fewer or at a multiple of 128
+# (the JAX package's scan chunk). The B x S passes route 16,384 pairs (cap
+# 1,281 an expert, 1.25x the mean load); prefill of 2 x 512 tokens and 3
+# decode steps are held to a lossless forward of 2 x 640 tokens (2,560
+# routed pairs) at positions 511-514 where no routing leaves it, the
+# prefill to the forward of its own 512 tokens. A float32 copy does not fit: the
+# float32 leg runs after the bf16 model is freed, on 8 of its layers (53.1
+# GB), prefill of 2 x 128 + 3 decode steps against a forward of 2 x 256.
+# Serving takes DENSE_SERVE.
+JAMBA_LAYERS = 16
+JAMBA_FORWARD = (2, 4096, 512, 3)
+JAMBA_REF_LEN = 640
+JAMBA_F32 = (8, 128, 3, 256)
+# The selective-scan kernel's shapes: (what, B, T, non-zero h0, dtype of x,
+# B and C) at jamba's inner width, states and dt rank: phase 15's forward,
+# its served prefill, a decode step (bf16) and the float32 leg's forward
+# (the kernel's float32 build). The kernel against its plain version,
+# max |diff| over max |plain| (y and h_T): float32 throughout, another
+# summation order over the states and fused multiply-adds, over up to 4,096
+# dependent steps, as RWKV_TOL.
+SCAN_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
+SCAN_REPLACES = "src/repro/models/ssm.py:54"  # _ssm_scan_chunked: plain JAX, no TPU kernel
+SCAN_DI, SCAN_N, SCAN_RANK = 8192, 16, 256
+SCAN_SHAPES = (("forward B=2", 2, 4096, False, "bfloat16"),
+               ("serve prefill B=8", 8, 512, False, "bfloat16"),
+               ("decode B=8", 8, 1, True, "bfloat16"),
+               ("float32 leg forward B=2", 2, 256, True, "float32"))
+SCAN_TOL = 1e-4
+SFU_EXP_PER_CLOCK = 16  # exponentials an SM issues a clock on its special-function units
+# One of jamba's Mamba layers at full width (random weights) in bf16 and
+# float32, outside the model, so that no MoE routing lies between the two
+# sides: (rows, prefill length, decode steps, pass length) -- prefill from
+# zero, then one-token steps through the returned conv tail and state,
+# against one pass over the rows' 640 tokens at positions 511-514. In bf16
+# the prefill's and the pass's products have other shapes (1,024 and 1,280
+# rows), which may round an output of in_proj or x_proj an ulp (2^-8) apart,
+# and the state carries such a change into the next steps: MAMBA_TOL_BF16 is
+# 5 ulps of the largest output, max |diff| over max |pass|. In float32 they
+# differ in summation order only (LOGITS_TOL_F32). A decode step from a lost
+# state or a lost conv tail must read above the bound.
+MAMBA_CACHE = (2, 512, 3, 640)
+MAMBA_TOL_BF16 = 2e-2
 # The flash kernel's shapes: (what, B, Hq, Hkv, Sq, Sk, Dh, softcap, dtype,
 # sliding window), all causal, q scaled by SOFTCAP_Q_SCALE where there is a
 # softcap; the first is the JSON line's headline. gemma2's local shapes are
@@ -270,8 +328,11 @@ SERVICE_TABLE4 = (("a", "q1", "huge", 110508), ("b", "q2", "seed", 67887),
                   ("c", "q3", "rads", 1782), ("d", "q3", "huge", 1782))
 # q1 is served on the table4 graph only: at full width its steps (wedges
 # into squares) cost about 5 ms each on an H100 80GB, and squares are rare
-# there, so even under a budget of 1,000 matches it ran 9,803 steps.
-SERVICE_FULL = (("a", "q3", None), ("b", "triangle", None), ("c", "q2", None))
+# there, so even under a budget of 1,000 matches it ran 9,803 steps. q2 is
+# not served at full width either (a third tenant that took about a third of
+# the leg's 116.8-213.8 s on an H100 80GB): phase 5b's streaming starts from
+# its full count in FULL_COUNTS and counts it again after its batches.
+SERVICE_FULL = (("a", "q3", None), ("b", "triangle", None))
 # At full width an extend queue's slack is batch x d_pad rows (1024 x 4608):
 # the sessions price past the default pool's 67.1 M int32 cells, so the
 # leg's pool is larger. (At batch 256 they fit the default pool, but with
@@ -279,8 +340,8 @@ SERVICE_FULL = (("a", "q3", None), ("b", "triangle", None), ("c", "q2", None))
 SERVICE_FULL_POOL = 128 << 20
 # Full counts on the full-width graph: q3's is phase 5's (fused and plain
 # agree); triangle's and q2's are those of isolated fused HugeEngine runs on
-# an H100 80GB (PERF.md §4), which the service must reproduce and from which
-# phase 5b's streaming starts.
+# an H100 80GB (PERF.md §4), which the service reproduced (q2 while it was
+# served at full width) and from which phase 5b's streaming starts.
 FULL_Q3 = 44
 FULL_COUNTS = {"triangle": 6293, "q2": 11018}
 # 3 ticks of 4 x 32 steps, as many steps as phase 5's window: after a
@@ -296,9 +357,11 @@ DIST_RANKS = 4
 DIST_CFG = dict(batch_size=256)
 # q1/huge is not in this leg (it took 48.0-53.3 s of it on an H100 80GB);
 # q1 at 1-8 gloo ranks stays held by tests/test_torch_distributed.py.
+# q2/seed is not in it either (it took 37.7-70.7 s of it on an H100 80GB):
+# q3/rads drives the same PUSH-JOIN shuffle and lex_bounds inside the ranks,
+# q2/seed stays in phases 4 and 5c and in tests/test_torch_distributed.py.
 DIST_CASES = (("q2", "huge", True, 67887), ("q3", "huge", True, 1782),
-              ("q2", "seed", True, 67887), ("q3", "rads", True, 1782),
-              ("q3", "huge", False, 1782))
+              ("q3", "rads", True, 1782), ("q3", "huge", False, 1782))
 # The four ranks' MoE case: one layer at qwen3-moe-30b-a3b's widths (d 2,048,
 # 128 experts, 32 a rank, width 768, top-8), push and pull at 64 tokens a
 # rank (512 routed pairs: lossless, cap 512) and 2,048 (16,384: cap 161,
@@ -1640,10 +1703,11 @@ def phase_service_table4(ik, launches):
 
 def phase_service_full(ik, launches, big):
     """The service at full width, fused, phase 5's configuration (batch
-    1024), three tenants at once, each count its full count (triangle's and
-    q2's are returned: phase 5b's streaming starts from them); a profiled
-    window of a second service, its requests then cancelled; device memory
-    back to its pre-submit level after each, with the cycle collector off."""
+    1024), two tenants at once, each count its full count (triangle's is
+    returned beside q2's full count: phase 5b's streaming starts from them);
+    a profiled window of a second service, its requests then cancelled;
+    device memory back to its pre-submit level after each, with the cycle
+    collector off."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1738,10 +1802,9 @@ def phase_service_full(ik, launches, big):
     by = {q: t for (_, q, _), t in zip(SERVICE_FULL, tickets)}
     assert cells.keys() == {t.id for t in tickets}, "the pool did not hold every session"
     assert by["q3"].status == "done" and by["q3"].count == FULL_Q3, by["q3"]
-    counts = {}
-    for name in ("triangle", "q2"):
+    counts = dict(FULL_COUNTS)
+    for name in set(by) & set(FULL_COUNTS):
         assert by[name].status == "done" and by[name].count == FULL_COUNTS[name], by[name]
-        counts[name] = by[name].count
     assert svc.pool.leased_cells == 0 and not svc.active
     assert seen["fused_extend"] > 0
     return counts
@@ -1795,18 +1858,17 @@ def phase_rwkv6_kernel(rk):
         rel = max(errs) / max(1.0, scale)
         assert rel < RWKV_TOL, f"rwkv6 {what} T={t}: max |diff| {max(errs)} / max |plain| {scale}"
         call, (ms, lo, hi) = timed(lambda: rk.rwkv6(*args, return_state=with_state))
-        # The plain version runs tens of torch ops a step, and reading the
-        # profiler's records of them takes seconds a window: three windows of
-        # one call each.
+        # The plain version runs tens of torch ops a step: CUDA events around
+        # one call (three calls after one warm-up), not profiled (reading the
+        # profiler's records of three one-call windows took 85-100 s of the
+        # phase on an H100 80GB).
         pcall = call_ms(lambda: rwkv6_ref(*args, return_state=with_state), iters=1,
                         repeats=3, warmup=1)
-        pdev = plain_device_ms(lambda: rwkv6_ref(*args, return_state=with_state), iters=1,
-                               repeats=3)
         bound, by, nbytes, flops, bytes_ms, ops_ms = rwkv_bound(args, with_state)
         shape = f"BH={bh} T={t} K=V=64 bf16" + (" +state" if with_state else "")
         out["configs"].append(dict(
             shape=shape, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0], call_ms_min=call[1],
-            call_ms_max=call[2], plain_ms=pdev[0], plain_call_ms=pcall[0], bound_ms=bound,
+            call_ms_max=call[2], plain_ms=pcall[0], bound_ms=bound,
             bound_by=by, bound_bytes=nbytes, bound_flops=flops, max_abs_err=max(errs),
             rel_err=rel, library_ms=None))
         out["max_abs_err"] = max(out["max_abs_err"], max(errs))
@@ -1814,8 +1876,9 @@ def phase_rwkv6_kernel(rk):
             f"{', state' if with_state else ''}; max |plain| {scale:.3f}, relative {rel:.2e}, "
             f"tolerance {RWKV_TOL:g}) | kernel queued={ms:.4f} ms (min {lo:.4f}, "
             f"max {hi:.4f}) "
-            f"call={call[0]:.4f} ms (min {call[1]:.4f}, max {call[2]:.4f}) | plain device="
-            f"{pdev[0]:.4f} ms call={pcall[0]:.4f} ms | bound={bound:.4f} ms by {by} "
+            f"call={call[0]:.4f} ms (min {call[1]:.4f}, max {call[2]:.4f}) | plain call="
+            f"{pcall[0]:.4f} ms (CUDA events, min {pcall[1]:.4f}, max {pcall[2]:.4f}) | "
+            f"bound={bound:.4f} ms by {by} "
             f"(bytes {nbytes} -> {bytes_ms:.4f} ms at 3.35 TB/s; {flops} flop -> "
             f"{ops_ms:.4f} ms at 67 TFLOP/s f32) | library: none")
         del args, got, want_o, want_s, pairs
@@ -2042,46 +2105,282 @@ def flash_unaligned_check(fa, attention_chunked, gen, what, b, hq, hkv, sq, sk, 
 
 
 # ---------------------------------------------------------------------------
+# Phase 15a: Mamba's selective-scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def scan_inputs(b, t, gen, h0=False, dt_scale=None, dtype=torch.bfloat16):
+    """The scan's inputs as jamba's Mamba block forms them at full width
+    (Di 8,192, N 16, dt rank 256): dt = softplus of a unit normal (or
+    ``dt_scale`` times a uniform draw), x = silu of a unit normal, a = -(1..N)
+    on every channel (``mamba_init``'s), B and C as slices of one [B, T,
+    256 + 2N] projection (not contiguous), h0 zero or a unit normal."""
+    dev = gen.device
+    di, n = SCAN_DI, SCAN_N
+    if dt_scale is None:
+        dt = torch.nn.functional.softplus(torch.randn((b, t, di), generator=gen, device=dev))
+    else:
+        dt = torch.rand((b, t, di), generator=gen, device=dev) * dt_scale
+    x = torch.nn.functional.silu(torch.randn((b, t, di), generator=gen, device=dev)).to(dtype)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(di, n).contiguous()
+    proj = torch.randn((b, t, SCAN_RANK + 2 * n), generator=gen, device=dev).to(dtype)
+    h = (torch.randn((b, di, n), generator=gen, device=dev) if h0 else
+         torch.zeros((b, di, n), device=dev))
+    return [dt, x, a, proj[..., SCAN_RANK : SCAN_RANK + n], proj[..., SCAN_RANK + n :], h]
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0].split()[0]) * 1e6
+
+
+def scan_bound(args, clock_hz):
+    """(bound ms, what bounds it, bytes, exponentials, bytes ms, exp ms):
+    dt, x and y once per (b, t, d), B, C, h0 and h_T once, at 3.35 TB/s;
+    against the B*T*Di*N exponentials on the special-function units (16 a
+    clock an SM, at the card's highest SM clock)."""
+    dt, x, a, bm, cm, h0 = args
+    b, t, di = dt.shape
+    n = a.shape[1]
+    nbytes = (dt.numel() * 4 + x.numel() * x.element_size() + dt.numel() * 4
+              + (bm.numel() + cm.numel()) * bm.element_size() + 2 * h0.numel() * 4)
+    exps = b * t * di * n
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    exp_ms = exps / (sms * SFU_EXP_PER_CLOCK * clock_hz) * 1e3
+    return max(bytes_ms, exp_ms), ("bytes" if bytes_ms >= exp_ms else "operations"), \
+        nbytes, exps, bytes_ms, exp_ms
+
+
+def scan_errs(got, want):
+    """max |diff| over y and h_T, and that over the larger max |plain|."""
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    return err, err / max(1.0, scale), scale
+
+
+def phase_ssm_scan_kernel(sk):
+    """The kernel against ``ssm_scan_ref`` at jamba's shapes (forward, served
+    prefill, a decode step from a non-zero state), with times and bound;
+    then untimed at the decay edges, and two faults put into the plain
+    version that the check must catch."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    clock = sm_clock_hz()
+    log(f"phase 15: ssm_scan kernel vs its plain version (x, B, C in bf16, and in float32 at "
+        f"the float32 leg's shape; Di={SCAN_DI}, N={SCAN_N}; SM clock {clock / 1e6:.0f} MHz)")
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    out = {"max_abs_err": 0.0, "configs": []}
+    for what, b, t, h0, dtype in SCAN_SHAPES:
+        args = scan_inputs(b, t, gen, h0=h0, dtype=getattr(torch, dtype))
+        got = sk.ssm_scan(*args)
+        want = ssm_scan_ref(*args)
+        torch.cuda.synchronize()
+        err, rel, scale = scan_errs(got, want)
+        assert rel < SCAN_TOL, f"ssm_scan {what}: max |diff| {err} / max |plain| {scale}"
+        del got, want
+        call, (ms, lo, hi) = timed(lambda: sk.ssm_scan(*args))
+        # The plain version launches a few kernels a step: CUDA events
+        # around one call (three calls after one warm-up), not profiled.
+        pcall = call_ms(lambda: ssm_scan_ref(*args), iters=1, repeats=3, warmup=1)
+        bound, by, nbytes, exps, bytes_ms, exp_ms = scan_bound(args, clock)
+        shape = f"B={b} T={t} Di={SCAN_DI} N={SCAN_N} {dtype}" + (" +h0" if h0 else "")
+        out["configs"].append(dict(
+            shape=shape, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0], call_ms_min=call[1],
+            call_ms_max=call[2], plain_ms=pcall[0], bound_ms=bound,
+            bound_by=by, bound_bytes=nbytes, bound_exps=exps, max_abs_err=err, rel_err=rel,
+            library_ms=None))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        log(f"  ssm_scan [{what}: {shape}]: max_abs_err={err:.3e} (y, h_T; max |plain| "
+            f"{scale:.3f}, relative {rel:.2e}, tolerance {SCAN_TOL:g}) | kernel queued="
+            f"{ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) call={call[0]:.4f} ms (min "
+            f"{call[1]:.4f}, max {call[2]:.4f}) | plain call={pcall[0]:.4f} ms (CUDA events, "
+            f"min {pcall[1]:.4f}, max {pcall[2]:.4f}) | bound={bound:.4f} ms by {by} (bytes "
+            f"{nbytes} -> {bytes_ms:.4f} ms at 3.35 TB/s; {exps} exp -> {exp_ms:.4f} ms at 16 "
+            f"a clock an SM) | library: none")
+        del args
+    out["edges"] = scan_edge_checks(sk, ssm_scan_ref, gen)
+    return out
+
+
+def scan_edge_checks(sk, ssm_scan_ref, gen):
+    """Untimed: dt so large that every decay underflows to 0 (served prefill
+    shape), dt near 0 so that every decay is about 1 over the forward's
+    4,096 steps; then the plain version with h0 ignored (decode shape) and
+    with the last step's update dropped (served prefill shape), each of
+    which the check must reject."""
+    errs = {}
+    bf, tf = SCAN_SHAPES[0][1:3]
+    bp, tp = SCAN_SHAPES[1][1:3]
+    bd, td = SCAN_SHAPES[2][1:3]
+    for edge, b, t, dt_scale in (("decay underflows to 0", bp, tp, 200.0),
+                                 ("decay about 1 over 4,096 steps", bf, tf, 1e-5)):
+        args = scan_inputs(b, t, gen, h0=True, dt_scale=dt_scale)
+        got = sk.ssm_scan(*args)
+        want = ssm_scan_ref(*args)
+        torch.cuda.synchronize()
+        err, rel, scale = scan_errs(got, want)
+        finite = bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+        errs[edge] = rel
+        log(f"  ssm_scan [edge: {edge}, B={b} T={t} +h0]: max_abs_err={err:.3e} (max |plain| "
+            f"{scale:.3f}, relative {rel:.2e}, tolerance {SCAN_TOL:g}), finite: {finite}")
+        assert rel < SCAN_TOL and finite, (edge, err, scale)
+        del args, got, want
+
+    def no_h0(dt, x, a, bm, cm, h0):
+        return ssm_scan_ref(dt, x, a, bm, cm, torch.zeros_like(h0))
+
+    def last_step_dropped(dt, x, a, bm, cm, h0):
+        y, _ = ssm_scan_ref(dt, x, a, bm, cm, h0)
+        y_short, h_short = ssm_scan_ref(dt[:, :-1], x[:, :-1], a, bm[:, :-1], cm[:, :-1], h0)
+        return torch.cat([y[:, :-1], y_short[:, -1:]], dim=1), h_short
+
+    for fault, b, t, fn in (("h0 ignored", bd, td, no_h0),
+                            ("last step's update dropped", bp, tp, last_step_dropped)):
+        args = scan_inputs(b, t, gen, h0=True)
+        got = sk.ssm_scan(*args)
+        bad = fn(*args)
+        torch.cuda.synchronize()
+        _, rel, _ = scan_errs(got, bad)
+        errs[f"fault: {fault}"] = rel
+        log(f"  ssm_scan [fault in the plain version: {fault}, B={b} T={t}]: relative "
+            f"{rel:.2e} (the check fails above {SCAN_TOL:g})")
+        assert rel > SCAN_TOL, (fault, rel)
+        del args, got, bad
+    return errs
+
+
+def phase_mamba_cache():
+    """One of jamba's Mamba layers at full width (``mamba_init`` from a seed),
+    in bf16, then in float32 with the same parameters widened: prefill of
+    ``MAMBA_CACHE``'s rows from zero and one-token steps through the (conv
+    tail, state) that each call returns, against one pass over all their
+    tokens at the same positions; then the steps from a state or a conv tail
+    set to zero, which the check must reject. Returns the readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config("jamba-v0.1-52b")
+    rows, pre, extra, total = MAMBA_CACHE
+    gen = torch.Generator(device=DEV).manual_seed(24)
+    out = {}
+    with torch.no_grad():
+        layer = ssm.mamba_init(gen, cfg.d_model, expand=cfg.mamba_expand, state=cfg.ssm_state,
+                               conv_dim=cfg.ssm_conv, dtype=torch.bfloat16)
+        x = torch.randn((rows, total, cfg.d_model), generator=gen, device=DEV)
+        for dtype, tol in ((torch.bfloat16, MAMBA_TOL_BF16), (torch.float32, LOGITS_TOL_F32)):
+            if dtype == torch.float32:
+                wide = ssm.Mamba(cfg.d_model, dtype, expand=cfg.mamba_expand,
+                                 state=cfg.ssm_state, conv_dim=cfg.ssm_conv, device=DEV)
+                for name, p in layer.named_parameters():
+                    getattr(wide, name).copy_(p)
+                layer = wide
+            xd = x.to(dtype)
+            want = ssm.mamba_block(layer, xd)[0][:, pre - 1 : pre + extra].float()
+            scale = float(want.abs().max())
+
+            def steps(lost=None):
+                y, state = ssm.mamba_block(layer, xd[:, :pre])
+                ys = [y[:, -1:]]
+                if lost is not None:  # 0: the conv tail, 1: the state
+                    state = tuple(torch.zeros_like(v) if i == lost else v
+                                  for i, v in enumerate(state))
+                for i in range(extra):
+                    y, state = ssm.mamba_block(layer, xd[:, pre + i : pre + i + 1], state)
+                    ys.append(y)
+                return torch.cat(ys, dim=1).float()
+
+            got = steps()
+            by_pos = [round(float((got[:, j] - want[:, j]).abs().max()) / scale, 6)
+                      for j in range(extra + 1)]
+            rel = max(by_pos)
+            faults = {what: float((steps(lost)[:, 1:] - want[:, 1:]).abs().max()) / scale
+                      for what, lost in (("state lost", 1), ("conv tail lost", 0))}
+            name = str(dtype).replace("torch.", "")
+            log(f"phase 15: one Mamba layer at full width ({name}, d_model {cfg.d_model}, "
+                f"Di {cfg.mamba_expand * cfg.d_model}, N {cfg.ssm_state}): prefill of {rows} x "
+                f"{pre} tokens + {extra} decode steps vs one pass over {rows} x {total} tokens "
+                f"at positions {pre - 1}..{pre + extra - 1}: relative {rel:.2e} (by position "
+                f"{by_pos}; max |pass| {scale:.4f}; tolerance {tol:g}); decode steps with the "
+                f"{' / '.join(faults)}: relative "
+                f"{' / '.join(f'{v:.2e}' for v in faults.values())} (must read above {tol:g})")
+            assert rel < tol, (name, by_pos, scale)
+            assert all(v > tol for v in faults.values()), (name, faults)
+            out[name] = dict(rel=rel, by_position=by_pos, faults=faults)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-8 (rwkv6-7b), 10-11 (granite-3-8b), 12 (gemma2-9b), 13
-# (chatglm3-6b, command-r-35b) and 14 (qwen3-moe-30b-a3b): LM inference at
-# full width
+# (chatglm3-6b, command-r-35b), 14 (qwen3-moe-30b-a3b) and 15
+# (jamba-v0.1-52b): LM inference at full width
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class LMPath:
-    """One model's path and the kernel it must run: ``ops`` holds its launch
-    counter ``kernel``; every pass over the layers (forward, prefill)
-    launches it once a layer, and each decode step ``per_decode`` times a
-    layer. ``symbol`` picks its kernels out of a profile. ``forward``: (B, S,
-    prefill length, decode steps); ``serve``: (requests, prompt length, new
-    tokens, slots); ``widen``: whether the float32 leg runs with the
-    parameters copied to float32 beside the bf16 ones; ``f32_leg``: (layers,
-    prefill length, decode steps) of a float32 leg run instead after the bf16
-    parameters are freed, on the model cut to ``layers`` and initialised in
-    float32; ``lossless_ref``: hold prefill + decode to the forward of the
-    prefilled rows' own tokens (an MoE model's B x S forward drops routed
-    pairs that those passes keep) and only log the B x S forward's
-    difference."""
-    arch: str
+class KernelUse:
+    """A kernel a model's path must run: ``ops`` holds its launch counter
+    ``kernel``; every pass over the layers (forward, prefill) launches it
+    once in each layer whose mixer is one of ``mixers`` (None: every layer),
+    and each decode step ``per_decode`` times there. ``symbol`` picks its
+    kernels out of a profile."""
     ops: Any
     kernel: str
     symbol: str
     per_decode: int
+    mixers: Any = None
+
+    def layers(self, cfg) -> int:
+        if self.mixers is None:
+            return cfg.num_layers
+        return sum(cfg.mixer_at(layer) in self.mixers for layer in range(cfg.num_layers))
+
+    def launches(self, cfg, kind: str) -> int:
+        return self.layers(cfg) * (self.per_decode if kind == "decode" else 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMPath:
+    """One model's path and the kernels it must run (``uses``; the first is
+    the one whose forms ``forms`` lists: {(pass kind, dtype): the kernel's
+    forms} where it has several). ``layers``: the depth the model is cut to
+    on the card (0: its own). ``forward``: (B, S, prefill length, decode
+    steps); ``serve``: (requests, prompt length, new tokens, slots);
+    ``widen``: whether the float32 leg runs with the parameters copied to
+    float32 beside the bf16 ones; ``f32_leg``: (layers, prefill length,
+    decode steps, forward length) of a float32 leg run instead after the
+    bf16 parameters are freed, on the model cut to ``layers`` and
+    initialised in float32; ``lossless_ref``: hold the prefill to the
+    forward of its own tokens, and the decode steps to the forward of the
+    prefilled rows' first ``ref_len`` tokens (0: the prefill and decode
+    steps' own; longer where the model takes only some lengths) where no
+    routing leaves it (an MoE model's B x S forward drops routed pairs that
+    those passes keep), and only log the B x S forward's difference."""
+    arch: str
+    uses: Tuple[KernelUse, ...]
     forward_phase: str
     serve_phase: str
-    forms: Any = None  # {(pass kind, dtype): the kernel's forms} where it has several
+    forms: Any = None
     forward: Any = LM_FORWARD
     serve: Any = LM_SERVE
     widen: bool = True
     f32_leg: Any = None
     lossless_ref: bool = False
+    layers: int = 0
+    ref_len: int = 0
+
+    def config(self):
+        from repro_torch.configs import get_config
+
+        cfg = get_config(self.arch)
+        return cfg.scaled(num_layers=self.layers) if self.layers else cfg
 
 
 def lm_setup(path: LMPath):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = get_config(path.arch)
+    cfg = path.config()
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
@@ -2090,7 +2389,9 @@ def lm_setup(path: LMPath):
     moe = (f", MoE {cfg.num_experts} experts top-{cfg.experts_per_token} of width "
            f"{cfg.moe_d_ff}, {cfg.active_param_count()} parameters active a token"
            if cfg.num_experts else "")
-    log(f"{path.forward_phase}: {cfg.name} full width ({cfg.num_layers} layers, d_model "
+    depth = (f"{cfg.num_layers} layers" if not path.layers else
+             f"cut to {cfg.num_layers} of its {get_config(path.arch).num_layers} layers")
+    log(f"{path.forward_phase}: {cfg.name} full width ({depth}, d_model "
         f"{cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} KV) of {cfg.hd}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}{moe}): {n} parameters ({cfg.param_count()} in "
         f"param_count's matrices), {nbytes / 1e9:.2f} GB, initialised on the card in "
@@ -2098,57 +2399,71 @@ def lm_setup(path: LMPath):
     return cfg, params
 
 
-# Profile rows by kind: the kernel first, then these, by substrings of the
-# kernel's name (an indexed write names index_put in its template arguments,
-# an indexed read the plain index kernel).
+# Profile rows by kind: the path's kernels first, then these, by substrings
+# of the kernel's name (an indexed write names index_put in its template
+# arguments, an indexed read the plain index kernel).
 KINDS = (("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")), ("sort", ("sort", "Sort")),
          ("scatter", ("index_put", "scatter")), ("gather", ("index", "gather")),
          ("copy", ("copy",)))
 
 
-def by_category(rows, symbol):
-    """Device ms of profile rows ``(name, device µs)`` summed by kind: the
-    port's kernel, the cuBLAS GEMMs, sorts (the MoE layer's routing and
-    dispatch), indexed writes (its buckets) and reads (its combine, the
-    embedding), copies and casts, the other torch kernels."""
-    out = {"kernel": 0.0, **{k: 0.0 for k, _ in KINDS}, "other": 0.0}
+def by_category(rows, symbols):
+    """Device ms of profile rows ``(name, device µs)`` summed by kind: each
+    of the port's kernels (``symbols``: its name → a substring of its
+    device kernels' names), the cuBLAS GEMMs, sorts (the MoE layer's routing
+    and dispatch), indexed writes (its buckets) and reads (its combine, the
+    embedding), copies and casts, the other torch kernels (elementwise:
+    norms, activations, Mamba's conv products and sums)."""
+    out = {**{name: 0.0 for name in symbols}, **{k: 0.0 for k, _ in KINDS}, "other": 0.0}
     for key, us in rows:
-        kind = "kernel" if symbol in key else next(
+        kind = next((name for name, sym in symbols.items() if sym in key), None) or next(
             (k for k, subs in KINDS if any(s in key for s in subs)), "other")
         out[kind] += us / 1e3
     return {k: round(v, 2) for k, v in out.items()}
 
 
+def kernel_shares(path: LMPath, rows, busy_ms):
+    """'name x ms (share of busy)' for each of the path's kernels."""
+    parts = []
+    for u in path.uses:
+        ms = sum(r[1] for r in rows if u.symbol in r[0]) / 1e3
+        parts.append(f"{u.kernel} kernel {ms:.3f} ms, {ms / max(busy_ms, 1e-9):.3f} of busy")
+    return "; ".join(parts)
+
+
 class PassCounter:
-    """Runs one pass of a path with the kernel's counts set to 0 just before
-    it, asserts its launches, and keeps them by pass kind, with the forms
-    that ran by (pass kind, dtype)."""
+    """Runs one pass of a path with every kernel's count set to 0 just
+    before it, asserts each kernel's launches, and keeps them by kernel and
+    pass kind, with the first kernel's forms that ran by (pass kind,
+    dtype)."""
 
     def __init__(self, path: LMPath):
         self.path = path
-        self.total = {"forward": 0, "prefill": 0, "decode": 0}
+        self.total = {u.kernel: {"forward": 0, "prefill": 0, "decode": 0} for u in path.uses}
         self.forms = {}
 
-    def __call__(self, fn, want, kind, dtype):
-        ops = self.path.ops
-        ops.reset_launches()
+    def __call__(self, fn, cfg, kind):
+        for u in self.path.uses:
+            u.ops.reset_launches()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = ops.launches[self.path.kernel]
-        assert n == want, f"{self.path.kernel} launched {n} times, want {want}"
-        self.total[kind] += n
-        ran = {f for f, c in getattr(ops, "launches_by_form", {}).items() if c}
-        self.forms[(kind, dtype)] = self.forms.get((kind, dtype), set()) | ran
+        for u in self.path.uses:
+            n, want = u.ops.launches[u.kernel], u.launches(cfg, kind)
+            assert n == want, f"{u.kernel} launched {n} times in a {kind} pass, want {want}"
+            self.total[u.kernel][kind] += n
+        ran = {f for f, c in getattr(self.path.uses[0].ops, "launches_by_form", {}).items() if c}
+        self.forms[(kind, cfg.dtype)] = self.forms.get((kind, cfg.dtype), set()) | ran
         return res, wall
 
     def check_forms(self, ph, want):
         if want is None:
             return
-        log(f"{ph}: {self.path.kernel} forms by (pass kind, dtype): "
+        kernel = self.path.uses[0].kernel
+        log(f"{ph}: {kernel} forms by (pass kind, dtype): "
             f"{ {k: sorted(v) for k, v in self.forms.items()} }")
-        assert self.forms == want, (self.path.kernel, self.forms, want)
+        assert self.forms == want, (kernel, self.forms, want)
 
 
 @contextlib.contextmanager
@@ -2169,12 +2484,12 @@ def moe_dispatch_stats(cfg, ph, what, routes=False):
     finally:
         moe_mod.stats = None
     kept, routed = int(st["kept"]), st["routed"]
-    log(f"{ph}: {what}: MoE dispatch over {cfg.num_layers} layers: {routed} routed pairs, "
-        f"{routed - kept} dropped ({(routed - kept) / routed:.4f} of them), buckets filled "
-        f"{kept / st['slots']:.4f} ({kept} of {st['slots']} slots)")
+    log(f"{ph}: {what}: MoE dispatch over {cfg.num_layers_moe()} layers: {routed} routed "
+        f"pairs, {routed - kept} dropped ({(routed - kept) / routed:.4f} of them), buckets "
+        f"filled {kept / st['slots']:.4f} ({kept} of {st['slots']} slots)")
 
 
-def prefill_decode(counted, cfg, params, toks, pre, extra, per_step):
+def prefill_decode(counted, cfg, params, toks, pre, extra):
     """Logits [rows, 1 + extra, vocab] (float32) of prefill of ``toks[:, :pre]``
     (its last position) and of ``extra`` decode steps, and the prefill's wall."""
     from repro_torch.models import transformer as T
@@ -2182,44 +2497,60 @@ def prefill_decode(counted, cfg, params, toks, pre, extra, per_step):
     vocab = cfg.vocab_size  # the padded columns hold -1e30: compare the real ones
     (cache, last), wall = counted(
         lambda: T.prefill(cfg, params, {"tokens": toks[:, :pre]}, pre + extra + 8, device=DEV),
-        cfg.num_layers, "prefill", cfg.dtype)
+        cfg, "prefill")
     out = [last[:, 0, :vocab].float()]
     for i in range(extra):
         (logits, cache), _ = counted(
             lambda: T.decode_step(cfg, params, cache, toks[:, pre + i : pre + i + 1], pre + i,
-                                  device=DEV), per_step, "decode", cfg.dtype)
+                                  device=DEV), cfg, "decode")
         out.append(logits[:, 0, :vocab].float())
     return torch.stack(out, dim=1), wall
 
 
-def routing_flips(ph, cfg, fwd, passes, rows, pre, extra):
+def routing_flips(ph, cfg, fwd, passes, rows, pre, extra, ref_len):
     """Where the routing of prefill (``pre`` tokens a row) and ``extra``
-    decode steps first leaves the forward's at the same positions, layer by
-    layer (``fwd``, ``passes``: the recorded routes, the prefill's layers
-    first, then each step's): logs, for the prefilled positions, how many
-    left it, and for each decoded position in each row the first layer where
-    its top-k set differs and the forward's margin there (its k-th router
-    probability less its (k+1)-th). Returns the largest such margin."""
-    layers, k = cfg.num_layers, cfg.experts_per_token
+    decode steps first leaves the forward's at the same positions, MoE
+    layer by MoE layer (``fwd``: the routes of a forward of ``ref_len``
+    tokens a row; ``passes``: the prefill's MoE
+    layers first, then each step's): logs, for the prefilled positions, how
+    many left it, and for each decoded position in each row the first layer
+    where its top-k set differs and the forward's margin there (its k-th
+    router probability less its (k+1)-th). Returns the largest such margin
+    of a decoded position and the number of positions that left it."""
+    moe_layers = [layer for layer in range(cfg.num_layers)
+                  if cfg.mlp_at(layer) in ("moe", "moe_dense")]
+    layers, k = len(moe_layers), cfg.experts_per_token
+    s = ref_len
 
-    def stack(recs, s):
-        return torch.stack([i.view(rows, s, k) for i, _ in recs]).sort(-1).values
+    def stack(recs, n):
+        return torch.stack([i.view(rows, n, k) for i, _ in recs]).sort(-1).values
 
-    f_idx = stack(fwd, pre + extra)
-    f_gap = torch.stack([g.view(rows, pre + extra) for _, g in fwd])
+    f_idx = stack(fwd, s)[:, :, : pre + extra]
+    f_gap = torch.stack([g.view(rows, s) for _, g in fwd])[:, :, : pre + extra]
     p_idx = torch.cat([stack(passes[:layers], pre)] + [
         stack(passes[layers * (1 + i) : layers * (2 + i)], 1) for i in range(extra)], dim=2)
-    diff = (f_idx != p_idx).any(-1)                     # [layers, rows, positions]
+    diff = (f_idx != p_idx).any(-1)                     # [MoE layers, rows, positions]
     left = diff.any(0)
     first = diff.int().argmax(0)
     gap = f_gap.gather(0, first[None])[0]
-    steps = [[(int(first[r, pre + i]), float(gap[r, pre + i])) if left[r, pre + i] else None
-              for r in range(rows)] for i in range(extra)]
-    log(f"{ph}: routing against the lossless forward's: {int(left[:, :pre].sum())} of "
-        f"{rows * pre} prefilled positions leave it; decode steps (per row: the first layer "
-        f"whose top-{k} differs, the forward's margin there; None: never): {steps}; the "
+    steps = [[(moe_layers[int(first[r, pre + i])], float(gap[r, pre + i]))
+              if left[r, pre + i] else None for r in range(rows)] for i in range(extra)]
+    pre_left = left[:, :pre]
+    where = ""
+    if bool(pre_left.any()):
+        pos = [int(pre_left[r].nonzero()[0]) if bool(pre_left[r].any()) else None
+               for r in range(rows)]
+        crossed = gap[:, :pre][pre_left]
+        where = (f" (per row the first such position {pos}; the forward's margin at each one's "
+                 f"first differing layer: median {float(crossed.median()):.2e}, smallest "
+                 f"{float(crossed.min()):.2e})")
+    log(f"{ph}: routing against the lossless forward's: {int(pre_left.sum())} of "
+        f"{rows * pre} prefilled positions leave it{where}; decode steps (per row: the first "
+        f"layer whose top-{k} differs, the forward's margin there; None: never): {steps}; the "
         f"forward's margins: median {float(f_gap.median()):.2e}")
-    return float(gap[left].max()) if bool(left.any()) else 0.0
+    dec_left = left[:, pre:]
+    return (float(gap[:, pre:][dec_left].max()) if bool(dec_left.any()) else 0.0,
+            int(left.sum()))
 
 
 def logits_agree(ph, label, got, want, tol, pre, extra, against):
@@ -2232,27 +2563,27 @@ def logits_agree(ph, label, got, want, tol, pre, extra, against):
     assert err / scale < tol, (label, err, scale)
 
 
-def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
+def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, Dict[str, int]]:
     """loss_fn and forward on B x S tokens (``path.forward``: 4 x 4096 by
     default), a profiled forward, then prefill of the first tokens of (up to)
     two rows and decode steps against a forward's logits (``lossless_ref``:
     the forward of those rows' own tokens, else the B x S one), in bf16 and
-    (``path.widen``) float32. Returns the kernel launches of the phase by
+    (``path.widen``) float32. Returns each kernel's launches of the phase by
     pass kind."""
     from repro_torch.models import transformer as T
 
     ph = path.forward_phase
     b, s, pre, extra = path.forward
+    ref = path.ref_len or pre + extra
     seqs = min(b, 2)  # the rows prefilled and decoded
     gen = torch.Generator(device=DEV).manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEV)
     batch = {"tokens": toks}
     counted = PassCounter(path)
-    per_pass, per_step = cfg.num_layers, cfg.num_layers * path.per_decode
+    per_pass = {u.kernel: u.launches(cfg, "forward") for u in path.uses}
 
     torch.cuda.reset_peak_memory_stats()
-    loss, wall = counted(lambda: T.loss_fn(cfg, params, batch, device=DEV), per_pass, "forward",
-                         cfg.dtype)
+    loss, wall = counted(lambda: T.loss_fn(cfg, params, batch, device=DEV), cfg, "forward")
     assert bool(torch.isfinite(loss)), loss
     log(f"{ph}: loss_fn B={b} S={s}: loss={float(loss):.4f} (ln vocab "
         f"{math.log(cfg.vocab_size):.4f}) wall={wall:.3f} s tokens/s={b * s / wall:,.0f} "
@@ -2262,8 +2593,8 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
         torch.cuda.reset_peak_memory_stats()
         with (moe_dispatch_stats(cfg, ph, f"forward B={b} S={s}") if i == 0
               else contextlib.nullcontext()):
-            logits, wall = counted(lambda: T.forward(cfg, params, batch, device=DEV), per_pass,
-                                   "forward", cfg.dtype)
+            logits, wall = counted(lambda: T.forward(cfg, params, batch, device=DEV), cfg,
+                                   "forward")
         log(f"{ph}: forward {i + 1} B={b} S={s}: wall={wall:.3f} s "
             f"tokens/s={b * s / wall:,.0f} launches={per_pass} "
             f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -2276,21 +2607,20 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        (logits, wall) = counted(lambda: T.forward(cfg, params, batch, device=DEV), per_pass,
-                                 "forward", cfg.dtype)
+        (logits, wall) = counted(lambda: T.forward(cfg, params, batch, device=DEV), cfg,
+                                 "forward")
     del logits
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(t for _, t, _ in rows) / 1e3
-    ours = sum(t for k, t, _ in rows if path.symbol in k) / 1e3
     log(f"{ph}: profiled forward: wall={wall * 1e3:.1f} ms device busy={busy:.1f} ms "
-        f"({path.kernel} kernel {ours:.1f} ms, {ours / max(busy, 1e-9):.3f} of busy) "
-        f"idle share={1 - busy / (wall * 1e3):.3f}")
+        f"({kernel_shares(path, rows, busy)}) idle share={1 - busy / (wall * 1e3):.3f}")
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:10]:
         log(f"{ph}:   device {t / 1e3:9.2f} ms  x{n:<5d} {key[:90]}")
-    log(f"{ph}:   device ms by kind: {by_category([(k, t) for k, t, _ in rows], path.symbol)}")
+    log(f"{ph}:   device ms by kind: "
+        f"{by_category([(k, t) for k, t, _ in rows], {u.kernel: u.symbol for u in path.uses})}")
 
-    short = {"tokens": toks[:seqs, : pre + extra]}
+    short = {"tokens": toks[:seqs, :ref]}
     if path.lossless_ref:
         # A decoded token's hidden state carries bf16 roundings of other
         # product shapes than the forward's; where its k-th and (k+1)-th
@@ -2300,22 +2630,34 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
         # their routing left the forward's, and the float32 leg holds both.
         with moe_dispatch_stats(cfg, ph, f"prefill of {seqs} x {pre} tokens and {extra} "
                                 f"decode steps", routes=True) as st:
-            got, wall = prefill_decode(counted, cfg, params, toks[:seqs], pre, extra, per_step)
+            got, wall = prefill_decode(counted, cfg, params, toks[:seqs], pre, extra)
         passes = st.pop("routes")
         log(f"{ph}: bf16 prefill of {pre} tokens x{seqs}: wall {wall:.3f} s")
-        with moe_dispatch_stats(cfg, ph, f"forward of {seqs} x {pre + extra} tokens",
+        # The prefill against the forward of its own tokens: the same
+        # product shapes. A forward of another length runs others (its MoE
+        # buckets too), and one routing flip at any earlier position reaches
+        # every later one (through a Mamba state too).
+        same, _ = counted(
+            lambda: T.forward(cfg, params, {"tokens": toks[:seqs, :pre]}, device=DEV)
+            [:, pre - 1 :, :vocab].float(), cfg, "forward")
+        logits_agree(ph, "bf16 prefill", got[:, :1], same, LOGITS_TOL_BF16, pre, 0,
+                     f"the forward of {seqs} x {pre} tokens")
+        with moe_dispatch_stats(cfg, ph, f"forward of {seqs} x {ref} tokens",
                                 routes=True) as st:
             want, _ = counted(
-                lambda: T.forward(cfg, params, short, device=DEV)[:, pre - 1 :, :vocab].float(),
-                per_pass, "forward", cfg.dtype)
+                lambda: T.forward(cfg, params, short, device=DEV)[:, pre - 1 : pre + extra,
+                                                                  :vocab].float(),
+                cfg, "forward")
         fwd = st.pop("routes")
-        logits_agree(ph, "bf16 prefill", got[:, :1], want[:, :1], LOGITS_TOL_BF16, pre, 0,
-                     f"the forward of {seqs} x {pre + extra} tokens")
-        flips = routing_flips(ph, cfg, fwd, passes, seqs, pre, extra)
+        flips, moved = routing_flips(ph, cfg, fwd, passes, seqs, pre, extra, ref)
         rel = [round(float((got[:, j] - want[:, j]).abs().max() / want[:, j].abs().max()), 4)
-               for j in range(1, extra + 1)]
-        log(f"{ph}: bf16 decode steps vs the forward of {seqs} x {pre + extra} tokens, logged, "
-            f"not held: relative {rel}, same argmax "
+               for j in range(extra + 1)]
+        if not moved:
+            logits_agree(ph, "bf16", got, want, LOGITS_TOL_BF16, pre, extra,
+                         f"the forward of {seqs} x {ref} tokens, its routing equal")
+        log(f"{ph}: bf16 prefill and decode steps vs the forward of {seqs} x {ref} tokens, "
+            f"{'held above' if not moved else 'logged, not held (routing left it)'}: relative "
+            f"{rel}, same argmax "
             f"{int((got[:, 1:].argmax(-1) == want[:, 1:].argmax(-1)).sum())}/{seqs * extra}; "
             f"the largest margin a decode step's routing crossed {flips:.2e}")
         log(f"{ph}: the {b} x {s} forward ({b * s * cfg.experts_per_token} routed pairs a "
@@ -2324,16 +2666,17 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
             f"{float((full - want).abs().max() / want.abs().max()):.2e}, same argmax "
             f"{int((full.argmax(-1) == want.argmax(-1)).sum())}/{want.numel() // vocab}")
     else:
-        got, wall = prefill_decode(counted, cfg, params, toks[:seqs], pre, extra, per_step)
+        got, wall = prefill_decode(counted, cfg, params, toks[:seqs], pre, extra)
         log(f"{ph}: bf16 prefill of {pre} tokens x{seqs}: wall {wall:.3f} s")
         logits_agree(ph, "bf16", got, full, LOGITS_TOL_BF16, pre, extra,
                      f"the {b} x {s} forward")
         # bf16's own floor at these positions: the same forward in another batch
         # shape, and (below) the float32 forward of the same weights.
         other, _ = counted(
-            lambda: T.forward(cfg, params, short, device=DEV)[:, pre - 1 :, :vocab].float(),
-            per_pass, "forward", cfg.dtype)
-        log(f"{ph}: bf16 floor: forward of {seqs} x {pre + extra} tokens vs the {b} x {s} "
+            lambda: T.forward(cfg, params, short, device=DEV)[:, pre - 1 : pre + extra,
+                                                              :vocab].float(),
+            cfg, "forward")
+        log(f"{ph}: bf16 floor: forward of {seqs} x {ref} tokens vs the {b} x {s} "
             f"forward: relative {float((other - full).abs().max() / full.abs().max()):.2e}")
     if path.widen:
         # The same check in float32, with the parameters widened (exactly):
@@ -2346,13 +2689,14 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
                 wide.copy_(narrow)
         torch.cuda.reset_peak_memory_stats()
         want32, _ = counted(
-            lambda: T.forward(cfg32, p32, short, device=DEV)[:, pre - 1 :, :vocab].clone(),
-            per_pass, "forward", cfg32.dtype)
+            lambda: T.forward(cfg32, p32, short, device=DEV)[:, pre - 1 : pre + extra,
+                                                             :vocab].clone(),
+            cfg32, "forward")
         log(f"{ph}: bf16 floor: bf16 forward vs float32 forward: relative "
             f"{float((full - want32).abs().max() / want32.abs().max()):.2e}")
-        got32, _ = prefill_decode(counted, cfg32, p32, toks[:seqs], pre, extra, per_step)
+        got32, _ = prefill_decode(counted, cfg32, p32, toks[:seqs], pre, extra)
         logits_agree(ph, "float32", got32, want32, LOGITS_TOL_F32, pre, extra,
-                     f"the float32 forward of {seqs} x {pre + extra} tokens")
+                     f"the float32 forward of {seqs} x {ref} tokens")
         log(f"{ph}: float32 leg: {sum(p.numel() for p in p32.parameters()) * 4 / 1e9:.2f} GB "
             f"of float32 parameters beside the bf16 ones, max_memory_allocated="
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -2362,17 +2706,18 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, int]:
     return counted.total
 
 
-def phase_lm_f32(path: LMPath) -> Dict[str, int]:
+def phase_lm_f32(path: LMPath) -> Dict[str, Dict[str, int]]:
     """The float32 leg where a float32 copy of the whole model does not fit
     beside it: the model cut to ``path.f32_leg``'s layers, initialised in
     float32 on the card (after the bf16 parameters are freed), prefill +
-    decode steps of two rows against the forward of the same tokens, every
-    pass lossless; here the two may differ only in summation order. Returns
-    the kernel launches by pass kind."""
+    decode steps of two rows against the forward of the same tokens (and
+    more, up to the leg's forward length), every pass lossless; here the two
+    may differ only in summation order. Returns each kernel's launches by
+    pass kind."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    layers, pre, extra = path.f32_leg
+    layers, pre, extra, ref = path.f32_leg
     ph = path.forward_phase
     cfg = get_config(path.arch)
     cfg32 = cfg.scaled(num_layers=layers, dtype="float32")
@@ -2384,23 +2729,22 @@ def phase_lm_f32(path: LMPath) -> Dict[str, int]:
         f"{nbytes / 1e9:.2f} GB of float32 parameters, initialised on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     gen = torch.Generator(device=DEV).manual_seed(7)
-    toks = torch.randint(0, cfg.vocab_size, (2, pre + extra), generator=gen, device=DEV)
+    toks = torch.randint(0, cfg.vocab_size, (2, ref), generator=gen, device=DEV)
     counted = PassCounter(path)
     torch.cuda.reset_peak_memory_stats()
-    with moe_dispatch_stats(cfg32, ph, f"float32 forward of 2 x {pre + extra} tokens",
+    with moe_dispatch_stats(cfg32, ph, f"float32 forward of 2 x {ref} tokens",
                             routes=True) as st:
         want, wall = counted(lambda: T.forward(cfg32, params, {"tokens": toks}, device=DEV)
-                             [:, pre - 1 :, :cfg.vocab_size].clone(),
-                             layers, "forward", cfg32.dtype)
+                             [:, pre - 1 : pre + extra, :cfg.vocab_size].clone(),
+                             cfg32, "forward")
     fwd = st.pop("routes", None)
     with moe_dispatch_stats(cfg32, ph, f"float32 prefill of 2 x {pre} tokens and {extra} "
                             f"decode steps", routes=True) as st:
-        got, pwall = prefill_decode(counted, cfg32, params, toks, pre, extra,
-                                    layers * path.per_decode)
+        got, pwall = prefill_decode(counted, cfg32, params, toks, pre, extra)
     if fwd is not None:
-        routing_flips(ph, cfg32, fwd, st.pop("routes"), 2, pre, extra)
+        routing_flips(ph, cfg32, fwd, st.pop("routes"), 2, pre, extra, ref)
     logits_agree(ph, "float32", got, want, LOGITS_TOL_F32, pre, extra,
-                 f"the float32 forward of 2 x {pre + extra} tokens")
+                 f"the float32 forward of 2 x {ref} tokens")
     log(f"{ph}: float32 leg: forward wall {wall:.3f} s, prefill wall {pwall:.3f} s, "
         f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     counted.check_forms(ph, path.forms and {k: v for k, v in path.forms.items()
@@ -2430,25 +2774,24 @@ def decode_profile(path: LMPath, cfg, params, b: int, plen: int) -> None:
         T.decode_step(cfg, params, cache, toks[:, plen + 1 : plen + 2], plen + 1, device=DEV)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3
-    ours = sum(e.self_device_time_total for e in rows if path.symbol in e.key) / 1e3
-    n = sum(e.count for e in rows)
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(t for _, t, _ in rows) / 1e3
+    n = sum(c for _, _, c in rows)
     weights = sum(p.numel() * p.element_size() for p in params.parameters())
     log(f"{path.serve_phase}: profiled decode step B={b}: wall={wall * 1e3:.2f} ms (profiled) "
-        f"device busy={busy:.2f} ms over {n} kernels ({path.kernel} kernel {ours:.3f} ms), "
+        f"device busy={busy:.2f} ms over {n} kernels ({kernel_shares(path, rows, busy)}), "
         f"idle share={1 - busy / (wall * 1e3):.3f}; reading the {weights / 1e9:.2f} GB of "
         f"weights once takes {weights / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"{path.serve_phase}:   device {e.self_device_time_total / 1e3:8.3f} ms  "
-            f"x{e.count:<5d} {e.key[:90]}")
+    for key, t, c in sorted(rows, key=lambda r: -r[1])[:6]:
+        log(f"{path.serve_phase}:   device {t / 1e3:8.3f} ms  x{c:<5d} {key[:90]}")
     log(f"{path.serve_phase}:   device ms by kind: "
-        f"{by_category([(e.key, e.self_device_time_total) for e in rows], path.symbol)}")
+        f"{by_category([(k, t) for k, t, _ in rows], {u.kernel: u.symbol for u in path.uses})}")
 
 
-def phase_lm_serve(path: LMPath, cfg, params) -> int:
+def phase_lm_serve(path: LMPath, cfg, params) -> Dict[str, int]:
     """BatchedServer, greedy (``path.serve``: 16 requests of 512 prompt
-    tokens, 32 new tokens each, 8 slots by default). Returns the kernel
+    tokens, 32 new tokens each, 8 slots by default). Returns each kernel's
     launches of the measured run."""
     from repro_torch.serve.engine import BatchedServer, Request, ServeConfig
 
@@ -2468,21 +2811,27 @@ def phase_lm_serve(path: LMPath, cfg, params) -> int:
     reqs = requests(n_req)
     server = BatchedServer(cfg, params, scfg, device=DEV)
     torch.cuda.reset_peak_memory_stats()
-    path.ops.reset_launches()
+    for u in path.uses:
+        u.ops.reset_launches()
     with moe_dispatch_stats(cfg, ph, f"serving {n_req} requests"):
         stats = server.run(reqs)
         torch.cuda.synchronize()
-    n = path.ops.launches[path.kernel]
     groups = -(-n_req // slots)
-    want = cfg.num_layers * groups * (1 + (new - 1) * path.per_decode)
     assert all(r.done and len(r.out_tokens) == new for r in reqs), "a request is short"
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
-    assert n == want, f"{path.kernel} launched {n} times in {groups} groups, want {want}"
-    by_form = {f: c for f, c in getattr(path.ops, "launches_by_form", {}).items() if c}
+    launched = {}
+    for u in path.uses:
+        n = u.ops.launches[u.kernel]
+        want = u.layers(cfg) * groups * (1 + (new - 1) * u.per_decode)
+        assert n == want, f"{u.kernel} launched {n} times in {groups} groups, want {want}"
+        launched[u.kernel] = n
+    first = path.uses[0]
+    n = launched[first.kernel]
+    by_form = {f: c for f, c in getattr(first.ops, "launches_by_form", {}).items() if c}
     if path.forms is not None:  # each group: one prefill pass, then its decode steps
         (pf,), (df,) = path.forms[("prefill", cfg.dtype)], path.forms[("decode", cfg.dtype)]
-        prefills = cfg.num_layers * groups
-        assert by_form == {pf: prefills, df: n - prefills}, (path.kernel, by_form)
+        prefills = first.layers(cfg) * groups
+        assert by_form == {pf: prefills, df: n - prefills}, (first.kernel, by_form)
     lat = np.array([r.latency_s for r in reqs])
     peak = torch.cuda.max_memory_allocated()
     decode_profile(path, cfg, params, slots, plen)
@@ -2490,14 +2839,15 @@ def phase_lm_serve(path: LMPath, cfg, params) -> int:
         f"wall={stats['wall_s']:.3f} s, {stats['new_tokens']} decode tokens -> "
         f"{stats['tokens_per_s']:,.1f} tokens/s; all {n_req * new} generated tokens -> "
         f"{n_req * new / stats['wall_s']:,.1f} tokens/s; latency p50 "
-        f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f} s; launches={n}"
-        f"{f' by form {by_form}' if by_form else ''}; max_memory_allocated={peak / 1e9:.2f} GB")
-    return n
+        f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f} s; launches="
+        f"{launched}{f' by form {by_form}' if by_form else ''}; max_memory_allocated="
+        f"{peak / 1e9:.2f} GB")
+    return launched
 
 
-def lm_phases(path: LMPath) -> int:
+def lm_phases(path: LMPath) -> Dict[str, int]:
     """A model's forward and serving phases; its parameters are freed when it
-    returns. Returns the kernel launches of the main path."""
+    returns. Returns each kernel's launches on the main path."""
     cfg, params = lm_setup(path)
     by_kind = phase_lm_forward(path, cfg, params)
     served = phase_lm_serve(path, cfg, params)
@@ -2505,13 +2855,17 @@ def lm_phases(path: LMPath) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     if path.f32_leg is not None:
-        for kind, n in phase_lm_f32(path).items():
-            by_kind[kind] += n
-    log(f"{path.forward_phase}: {path.kernel} launches on the main path: {by_kind}, "
-        f"serving {served}")
-    for kind, n in by_kind.items():
-        assert n > 0 or (kind == "decode" and path.per_decode == 0), (path.kernel, kind)
-    return sum(by_kind.values()) + served
+        for kernel, kinds in phase_lm_f32(path).items():
+            for kind, n in kinds.items():
+                by_kind[kernel][kind] += n
+    out = {}
+    for u in path.uses:
+        log(f"{path.forward_phase}: {u.kernel} launches on the main path: {by_kind[u.kernel]}, "
+            f"serving {served[u.kernel]}")
+        for kind, n in by_kind[u.kernel].items():
+            assert n > 0 or (kind == "decode" and u.per_decode == 0), (u.kernel, kind)
+        out[u.kernel] = sum(by_kind[u.kernel].values()) + served[u.kernel]
+    return out
 
 
 def main() -> int:
@@ -2525,6 +2879,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.intersect import ops as ik
     from repro_torch.kernels.rwkv6 import ops as rk
+    from repro_torch.kernels.ssm_scan import ops as sk
 
     # -- phase 1 ---------------------------------------------------------------
     smi = subprocess.run(
@@ -2535,7 +2890,7 @@ def main() -> int:
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = (ik.LIB, rk.LIB, fa.LIB, chase_library())
+    libs = (ik.LIB, rk.LIB, fa.LIB, sk.LIB, chase_library())
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, started together
         list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:
@@ -2553,38 +2908,55 @@ def main() -> int:
     # -- phases 6-8 ------------------------------------------------------------
     rwkv = phase_rwkv6_kernel(rk)
     log(f"chip_smoke: phase 6 done at {time.perf_counter() - t_all:.1f} s")
-    launches["rwkv6"] = lm_phases(LMPath("rwkv6-7b", rk, "rwkv6", "rwkv6_kernel", 0,
-                                         "phase 7", "phase 8"))
+    launches["rwkv6"] = lm_phases(LMPath(
+        "rwkv6-7b", (KernelUse(rk, "rwkv6", "rwkv6_kernel", 0),), "phase 7", "phase 8"))["rwkv6"]
     log(f"chip_smoke: phases 6-8 done at {time.perf_counter() - t_all:.1f} s")
 
     # -- phases 9-11 -----------------------------------------------------------
     flash = phase_flash_kernel(fa)
     log(f"chip_smoke: phase 9 done at {time.perf_counter() - t_all:.1f} s")
+    attn = (KernelUse(fa, "flash_attention", "flash_", 1),)
     launches["flash_attention"] = lm_phases(LMPath(
-        "granite-3-8b", fa, "flash_attention", "flash_", 1, "phase 10", "phase 11",
-        GRANITE_FORMS))
+        "granite-3-8b", attn, "phase 10", "phase 11", GRANITE_FORMS))["flash_attention"]
     log(f"chip_smoke: phases 9-11 done at {time.perf_counter() - t_all:.1f} s")
 
     # -- phase 12: gemma2-9b, its local layers' window in the flash kernel ------
     launches["flash_attention"] += lm_phases(LMPath(
-        "gemma2-9b", fa, "flash_attention", "flash_", 1, "phase 12", "phase 12",
-        GEMMA2_FORMS, forward=GEMMA2_FORWARD, serve=GEMMA2_SERVE))
+        "gemma2-9b", attn, "phase 12", "phase 12", GEMMA2_FORMS, forward=GEMMA2_FORWARD,
+        serve=GEMMA2_SERVE))["flash_attention"]
     log(f"chip_smoke: phase 12 done at {time.perf_counter() - t_all:.1f} s")
 
     # -- phase 13: chatglm3-6b and command-r-35b --------------------------------
     for arch in ("chatglm3-6b", "command-r-35b"):
         launches["flash_attention"] += lm_phases(LMPath(
-            arch, fa, "flash_attention", "flash_", 1, "phase 13", "phase 13",
-            DENSE_FORMS[arch], forward=DENSE_FORWARD[arch], serve=DENSE_SERVE,
-            widen=arch != "command-r-35b"))
+            arch, attn, "phase 13", "phase 13", DENSE_FORMS[arch],
+            forward=DENSE_FORWARD[arch], serve=DENSE_SERVE,
+            widen=arch != "command-r-35b"))["flash_attention"]
     log(f"chip_smoke: phase 13 done at {time.perf_counter() - t_all:.1f} s")
 
     # -- phase 14: qwen3-moe-30b-a3b, the MoE layer -------------------------------
     launches["flash_attention"] += lm_phases(LMPath(
-        "qwen3-moe-30b-a3b", fa, "flash_attention", "flash_", 1, "phase 14", "phase 14",
-        GRANITE_FORMS, forward=QWEN3_FORWARD, serve=DENSE_SERVE, widen=False,
-        f32_leg=QWEN3_F32, lossless_ref=True))
+        "qwen3-moe-30b-a3b", attn, "phase 14", "phase 14", GRANITE_FORMS,
+        forward=QWEN3_FORWARD, serve=DENSE_SERVE, widen=False, f32_leg=QWEN3_F32,
+        lossless_ref=True))["flash_attention"]
     log(f"chip_smoke: phase 14 done at {time.perf_counter() - t_all:.1f} s")
+
+    # -- phase 15: jamba-v0.1-52b, the Mamba mixer on the ssm_scan kernel --------
+    t15 = time.perf_counter()
+    scan = phase_ssm_scan_kernel(sk)
+    scan["mamba_layer"] = phase_mamba_cache()
+    log(f"chip_smoke: phase 15's kernel and layer checks done at "
+        f"{time.perf_counter() - t_all:.1f} s")
+    jamba = lm_phases(LMPath(
+        "jamba-v0.1-52b", (KernelUse(fa, "flash_attention", "flash_", 1, ("attn",)),
+                           KernelUse(sk, "ssm_scan", "ssm_scan_kernel", 1, ("mamba",))),
+        "phase 15", "phase 15", GRANITE_FORMS, forward=JAMBA_FORWARD, serve=DENSE_SERVE,
+        widen=False, f32_leg=JAMBA_F32, lossless_ref=True, layers=JAMBA_LAYERS,
+        ref_len=JAMBA_REF_LEN))
+    launches["flash_attention"] += jamba["flash_attention"]
+    launches["ssm_scan"] = jamba["ssm_scan"]
+    log(f"chip_smoke: phase 15 took {time.perf_counter() - t15:.1f} s, done at "
+        f"{time.perf_counter() - t_all:.1f} s")
 
     for name in launches:
         assert launches[name] > 0, f"{name} was never launched on the main path"
@@ -2611,6 +2983,14 @@ def main() -> int:
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
         configs=flash["configs"], unaligned=flash["unaligned"]))
+    head = scan["configs"][0]
+    kernels.append(dict(
+        name="ssm_scan", route="cuda", source=SCAN_SOURCE, replaces=SCAN_REPLACES,
+        replaces_note="the JAX package's plain lax.scan (no TPU kernel)",
+        launches=launches["ssm_scan"], max_abs_err=scan["max_abs_err"],
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
+        configs=scan["configs"], edges=scan["edges"], mamba_layer=scan["mamba_layer"]))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

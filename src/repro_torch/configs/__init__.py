@@ -20,6 +20,7 @@ ARCH_MODULES: Dict[str, str] = {
     "command-r-35b": "repro_torch.configs.command_r_35b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
     "huge-enum": "repro_torch.configs.huge_enum",
 }
 

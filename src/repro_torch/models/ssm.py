@@ -1,7 +1,10 @@
-"""The RWKV6 (Finch) token mixer: parameters, init and the block, with its
-three branches (no state, prefill with state, one-token decode).
+"""The attention-free token mixers: Mamba (jamba's 7 of 8 layers) and RWKV6
+(Finch), each with its parameters, init and block.
 
-Mamba comes with the hybrid slice.
+Mamba's block takes no state (the whole sequence from a zero state) or its
+decode state (conv tail, h), and returns the new one either way; its scan
+runs in ``kernels.ssm_scan``. RWKV6's block has three branches (no state,
+prefill with state, one-token decode).
 """
 from __future__ import annotations
 
@@ -11,9 +14,133 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops
+from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.models.layers import dense_init, empty_param, rmsnorm
 
 RWKV_LORA = 64
+MAMBA_CHUNK = 128  # the JAX package's scan chunk, which sets the length contract
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM)
+# ---------------------------------------------------------------------------
+
+class Mamba(nn.Module):
+    """Parameters of one Mamba mixer, named and shaped as in the JAX package,
+    with ``di = expand * d_model`` and ``dt_rank = max(1, d_model // 16)``:
+    ``in_proj`` [d, 2 di], the depthwise conv ``conv_w`` [K, di] and
+    ``conv_b`` [di], ``x_proj`` [di, dt_rank + 2 N], ``dt_proj`` [dt_rank,
+    di], ``dt_bias`` [di] f32, ``a_log`` [di, N] f32, ``d_skip`` [di] f32,
+    ``out_proj`` [di, d]."""
+
+    def __init__(self, d_model: int, dtype: torch.dtype, *, expand: int = 2, state: int = 16,
+                 conv_dim: int = 4, device=None):
+        super().__init__()
+        f32 = torch.float32
+        di, rank = expand * d_model, max(1, d_model // 16)
+        self.in_proj = empty_param((d_model, 2 * di), dtype, device)
+        self.conv_w = empty_param((conv_dim, di), dtype, device)
+        self.conv_b = empty_param((di,), dtype, device)
+        self.x_proj = empty_param((di, rank + 2 * state), dtype, device)
+        self.dt_proj = empty_param((rank, di), dtype, device)
+        self.dt_bias = empty_param((di,), f32, device)
+        self.a_log = empty_param((di, state), f32, device)
+        self.d_skip = empty_param((di,), f32, device)
+        self.out_proj = empty_param((di, d_model), dtype, device)
+
+
+def mamba_init(gen: torch.Generator, d_model: int, *, expand: int = 2, state: int = 16,
+               conv_dim: int = 4, dtype: torch.dtype = torch.bfloat16) -> Mamba:
+    """The JAX package's scales: fan-in for the projections, 0.5 for the conv,
+    zero biases, ``a_log = log(1..N)`` on every channel, ``d_skip = 1``."""
+    m = Mamba(d_model, dtype, expand=expand, state=state, conv_dim=conv_dim, device=gen.device)
+    di, rank = expand * d_model, max(1, d_model // 16)
+    m.in_proj.copy_(dense_init(gen, (d_model, 2 * di), dtype))
+    m.conv_w.copy_(dense_init(gen, (conv_dim, di), dtype, scale=0.5))
+    m.conv_b.zero_()
+    m.x_proj.copy_(dense_init(gen, (di, rank + 2 * state), dtype))
+    m.dt_proj.copy_(dense_init(gen, (rank, di), dtype))
+    m.dt_bias.zero_()
+    m.a_log.copy_(torch.log(torch.arange(1, state + 1, dtype=torch.float32,
+                                         device=gen.device)).expand(di, state))
+    m.d_skip.fill_(1.0)
+    m.out_proj.copy_(dense_init(gen, (di, d_model), dtype))
+    return m
+
+
+def _causal_conv(x, w, b, tail=None):
+    """x [B, S, Di], w [K, Di]: the depthwise causal conv, its K products
+    summed in the JAX package's order. ``tail`` [B, K-1, Di] carries the
+    decode state (zeros if None) → (y, new tail): the last K-1 rows of
+    tail ++ x, so that for S < K-1 some of them come from the old tail."""
+    k = w.shape[0]
+    if tail is None:
+        tail = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([tail, x], dim=1)
+    y = sum(xp[:, i : i + x.shape[1]] * w[i] for i in range(k))
+    new_tail = xp[:, -(k - 1):] if k > 1 else tail
+    return y + b, new_tail
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)),
+    with no switch to x above a threshold, as torch's softplus has."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _silu(x):
+    """``jax.nn.silu``: x * logistic(x), the logistic as 1 / (1 + exp(-x)),
+    each step rounded to x's dtype, as XLA computes it (in bfloat16 it
+    differs from torch's silu, which rounds once, by a unit in the last
+    place at about a third of the inputs)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def mamba_block(p: Mamba, x: torch.Tensor,
+                state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                chunk: int = MAMBA_CHUNK):
+    """x [B, S, d] → (y [B, S, d], (conv tail [B, K-1, Di], h [B, Di, N] f32)).
+
+    ``state`` = (conv tail, h) continues a sequence (None: from zeros). The
+    JAX package scans S > 1 tokens in chunks of ``min(chunk, S)`` and asserts
+    that they divide S; the port keeps that contract and raises
+    ``ValueError`` on such an S (e.g. 200), though its kernel needs none."""
+    b, s, _ = x.shape
+    if s > 1 and s % min(chunk, s):
+        raise ValueError(f"mamba_block: a sequence of {s} tokens is not a multiple of the "
+                         f"scan chunk {min(chunk, s)} (the JAX package rejects it too)")
+    d_inner = p.in_proj.shape[1] // 2
+    nstate = p.a_log.shape[1]
+    f32 = torch.float32
+    x1, z = torch.split(x @ p.in_proj, d_inner, dim=-1)
+    x1, new_tail = _causal_conv(x1, p.conv_w, p.conv_b, None if state is None else state[0])
+    x1 = _silu(x1)
+
+    proj = x1 @ p.x_proj
+    rank = p.dt_proj.shape[0]
+    dt, bmat, cmat = torch.split(proj, [rank, nstate, nstate], dim=-1)  # views
+    dt = _softplus((dt @ p.dt_proj).to(f32) + p.dt_bias)                 # [B, S, Di]
+    a = -torch.exp(p.a_log)                                              # [Di, N]
+    h0 = torch.zeros((b, d_inner, nstate), dtype=f32, device=x.device) if state is None \
+        else state[1]
+    y, new_h = scan_ops.ssm_scan(dt, x1, a, bmat, cmat, h0)
+    y = y + p.d_skip * x1.to(f32)
+    y = y.to(x.dtype) * _silu(z)
+    return y @ p.out_proj, (new_tail, new_h)
+
+
+def mamba_state_shape(cfg_d_model: int, batch: int, *, expand=2, state=16, conv_dim=4):
+    """((conv tail), (h)) shapes of one layer's decode state."""
+    d_inner = expand * cfg_d_model
+    return (
+        (batch, conv_dim - 1, d_inner),   # conv tail
+        (batch, d_inner, state),          # h
+    )
+
+
+# ---------------------------------------------------------------------------
+# RWKV6
+# ---------------------------------------------------------------------------
 
 
 class RWKV6(nn.Module):

@@ -1,14 +1,15 @@
 """The decoder stack of the ported language models, in PyTorch.
 
 ``ModelConfig`` is the JAX package's config, copied whole. The stack is a
-``ModuleList`` of layers (not a scanned stack of stacked parameters); only
-``attn`` (global GQA attention), ``attn_local`` (the same with a sliding
-window of ``local_window`` keys) and ``rwkv`` mixers and ``dense``, ``moe``
-and ``moe_dense`` (a dense MLP and the MoE layer side by side, their outputs
-summed) MLPs are ported, and any other mixer raises ``NotImplementedError``
-by name. The LM runs on one process: its MoE layers take the ``local``
-dispatch (``_moe_comm_mode`` without a group); ``models.moe.moe_block``
-takes a group itself.
+``ModuleList`` of layers (not a scanned stack of stacked parameters). Every
+mixer of the JAX package is ported: ``attn`` (global GQA attention),
+``attn_local`` (the same with a sliding window of ``local_window`` keys),
+``mamba`` and ``rwkv``; so are the ``dense``, ``moe`` and ``moe_dense`` (a
+dense MLP and the MoE layer side by side, their outputs summed) MLPs. Any
+other mixer or MLP raises ``NotImplementedError`` by name, and so do
+frontends and encoders. The LM runs on one process: its MoE layers take the
+``local`` dispatch (``_moe_comm_mode`` without a group);
+``models.moe.moe_block`` takes a group itself.
 
 API (the JAX package's, with an explicit device and generator):
   init_params(cfg, gen=None, *, seed=0, device=None)      → LM
@@ -24,11 +25,12 @@ Everything runs under ``torch.inference_mode()``. The decode cache has the
 JAX package's layout, with G the number of layer groups: ``{"pos<p>":
 {"attn": {"k", "v": [G, B, max_len, KV, hd], "len": [G] int32}}}`` for an
 attention position (a local one too: ``max_len`` positions, as the JAX
-package allocates, not a ring of ``local_window``) and ``{"pos<p>":
-{"rwkv": (x_prev [G, B, d], S [G, B, H, hd, hd])}}`` for an RWKV one. It
-is updated in place: ``decode_step`` returns the cache it was given, which
-saves a copy of the whole state at every step. ``len`` lives on the host, so
-reading the valid prefix of the KV cache needs no device sync.
+package allocates, not a ring of ``local_window``), ``{"pos<p>": {"mamba":
+(conv_tail [G, B, K-1, Di], h [G, B, Di, N] f32)}}`` for a Mamba one and
+``{"pos<p>": {"rwkv": (x_prev [G, B, d], S [G, B, H, hd, hd])}}`` for an
+RWKV one. It is updated in place: ``decode_step`` returns the cache it was
+given, which saves a copy of the whole state at every step. ``len`` lives on
+the host, so reading the valid prefix of the KV cache needs no device sync.
 """
 from __future__ import annotations
 
@@ -190,12 +192,13 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 ATTN_MIXERS = ("attn", "attn_local")
+MIXERS = ATTN_MIXERS + ("mamba", "rwkv")
 MLPS = ("dense", "moe", "moe_dense")
 
 
 def _check_ported(cfg: ModelConfig, layer: int) -> None:
     mixer, mlp = cfg.mixer_at(layer), cfg.mlp_at(layer)
-    if mixer not in ATTN_MIXERS + ("rwkv",):
+    if mixer not in MIXERS:
         raise NotImplementedError(f"mixer {mixer!r} (layer {layer} of {cfg.name}) is not ported")
     if mlp not in MLPS:
         raise NotImplementedError(f"mlp {mlp!r} (layer {layer} of {cfg.name}) is not ported")
@@ -217,6 +220,9 @@ class Block(nn.Module):
         self.ln2 = empty_param((cfg.d_model,), torch.float32, device)
         if self.spec is not None:
             self.attn = Attention(cfg.d_model, self.spec, dt, device)
+        elif self.mixer == "mamba":
+            self.mamba = ssm_mod.Mamba(cfg.d_model, dt, expand=cfg.mamba_expand,
+                                       state=cfg.ssm_state, conv_dim=cfg.ssm_conv, device=device)
         else:
             self.rwkv = ssm_mod.RWKV6(cfg.d_model, cfg.num_heads, dt, device=device)
         kind = cfg.mlp_at(layer)
@@ -267,6 +273,9 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *, seed
         blk.ln2.zero_()
         if blk.spec is not None:
             blk.attn = attn_init(gen, cfg.d_model, blk.spec, dt)
+        elif blk.mixer == "mamba":
+            blk.mamba = ssm_mod.mamba_init(gen, cfg.d_model, expand=cfg.mamba_expand,
+                                           state=cfg.ssm_state, conv_dim=cfg.ssm_conv, dtype=dt)
         else:
             blk.rwkv = ssm_mod.rwkv6_init(gen, cfg.d_model, cfg.num_heads, dtype=dt)
         if hasattr(blk, "mlp"):
@@ -341,6 +350,8 @@ def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, positions: torch
     if blk.spec is not None:
         y, new_state = attention_block(blk.attn, h, blk.spec, positions, state,
                                        chunk=cfg.attn_chunk)
+    elif blk.mixer == "mamba":
+        y, new_state = ssm_mod.mamba_block(blk.mamba, h, state)
     else:
         y, new_state = ssm_mod.rwkv6_block(blk.rwkv, h, cfg.num_heads, state)
     x = x + y
@@ -387,8 +398,8 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *, device=None) -> torch.
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> Dict[str, Any]:
     """Zero decode state for ``batch`` sequences: a KV cache of ``max_len``
-    positions for each attention layer; RWKV's state does not grow with the
-    sequence."""
+    positions for each attention layer; Mamba's and RWKV's states do not grow
+    with the sequence."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
     ng = cfg.num_groups
@@ -402,6 +413,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> Di
                 "v": torch.zeros(shape, dtype=dt, device=dev),
                 "len": torch.zeros((ng,), dtype=torch.int32),
             }}
+            continue
+        if cfg.mixer_at(pos) == "mamba":
+            di = cfg.mamba_expand * cfg.d_model
+            cache[f"pos{pos}"] = {"mamba": (
+                torch.zeros((ng, batch, cfg.ssm_conv - 1, di), dtype=dt, device=dev),
+                torch.zeros((ng, batch, di, cfg.ssm_state), dtype=torch.float32, device=dev),
+            )}
             continue
         hd = cfg.d_model // cfg.num_heads
         cache[f"pos{pos}"] = {"rwkv": (
@@ -431,10 +449,12 @@ def _run_with_cache(cfg: ModelConfig, params: LM, x: torch.Tensor, positions: to
                 "k": kv["k"][g], "v": kv["v"][g], "len": int(kv["len"][g])})
             kv["len"][g] = new["len"]
             continue
-        x_prev, s = entry["rwkv"]
-        x, (new_prev, new_s) = _apply_layer(cfg, blk, x, positions, (x_prev[g], s[g]))
-        x_prev[g].copy_(new_prev)
-        s[g].copy_(new_s)
+        # Mamba's (conv tail, h) or RWKV's (x_prev, S), updated in place.
+        first, second = entry[blk.mixer]
+        x, (new_first, new_second) = _apply_layer(cfg, blk, x, positions,
+                                                  (first[g], second[g]))
+        first[g].copy_(new_first)
+        second[g].copy_(new_second)
     return x
 
 
@@ -457,8 +477,8 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Dict, tokens, pos=None, *,
     position. With attention layers it must equal the KV cache's length,
     else ``ValueError``: the kernel places the query on the diagonal after
     the cached keys, where the JAX package masks by ``pos`` itself, and the
-    two agree only there (the JAX server never passes another). RWKV does not
-    need it."""
+    two agree only there (the JAX server never passes another). Mamba and
+    RWKV do not need it."""
     dev = params_device(params, device)
     length = _cache_len(cfg, cache)
     if length is not None and pos is not None and int(pos) != length:

@@ -41,6 +41,14 @@ equal the CPU port's within 1e-5 (float32) and 1e-2 (bfloat16) of the
 largest CPU output, with routing and the dispatch's bookkeeping bit-equal
 in both capacity regimes; two card runs must be bit-equal (the combine adds
 each token's pairs in order) and zero rows must take experts 0..k-1.
+Mamba's selective-scan kernel (``-k ssm_scan``) must be within 1e-4 of its
+plain version relative to the largest plain value, as the RWKV6 kernel:
+float32 throughout, another summation order over the states and fused
+multiply-adds, over up to 4,096 dependent steps; its tests sit at its tile
+edges (T = 1, 31, 32, 33), channel counts that leave a block part empty,
+N < 16, B and C as strided slices of one projection, and the decay edges
+(underflow to 0, and decay about 1 over 4,096 steps); jamba's smoke config
+at 16 layers runs on the card as on the CPU (``-k jamba``).
 """
 import dataclasses
 import math
@@ -54,6 +62,8 @@ from repro_torch.graph.storage import INVALID
 from repro_torch.kernels.intersect import ops as ik
 from repro_torch.kernels.rwkv6 import ops as rk
 from repro_torch.kernels.rwkv6.ref import rwkv6_ref
+from repro_torch.kernels.ssm_scan import ops as sk
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.kernels.intersect.ref import (
     fused_extend_ref,
     fused_verify_ref,
@@ -1203,3 +1213,119 @@ def test_moe_smoke_on_card_equals_cpu_port(cuda):
         logits, cache = T.decode_step(cfg, gpu_params, cache, toks[:, i : i + 1], i, device=cuda)
         steps.append(logits)
     assert float((torch.cat(steps, 1).cpu() - want[:, 35:40]).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Mamba's selective scan
+# ---------------------------------------------------------------------------
+
+SCAN_TOL = 1e-4
+
+
+def _scan_inputs(b, t, di, n, dtype, dev, seed=0, dt_scale=None):
+    """dt (softplus of a unit normal, or ``dt_scale`` times a uniform draw),
+    x, a = -(1..N) times a per-channel rate, B, C, h0, as the block forms
+    them; B and C are slices of one [B, T, 8 + 2N] projection, as
+    ``mamba_block`` hands them over."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dt_scale is None:
+        dt = torch.nn.functional.softplus(torch.randn((b, t, di), generator=g, device=dev))
+    else:
+        dt = torch.rand((b, t, di), generator=g, device=dev) * dt_scale
+    x = torch.randn((b, t, di), generator=g, device=dev).to(dtype)
+    rate = torch.rand((di, 1), generator=g, device=dev) * 0.95 + 0.05
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev) * rate
+    proj = torch.randn((b, t, 8 + 2 * n), generator=g, device=dev).to(dtype)
+    h0 = torch.randn((b, di, n), generator=g, device=dev)
+    return [dt, x, a, proj[..., 8 : 8 + n], proj[..., 8 + n :], h0]
+
+
+def _scan_check(args):
+    before = sk.launches["ssm_scan"]
+    y, h = sk.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert sk.launches["ssm_scan"] == before + 1
+    want_y, want_h = ssm_scan_ref(*args)
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == want_y.shape and h.shape == want_h.shape
+    assert bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+    return max(_rel(y, want_y), _rel(h, want_h))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("di,n", [(256, 16), (40, 16), (96, 5)])
+@pytest.mark.parametrize("t", [1, 31, 32, 33, 200])
+def test_ssm_scan_kernel_matches_plain(cuda, t, di, n, dtype):
+    assert _scan_check(_scan_inputs(2, t, di, n, dtype, cuda, seed=t + di + n)) < SCAN_TOL
+
+
+def test_ssm_scan_kernel_takes_strided_and_transposed_operands(cuda):
+    """B and C as slices of x_proj's output (unit stride along N: read in
+    place), as views whose last axis is strided (copied), and x, dt as
+    transposed views (copied)."""
+    b, t, di, n = 3, 70, 64, 16
+    args = _scan_inputs(b, t, di, n, torch.bfloat16, cuda, seed=5)
+    assert not args[3].is_contiguous() and args[3].stride(-1) == 1
+    assert _scan_check(args) < SCAN_TOL
+    bt = args[3].contiguous().transpose(1, 2).contiguous().transpose(1, 2)  # [B, T, N], N strided
+    ct = args[4].contiguous().transpose(1, 2).contiguous().transpose(1, 2)
+    assert bt.stride(-1) != 1
+    xt = args[1].transpose(0, 1).contiguous().transpose(0, 1)
+    dtt = args[0].transpose(0, 1).contiguous().transpose(0, 1)
+    assert not xt.is_contiguous() and not dtt.is_contiguous()
+    assert _scan_check([dtt, xt, args[2], bt, ct, args[5]]) < SCAN_TOL
+
+
+@pytest.mark.parametrize("edge,t,dt_scale", [("decay underflows to 0", 64, 200.0),
+                                             ("decay about 1", 4096, 1e-5),
+                                             ("zero dt", 33, 0.0)])
+def test_ssm_scan_kernel_at_decay_edges(cuda, edge, t, dt_scale):
+    args = _scan_inputs(2, t, 64, 16, torch.bfloat16, cuda, seed=t, dt_scale=dt_scale)
+    assert _scan_check(args) < SCAN_TOL, edge
+
+
+def test_ssm_scan_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.core.faults import KernelFault
+
+    args = _scan_inputs(1, 8, 32, 17, torch.float32, cuda)
+    with pytest.raises(KernelFault, match="N <= 16"):
+        sk.ssm_scan(*args)
+    args = _scan_inputs(1, 8, 32, 16, torch.float16, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sk.ssm_scan(*args)
+    args = _scan_inputs(1, 8, 32, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        sk.ssm_scan(*args[:5], args[5].cpu())
+
+
+def test_jamba_smoke_on_card_equals_cpu(cuda):
+    """jamba's smoke config at 16 layers, float32, on the card: the forward
+    within 1e-4 of the CPU port's largest logit (the kernel against the
+    plain scan, cuBLAS against the CPU's products), 14 scan launches a
+    pass and a decode step, and greedy served tokens equal the CPU's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import BatchedServer, Request, ServeConfig
+
+    cfg = smoke_config("jamba-v0.1-52b").scaled(num_layers=16, dtype="float32")
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    gpu_params = T.init_params(cfg, seed=0, device="cpu").to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 128)))
+    want = T.forward(cfg, cpu_params, {"tokens": toks}, device="cpu")
+    sk.reset_launches()
+    got = T.forward(cfg, gpu_params, {"tokens": toks}, device=cuda)
+    assert sk.launches["ssm_scan"] == 14
+    assert _rel(got.cpu(), want) < 1e-4
+    prompts = [np.random.default_rng(i).integers(2, cfg.vocab_size, 12).astype(np.int32)
+               for i in range(5)]
+    scfg = ServeConfig(max_len=32, batch_slots=2, max_new_tokens=6, eos_token=-1)
+    out = {}
+    for dev, params in (("cpu", cpu_params), (cuda, gpu_params)):
+        reqs = [Request(prompt=p.copy()) for p in prompts]
+        sk.reset_launches()
+        BatchedServer(cfg, params, scfg, device=dev).run(reqs)
+        assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
+        out[str(dev)] = ([r.out_tokens for r in reqs], sk.launches["ssm_scan"])
+    assert out["cpu"][1] == 0
+    assert out["cuda"][1] == 14 * 3 * 6  # three groups: a prefill and 5 decode steps each
+    assert out["cuda"][0] == out["cpu"][0]

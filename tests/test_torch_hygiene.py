@@ -44,7 +44,9 @@ def test_port_imports_without_jax_or_repro():
               "repro_torch.launch.exp_chaos", "repro_torch.launch.exp_streaming",
               "repro_torch.analysis.__main__", "repro_torch.analysis.lint",
               "repro_torch.configs.huge_enum", "repro_torch.models.moe",
-              "repro_torch.configs.qwen3_moe_30b_a3b", "repro_torch.configs.arctic_480b"):
+              "repro_torch.configs.qwen3_moe_30b_a3b", "repro_torch.configs.arctic_480b",
+              "repro_torch.kernels.ssm_scan.ops", "repro_torch.kernels.ssm_scan.ref",
+              "repro_torch.configs.jamba_v01_52b"):
         assert m in mods, m
     code = (
         "import sys\n"
@@ -67,7 +69,7 @@ def test_port_imports_without_jax_or_repro():
 
 @pytest.mark.parametrize("first", [
     "repro_torch.kernels.build", "repro_torch.kernels.rwkv6.ops",
-    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.ssm_scan.ops",
     "repro_torch.kernels.intersect.ops", "repro_torch.models.transformer",
     "repro_torch.serve.engine", "repro_torch.analysis.flowcheck", "repro_torch.analysis",
     "repro_torch.core.paths", "repro_torch.launch.table4",
@@ -154,23 +156,24 @@ def test_lm_entry_points_raise_without_cuda():
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import BatchedServer, ServeConfig
 
-    cfg = smoke_config("rwkv6-7b")
-    params = T.init_params(cfg, seed=0, device="cpu")
-    batch = {"tokens": [[1, 2, 3]]}
-    for call in (
-        lambda: T.init_params(cfg, seed=0),
-        lambda: T.forward(cfg, params, batch),
-        lambda: T.loss_fn(cfg, params, batch),
-        lambda: T.prefill(cfg, params, batch, 8),
-        lambda: T.init_cache(cfg, 1, 8),
-        lambda: BatchedServer(cfg, params, ServeConfig()),
-        lambda: cli.main(["lm", "--smoke", "--requests", "1"]),
-    ):
-        with pytest.raises(RuntimeError, match="CUDA"):
-            call()
-    # Given the CPU, the same calls run.
-    assert T.forward(cfg, params, batch, device="cpu").shape == (1, 3, cfg.vocab_padded)
-    BatchedServer(cfg, params, ServeConfig(), device="cpu")
+    for arch in ("rwkv6-7b", "jamba-v0.1-52b"):
+        cfg = smoke_config(arch)
+        params = T.init_params(cfg, seed=0, device="cpu")
+        batch = {"tokens": [[1, 2, 3]]}
+        for call in (
+            lambda: T.init_params(cfg, seed=0),
+            lambda: T.forward(cfg, params, batch),
+            lambda: T.loss_fn(cfg, params, batch),
+            lambda: T.prefill(cfg, params, batch, 8),
+            lambda: T.init_cache(cfg, 1, 8),
+            lambda: BatchedServer(cfg, params, ServeConfig()),
+            lambda: cli.main(["lm", "--arch", arch, "--smoke", "--requests", "1"]),
+        ):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+        # Given the CPU, the same calls run.
+        assert T.forward(cfg, params, batch, device="cpu").shape == (1, 3, cfg.vocab_padded)
+        BatchedServer(cfg, params, ServeConfig(), device="cpu")
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -85,7 +85,7 @@ def test_config_equals_jax(which):
     assert pc.param_count() == jc.param_count()
     assert pc.num_groups == jc.num_groups and pc.vocab_padded == jc.vocab_padded
     assert ARCH_NAMES == [ARCH, "granite-3-8b", "gemma2-9b", "chatglm3-6b", "command-r-35b",
-                          "qwen3-moe-30b-a3b", "arctic-480b"]
+                          "qwen3-moe-30b-a3b", "arctic-480b", "jamba-v0.1-52b"]
 
 
 def test_full_config_is_the_7b_model():
@@ -96,11 +96,18 @@ def test_full_config_is_the_7b_model():
 
 
 def test_unported_mixer_raises_by_name():
+    """Every mixer of the JAX package is ported (jamba's ``mamba`` too); a
+    mixer name the port does not know, and an encoder-decoder, raise."""
     jamba = T.ModelConfig(**dataclasses.asdict(jax_smoke_config("jamba-v0.1-52b")))
-    with pytest.raises(NotImplementedError, match="'mamba'"):
-        T.LM(jamba, device="cpu")
-    with pytest.raises(NotImplementedError, match="'mamba'"):
-        T.init_cache(jamba, 1, 8, device="cpu")
+    T.LM(jamba, device="meta")
+    other = jamba.scaled(layer_pattern=("mamba", "retnet"))
+    with pytest.raises(NotImplementedError, match="'retnet'"):
+        T.LM(other, device="cpu")
+    with pytest.raises(NotImplementedError, match="'retnet'"):
+        T.init_cache(other, 1, 8, device="cpu")
+    seamless = T.ModelConfig(**dataclasses.asdict(jax_smoke_config("seamless-m4t-large-v2")))
+    with pytest.raises(NotImplementedError, match="encoders"):
+        T.LM(seamless, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
