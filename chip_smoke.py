@@ -27,9 +27,9 @@ Phases (each prints its results; any failure exits non-zero):
    powerlaw_graph(128, 6.0, seed=0), chaos and streaming at their smoke
    sizes (every suite launches fused_extend; Table 1's and Exp-1's seed
    rows lex_bounds; chaos's kernel-fail case one fallback); then Exp-6 at
-   full width: q3 under ``huge``, fused, with the LRU and direct-mapped
-   caches beside phase 5's LRBU run (44 matches each), hit rates, pulled
-   bytes, walls and steps side by side;
+   full width: q3 under ``huge``, fused, with the direct-mapped cache
+   beside phase 5's LRBU run (44 matches each), hit rates, pulled bytes,
+   walls and steps side by side;
 5d. the distributed engine (``core/distributed.py``): q3 under ``huge``,
    fused, at full width on a world of one rank over NCCL in this process
    (44 matches, every lookup local); then four ranks on the one card over
@@ -56,8 +56,8 @@ Phases (each prints its results; any failure exits non-zero):
    table4 graph (the kernels launching again after the restore),
    ``shortest_path_length`` at full width against scipy, and batches of
    inserts at full width through a fused and a plain engine's
-   ``apply_updates`` and ``run_delta`` (triangle and diamond), the deltas
-   summed against full counts; with the pre-flight's time in every
+   ``apply_updates`` and ``run_delta`` (triangle), the deltas summed
+   against full counts; with the pre-flight's time in every
    ``prepare`` of phases 5 and 5b;
 6. the RWKV6 kernel against its plain version at the LM path's shapes
    (forward, serve prefill with the state, a ragged tail), with its times and
@@ -74,7 +74,10 @@ Phases (each prints its results; any failure exits non-zero):
    decode shapes, gemma2's local (4,096-key sliding window) prefill,
    decode and float32 shapes and its global (unwindowed) prefill and decode
    shapes, chatglm3's decode and forward (16 query heads on a KV head) and
-   command-r's forward (8) and qwen3-moe's decode step (8), over all outputs
+   command-r's forward (8) and qwen3-moe's decode step (8), seamless-m4t's
+   non-causal shapes (its encoder over 2,048 frames, its cross-attention's
+   509, 32 and 1 queries over 2,048 and 1,024 frames; Dh 64, one query
+   head a KV head) and phi-3-vision's Dh-96 forward and decode, over all outputs
    and row by row, with the readings of faults put
    into the plain version (to show the check can fail: the last key tile
    lost, the softcap or the window dropped), the kernel form that ran, its
@@ -114,7 +117,21 @@ Phases (each prints its results; any failure exits non-zero):
    512 tokens + 3 decode steps against a lossless forward of 2 x 640, one
    served group of 8 requests of 512 + 32 tokens, and, the bf16 model
    freed, a float32 leg on 8 of its layers (prefill of 2 x 128 + 3 decode
-   steps against a forward of 2 x 256).
+   steps against a forward of 2 x 256);
+16. seamless-m4t-large-v2 (24 encoder and 24 decoder layers, d 1,024, 16
+   heads of 64, vocab 256,206; 4.07 GB) at full width and depth:
+   ``loss_fn`` and ``forward`` on B=2 x (2,048 frames + 2,048 tokens), 72
+   flash launches a pass (24 in the encoder and 24 in the
+   cross-attentions, non-causal, asserted) and 48 a decode step, a
+   profiled forward, ``prefill`` of 2 x (2,048 frames + 509 tokens) + 3
+   decode steps against the forward (bf16 and float32), and a greedy loop
+   of 8 requests of 1,024 frames + 32 prompt tokens + 32 new tokens
+   through ``prefill`` and ``decode_step``; then phi-3-vision-4.2b (32
+   layers, d 3,072, 32 heads of 96; 7.64 GB) at full width and depth:
+   ``loss_fn`` and ``forward`` on 2 x (256 patches + 3,840 tokens), prefill
+   of the patches + 509 tokens and decode steps at positions 765-767
+   against the forward (bf16 and float32), one served group of text-only
+   prompts through ``BatchedServer``.
 
 The line before the last holds the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. It imports torch, numpy and the port only.
@@ -231,6 +248,20 @@ JAMBA_F32 = (8, 128, 3, 256)
 # max |diff| over max |plain| (y and h_T): float32 throughout, another
 # summation order over the states and fused multiply-adds, over up to 4,096
 # dependent steps, as RWKV_TOL.
+# Phase 16: seamless-m4t-large-v2 and phi-3-vision-4.2b at full width and
+# depth (4.07 and 7.64 GB of bf16 weights; their float32 copies fit beside
+# them). seamless takes the reference's enc-dec layout (its input specs: half
+# of a sequence frames, half tokens): B=2 x (2,048 frames + 2,048 tokens),
+# prefill of 2 x (2,048 frames + 509 tokens) + 3 decode steps against that
+# forward; its served requests are 8 x (1,024 frames + 32 prompt tokens + 32
+# new tokens) on 8 slots. phi-3-vision: B=2 x (256 patches + 3,840 tokens),
+# prefill of 256 patches + 509 tokens + 3 decode steps at positions 765-767,
+# one served group of text-only prompts (DENSE_SERVE).
+SEAMLESS_FORWARD = (2, 2048, 509, 3)
+SEAMLESS_FRAMES = (2048, 1024)
+SEAMLESS_SERVE = (8, 32, 32, 8)
+PHI3V_FORWARD = (2, 3840, 509, 3)
+PHI3V_PATCHES = (256, 0)
 SCAN_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
 SCAN_REPLACES = "src/repro/models/ssm.py:54"  # _ssm_scan_chunked: plain JAX, no TPU kernel
 SCAN_DI, SCAN_N, SCAN_RANK = 8192, 16, 256
@@ -254,7 +285,7 @@ SFU_EXP_PER_CLOCK = 16  # exponentials an SM issues a clock on its special-funct
 MAMBA_CACHE = (2, 512, 3, 640)
 MAMBA_TOL_BF16 = 2e-2
 # The flash kernel's shapes: (what, B, Hq, Hkv, Sq, Sk, Dh, softcap, dtype,
-# sliding window), all causal, q scaled by SOFTCAP_Q_SCALE where there is a
+# sliding window, causal), q scaled by SOFTCAP_Q_SCALE where there is a
 # softcap; the first is the JSON line's headline. gemma2's local shapes are
 # those of phase 12's local layers: a sequence of the forward (8,192), a
 # decode step after a 4,608-token prompt and 31 new tokens, the float32
@@ -262,23 +293,40 @@ MAMBA_TOL_BF16 = 2e-2
 # passes' global layers (no window, the same softcap). chatglm3's and
 # command-r's prefill shapes are phase 13's forwards (groups of 16 and 8);
 # qwen3's decode shape is phase 14's served decode step (8 query heads a KV
-# head, 512 + 32 keys).
+# head, 512 + 32 keys). seamless-m4t's (phase 16) are non-causal, one query
+# head a KV head at Dh 64: its encoder over 2,048 frames, which is also the
+# forward's cross-attention (2,048 tokens over 2,048 frames: the same
+# function at the same shape), the prefill's 509 tokens over 2,048 frames,
+# and a served group's prefill (32 tokens; the decode form) and decode step
+# over 1,024 frames. phi-3-vision's (phase 16) are its forward over 256
+# patches + 3,840 tokens and a served decode step (512 + 32 keys) at Dh 96,
+# which the bf16 forms run in their 128-wide template.
 FLASH_SHAPES = (
-    ("granite forward B=4", 4, 32, 8, 4096, 4096, 128, None, torch.bfloat16, None),
-    ("granite serve prefill B=8", 8, 32, 8, 512, 512, 128, None, torch.bfloat16, None),
-    ("granite decode B=8", 8, 32, 8, 1, 544, 128, None, torch.bfloat16, None),
-    ("gemma2 softcap B=4", 4, 16, 8, 2048, 2048, 256, 50.0, torch.bfloat16, None),
-    ("granite float32 check B=2", 2, 32, 8, 512, 512, 128, None, torch.float32, None),
-    ("granite float32 decode B=8", 8, 32, 8, 1, 544, 128, None, torch.float32, None),
-    ("gemma2 local prefill B=1", 1, 16, 8, 8192, 8192, 256, 50.0, torch.bfloat16, 4096),
-    ("gemma2 local decode B=8", 8, 16, 8, 1, 4640, 256, 50.0, torch.bfloat16, 4096),
-    ("gemma2 local float32 B=1", 1, 16, 8, 4608, 4608, 256, 50.0, torch.float32, 4096),
-    ("gemma2 global prefill B=1", 1, 16, 8, 8192, 8192, 256, 50.0, torch.bfloat16, None),
-    ("gemma2 global decode B=8", 8, 16, 8, 1, 4640, 256, 50.0, torch.bfloat16, None),
-    ("chatglm3 decode B=8", 8, 32, 2, 1, 544, 128, None, torch.bfloat16, None),
-    ("chatglm3 forward B=4", 4, 32, 2, 4096, 4096, 128, None, torch.bfloat16, None),
-    ("command-r forward B=1", 1, 64, 8, 4096, 4096, 128, None, torch.bfloat16, None),
-    ("qwen3 decode B=8", 8, 32, 4, 1, 544, 128, None, torch.bfloat16, None),
+    ("granite forward B=4", 4, 32, 8, 4096, 4096, 128, None, torch.bfloat16, None, True),
+    ("granite serve prefill B=8", 8, 32, 8, 512, 512, 128, None, torch.bfloat16, None, True),
+    ("granite decode B=8", 8, 32, 8, 1, 544, 128, None, torch.bfloat16, None, True),
+    ("gemma2 softcap B=4", 4, 16, 8, 2048, 2048, 256, 50.0, torch.bfloat16, None, True),
+    ("granite float32 check B=2", 2, 32, 8, 512, 512, 128, None, torch.float32, None, True),
+    ("granite float32 decode B=8", 8, 32, 8, 1, 544, 128, None, torch.float32, None, True),
+    ("gemma2 local prefill B=1", 1, 16, 8, 8192, 8192, 256, 50.0, torch.bfloat16, 4096, True),
+    ("gemma2 local decode B=8", 8, 16, 8, 1, 4640, 256, 50.0, torch.bfloat16, 4096, True),
+    ("gemma2 local float32 B=1", 1, 16, 8, 4608, 4608, 256, 50.0, torch.float32, 4096, True),
+    ("gemma2 global prefill B=1", 1, 16, 8, 8192, 8192, 256, 50.0, torch.bfloat16, None, True),
+    ("gemma2 global decode B=8", 8, 16, 8, 1, 4640, 256, 50.0, torch.bfloat16, None, True),
+    ("chatglm3 decode B=8", 8, 32, 2, 1, 544, 128, None, torch.bfloat16, None, True),
+    ("chatglm3 forward B=4", 4, 32, 2, 4096, 4096, 128, None, torch.bfloat16, None, True),
+    ("command-r forward B=1", 1, 64, 8, 4096, 4096, 128, None, torch.bfloat16, None, True),
+    ("qwen3 decode B=8", 8, 32, 4, 1, 544, 128, None, torch.bfloat16, None, True),
+    ("seamless encoder and cross-attention B=2", 2, 16, 16, 2048, 2048, 64, None,
+     torch.bfloat16, None, False),
+    ("seamless prefill cross-attention B=2", 2, 16, 16, 509, 2048, 64, None, torch.bfloat16,
+     None, False),
+    ("seamless served prefill cross-attention B=8", 8, 16, 16, 32, 1024, 64, None,
+     torch.bfloat16, None, False),
+    ("seamless decode cross-attention B=8", 8, 16, 16, 1, 1024, 64, None, torch.bfloat16, None,
+     False),
+    ("phi-3-vision forward B=2", 2, 32, 32, 4096, 4096, 96, None, torch.bfloat16, None, True),
+    ("phi-3-vision decode B=8", 8, 32, 32, 1, 544, 96, None, torch.bfloat16, None, True),
 )
 # Shapes that reach the bf16 forms through the wrapper's aligned copy: (what,
 # B, Hq, Hkv, Sq, Sk, Dh), causal, every operand read through a view one
@@ -318,8 +366,11 @@ FULL_GRAPH = (875_713, 9.8, 3.0, 7)
 FULL_CFG = dict(batch_size=1024, queue_capacity=1 << 18, cache_capacity=1 << 14, num_machines=8)
 # Phase 5b's insert stream: batches of wedge-closing edges (the first a
 # warm-up), and the standing queries whose deltas each batch enumerates.
+# Triangle only: q2's (diamond's five delta plans) stays in phase 5c's
+# table4-graph leg; at full width its count after the batches took 22.5 s of
+# the 50.6 s leg (H100 80GB HBM3, 700 W).
 STREAM_BATCHES, STREAM_EDGES, STREAM_SEED = 4, 64, 11
-STREAM_QUERIES = ("triangle", "q2")
+STREAM_QUERIES = ("triangle",)
 PATH_PAIRS, PATH_SEED = 8, 5
 # Phase 5c: the service's legs. On the table4 graph: (tenant, query, plan
 # space, the reference's count); at full width: (tenant, query, match
@@ -330,8 +381,7 @@ SERVICE_TABLE4 = (("a", "q1", "huge", 110508), ("b", "q2", "seed", 67887),
 # into squares) cost about 5 ms each on an H100 80GB, and squares are rare
 # there, so even under a budget of 1,000 matches it ran 9,803 steps. q2 is
 # not served at full width either (a third tenant that took about a third of
-# the leg's 116.8-213.8 s on an H100 80GB): phase 5b's streaming starts from
-# its full count in FULL_COUNTS and counts it again after its batches.
+# the leg's 116.8-213.8 s on an H100 80GB).
 SERVICE_FULL = (("a", "q3", None), ("b", "triangle", None))
 # At full width an extend queue's slack is batch x d_pad rows (1024 x 4608):
 # the sessions price past the default pool's 67.1 M int32 cells, so the
@@ -339,11 +389,16 @@ SERVICE_FULL = (("a", "q3", None), ("b", "triangle", None))
 # four times the steps the leg ran past 11 minutes on an H100 80GB.)
 SERVICE_FULL_POOL = 128 << 20
 # Full counts on the full-width graph: q3's is phase 5's (fused and plain
-# agree); triangle's and q2's are those of isolated fused HugeEngine runs on
-# an H100 80GB (PERF.md §4), which the service reproduced (q2 while it was
-# served at full width) and from which phase 5b's streaming starts.
+# agree); triangle's is that of an isolated fused HugeEngine run on an H100
+# 80GB (PERF.md §4), which the service reproduces and from which phase 5b's
+# streaming starts.
 FULL_Q3 = 44
-FULL_COUNTS = {"triangle": 6293, "q2": 11018}
+FULL_COUNTS = {"triangle": 6293}
+# Phase 5e's Exp-6 at full width: the direct-mapped cache beside phase 5's
+# LRBU run. LRU left it: its full-width rows equalled LRBU's hit rate
+# (0.0729) in every run on an H100 80GB (PERF.md §4), and it stays in the
+# ten suites' Exp-6 on phase 4's graph.
+EXP6_FULL_POLICIES = ("lrbu", "direct")
 # 3 ticks of 4 x 32 steps, as many steps as phase 5's window: after a
 # window of 20 ticks the profiler took minutes to stop (H100 80GB).
 SERVICE_PROFILE_TICKS = 3
@@ -1298,14 +1353,14 @@ def phase_paper_suites(ik, launches):
 
 def phase_exp6_full(ik, launches, big, flow, lrbu=None):
     """Exp-6 at full width: q3/huge fused under FULL_CFG (cache 2^14 a
-    machine, far below the working set there) with the LRU and
-    direct-mapped policies; LRBU is phase 5's fused run (``lrbu``, run here
-    when not given). Each count is phase 5's; the three policies' hit
-    rates, pulled bytes, walls and steps print side by side."""
+    machine, far below the working set there) with the policies of
+    ``EXP6_FULL_POLICIES``; LRBU is phase 5's fused run (``lrbu``, run here
+    when not given). Each count is phase 5's; the policies' hit rates,
+    pulled bytes, walls and steps print side by side."""
     from repro_torch.core.engine import EngineConfig, HugeEngine
 
     rows = {} if lrbu is None else {"lrbu": lrbu}
-    for policy in [p for p in ("lrbu", "lru", "direct") if p not in rows]:
+    for policy in [p for p in EXP6_FULL_POLICIES if p not in rows]:
         torch.cuda.reset_peak_memory_stats()
         eng = HugeEngine(big, EngineConfig(fused=True, cache_policy=policy, **FULL_CFG))
         res, seen = run_counted(ik, launches, lambda: eng.run(flow))
@@ -1949,7 +2004,8 @@ def flash_errs(got, want):
     return float(diff.max()), float((diff.amax(-1) / scale).max())
 
 
-def flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what, window=None):
+def flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what, window=None,
+                         causal=True):
     """Whether the check above could fail: the plain version with a fault put
     into it, on the last (up to 128) query rows, read as the check reads the
     kernel. The faults: the keys of the last 64-key tile lost (their V
@@ -1966,7 +2022,7 @@ def flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what, w
         faults["window dropped"] = (v, cap, None)
     out = {}
     for fault, (vf, capf, winf) in faults.items():
-        bad = attention_chunked(q[:, -n:], k, vf, causal=True, softcap=capf, window=winf)
+        bad = attention_chunked(q[:, -n:], k, vf, causal=causal, softcap=capf, window=winf)
         out[fault] = flash_errs(bad, want[:, -n:])
         assert out[fault][1] > row_tol, f"flash_attention {what}: the check misses '{fault}'"
     return out
@@ -1975,15 +2031,18 @@ def flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what, w
 def phase_flash_kernel(fa):
     """The kernel at granite's forward, serve-prefill and decode shapes, at
     gemma2's softcap branch, its local layers' sliding window and its global
-    layers' prefill and decode, at chatglm3's decode and forward and
-    command-r's forward (bf16, the tensor-core forms), and at the float32
+    layers' prefill and decode, at chatglm3's decode and forward,
+    command-r's forward, seamless-m4t's non-causal encoder, prefill,
+    served-prefill and decode cross-attention shapes and phi-3-vision's
+    Dh-96 forward and decode (bf16, the tensor-core forms), and at the float32
     check's prefill and decode shapes and gemma2's float32 window (the f32
     form), each against the plain version (the wrapper's CPU path, run on the
     card), with the readings of faults put into the plain version beside it,
     and timed beside SDPA where one SDPA call computes the same function
     (every shape without a softcap or a window; at those no library call
     does, and the library time is None). Kernel and library are timed the
-    same way, by ``queued_ms``; the form the kernel ran is read from its
+    same way, by ``queued_ms``, the plain version by CUDA events around its
+    calls (``call_ms``); the form the kernel ran is read from its
     per-form launch counts and must be the one ``kernel_form`` names. Each
     shape's line gives the seconds it took."""
     from repro_torch.kernels.flash_attention.ops import attention_chunked
@@ -1992,7 +2051,7 @@ def phase_flash_kernel(fa):
     log("phase 9: flash attention kernel vs its plain version and SDPA")
     gen = torch.Generator(device=DEV).manual_seed(9)
     out = {"max_abs_err": 0.0, "configs": []}
-    for what, b, hq, hkv, sq, sk, dh, cap, dtype, window in FLASH_SHAPES:
+    for what, b, hq, hkv, sq, sk, dh, cap, dtype, window, causal in FLASH_SHAPES:
         t_shape = time.perf_counter()
         q = torch.randn((b * hq, sq, dh), generator=gen, device=DEV)
         if cap is not None:
@@ -2001,10 +2060,10 @@ def phase_flash_kernel(fa):
         k = torch.randn((b * hkv, sk, dh), generator=gen, device=DEV).to(dtype)
         v = torch.randn((b * hkv, sk, dh), generator=gen, device=DEV).to(dtype)
         before = dict(fa.launches_by_form)
-        got = fa.attention(q, k, v, causal=True, softcap=cap, window=window)
+        got = fa.attention(q, k, v, causal=causal, softcap=cap, window=window)
         (form,) = [f for f, n in fa.launches_by_form.items() if n > before[f]]
         assert form == fa.kernel_form(dtype, sq, hq // hkv), (what, form)
-        want = attention_chunked(q, k, v, causal=True, softcap=cap, window=window)
+        want = attention_chunked(q, k, v, causal=causal, softcap=cap, window=window)
         torch.cuda.synchronize()
         err, row_err = flash_errs(got, want)
         tol, row_tol = FLASH_TOL[dtype], FLASH_ROW_TOL[dtype]
@@ -2012,40 +2071,43 @@ def phase_flash_kernel(fa):
             f"flash_attention {what}: max |kernel - plain| {err} (tolerance {tol}), worst row "
             f"{row_err} of its max |plain| (tolerance {row_tol})")
         faults = flash_check_can_fail(attention_chunked, q, k, v, cap, want, row_tol, what,
-                                      window)
+                                      window, causal)
 
         def kernel():
-            return fa.attention(q, k, v, causal=True, softcap=cap, window=window)
+            return fa.attention(q, k, v, causal=causal, softcap=cap, window=window)
 
         call = call_ms(kernel)
         ms, lo, hi = queued_ms(kernel)
+        # The plain version by CUDA events around its calls (profiled windows
+        # of it took most of a shape's seconds; PERF.md §4).
         big = sq * sk * b * hq > 1 << 28
-        pcall, pdev = timed(
-            lambda: attention_chunked(q, k, v, causal=True, softcap=cap, window=window),
-            iters=1 if big else 5, call_repeats=3, warmup=1, plain=True)
+        pcall = call_ms(
+            lambda: attention_chunked(q, k, v, causal=causal, softcap=cap, window=window),
+            iters=1 if big else 5, repeats=3, warmup=1)
         q4, k4, v4 = q.view(b, hq, sq, dh), k.view(b, hkv, sk, dh), v.view(b, hkv, sk, dh)
         lib_ms = lib_call = lib_err = ratio = None
         if cap is None and window is None:
-            # One SDPA call on the same inputs as [B, H, S, Dh] views; at Sq = 1
-            # every key is visible, elsewhere Sq = Sk and its top-left causal
-            # diagonal is ours.
-            assert sq == 1 or sq == sk
+            # One SDPA call on the same inputs as [B, H, S, Dh] views; causal at
+            # Sq = 1 sees every key, elsewhere Sq = Sk and SDPA's top-left
+            # causal diagonal is ours; non-causal is SDPA's unmasked attention.
+            assert not causal or sq == 1 or sq == sk
 
             def lib():
-                return sdpa(q4, k4, v4, is_causal=sq > 1, enable_gqa=True)
+                return sdpa(q4, k4, v4, is_causal=causal and sq > 1, enable_gqa=True)
 
             lib_err = flash_errs(lib().reshape(got.shape), want)[0]
             lib_call, lib_ms = call_ms(lib), queued_ms(lib)
             ratio = ms / lib_ms[0]
-        bound, by, nbytes, flops, pairs = attention_bound(q, k, v, True, window)
-        shape = (f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} causal "
-                 f"{str(dtype)[6:]}" + (f" window={window}" if window else "") +
+        bound, by, nbytes, flops, pairs = attention_bound(q, k, v, causal, window)
+        shape = (f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} "
+                 f"{'causal' if causal else 'non-causal'} {str(dtype)[6:]}" +
+                 (f" window={window}" if window else "") +
                  (f" softcap={cap:g}, q x{SOFTCAP_Q_SCALE:g}" if cap else ""))
         tflops, gbs = flops / (ms * 1e-3) / 1e12, nbytes / (ms * 1e-3) / 1e9
         out["configs"].append(dict(
             shape=shape, form=form, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0],
             call_ms_min=call[1], call_ms_max=call[2], tflops=tflops, gb_per_s=gbs,
-            plain_ms=pdev[0], plain_call_ms=pcall[0], bound_ms=bound, bound_by=by,
+            plain_ms=pcall[0], plain_call_ms=pcall[0], bound_ms=bound, bound_by=by,
             bound_bytes=nbytes, bound_flops=flops, max_abs_err=err, row_rel_err=row_err,
             fault_readings=faults, library="SDPA" if lib_ms else None,
             library_ms=lib_ms and lib_ms[0], library_call_ms=lib_call and lib_call[0],
@@ -2057,9 +2119,9 @@ def phase_flash_kernel(fa):
             f"fault in the plain version reads " + ", ".join(
                 f"{f}: {a:.3e} / row {r:.3e}" for f, (a, r) in faults.items()) +
             f" | kernel queued={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) call={call[0]:.4f} ms "
-            f"(min {call[1]:.4f}, max {call[2]:.4f}) | plain device={pdev[0]:.4f} ms "
-            f"call={pcall[0]:.4f} ms | bound={bound:.4f} ms by {by} ({nbytes} B; {pairs} "
-            f"visible pairs, {flops} flop) | achieved {tflops:.1f} TFLOP/s, {gbs:.1f} GB/s, "
+            f"(min {call[1]:.4f}, max {call[2]:.4f}) | plain call={pcall[0]:.4f} ms (min "
+            f"{pcall[1]:.4f}, max {pcall[2]:.4f}) | bound={bound:.4f} ms by {by} ({nbytes} B; "
+            f"{pairs} visible pairs, {flops} flop) | achieved {tflops:.1f} TFLOP/s, {gbs:.1f} GB/s, "
             f"{bound / ms:.3f} of the bound | " + (
                 f"SDPA queued={lib_ms[0]:.4f} ms (min {lib_ms[1]:.4f}, max {lib_ms[2]:.4f}) "
                 f"call={lib_call[0]:.4f} ms (max |SDPA - plain| {lib_err:.3e}); kernel / SDPA "
@@ -2323,20 +2385,31 @@ class KernelUse:
     ``kernel``; every pass over the layers (forward, prefill) launches it
     once in each layer whose mixer is one of ``mixers`` (None: every layer),
     and each decode step ``per_decode`` times there. ``symbol`` picks its
-    kernels out of a profile."""
+    kernels out of a profile. ``cross``: the attention kernel of an
+    encoder–decoder, which also runs each decoder layer's cross-attention
+    (in every pass and decode step) and each encoder layer (in every pass
+    that takes frames), all non-causal."""
     ops: Any
     kernel: str
     symbol: str
     per_decode: int
     mixers: Any = None
+    cross: bool = False
 
     def layers(self, cfg) -> int:
         if self.mixers is None:
             return cfg.num_layers
         return sum(cfg.mixer_at(layer) in self.mixers for layer in range(cfg.num_layers))
 
+    def noncausal(self, cfg, kind: str) -> int:
+        """The non-causal calls of a pass or a decode step."""
+        if not (self.cross and cfg.encoder_layers):
+            return 0
+        return cfg.num_layers + (0 if kind == "decode" else cfg.encoder_layers)
+
     def launches(self, cfg, kind: str) -> int:
-        return self.layers(cfg) * (self.per_decode if kind == "decode" else 1)
+        return (self.layers(cfg) * (self.per_decode if kind == "decode" else 1)
+                + self.noncausal(cfg, kind))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2355,7 +2428,11 @@ class LMPath:
     prefilled rows' first ``ref_len`` tokens (0: the prefill and decode
     steps' own; longer where the model takes only some lengths) where no
     routing leaves it (an MoE model's B x S forward drops routed pairs that
-    those passes keep), and only log the B x S forward's difference."""
+    those passes keep), and only log the B x S forward's difference.
+    ``frontend``: (frames or patches a row of the forward leg, frames a
+    served request) of a model with a frontend: an encoder–decoder's frames
+    feed its encoder, a vision model's patches stand in front of the tokens
+    (its requests are served text-only, through ``BatchedServer``)."""
     arch: str
     uses: Tuple[KernelUse, ...]
     forward_phase: str
@@ -2368,6 +2445,7 @@ class LMPath:
     lossless_ref: bool = False
     layers: int = 0
     ref_len: int = 0
+    frontend: Tuple[int, int] = (0, 0)
 
     def config(self):
         from repro_torch.configs import get_config
@@ -2391,6 +2469,10 @@ def lm_setup(path: LMPath):
            if cfg.num_experts else "")
     depth = (f"{cfg.num_layers} layers" if not path.layers else
              f"cut to {cfg.num_layers} of its {get_config(path.arch).num_layers} layers")
+    if cfg.encoder_layers:
+        depth += f" and {cfg.encoder_layers} encoder layers with cross-attention"
+    elif cfg.frontend:
+        depth += f", {cfg.frontend_len} {cfg.frontend} patch embeddings in front of the tokens"
     log(f"{path.forward_phase}: {cfg.name} full width ({depth}, d_model "
         f"{cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} KV) of {cfg.hd}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}{moe}): {n} parameters ({cfg.param_count()} in "
@@ -2431,28 +2513,55 @@ def kernel_shares(path: LMPath, rows, busy_ms):
     return "; ".join(parts)
 
 
+@contextlib.contextmanager
+def attention_masks(fa):
+    """Tallies the flash wrapper's calls inside by mask (``causal`` True or
+    False): calls, beside the wrapper's own count of launches."""
+    calls = {True: 0, False: 0}
+    wrapped = fa.attention
+
+    def spy(*args, causal=True, **kw):
+        calls[bool(causal)] += 1
+        return wrapped(*args, causal=causal, **kw)
+
+    fa.attention = spy
+    try:
+        yield calls
+    finally:
+        fa.attention = wrapped
+
+
 class PassCounter:
     """Runs one pass of a path with every kernel's count set to 0 just
-    before it, asserts each kernel's launches, and keeps them by kernel and
-    pass kind, with the first kernel's forms that ran by (pass kind,
-    dtype)."""
+    before it, asserts each kernel's launches (and, for an encoder–decoder's
+    attention kernel, how many of its calls were non-causal), and keeps them
+    by kernel and pass kind, with the first kernel's forms that ran by (pass
+    kind, dtype)."""
 
     def __init__(self, path: LMPath):
         self.path = path
         self.total = {u.kernel: {"forward": 0, "prefill": 0, "decode": 0} for u in path.uses}
         self.forms = {}
+        self.noncausal = {}
 
     def __call__(self, fn, cfg, kind):
         for u in self.path.uses:
             u.ops.reset_launches()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        cross = next((u for u in self.path.uses if u.cross), None)
+        with (attention_masks(cross.ops) if cross else contextlib.nullcontext({})) as calls:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         for u in self.path.uses:
             n, want = u.ops.launches[u.kernel], u.launches(cfg, kind)
             assert n == want, f"{u.kernel} launched {n} times in a {kind} pass, want {want}"
             self.total[u.kernel][kind] += n
+        if cross:
+            want = cross.noncausal(cfg, kind)
+            assert calls[False] == want, f"{calls[False]} non-causal calls, want {want}"
+            key = (kind, cfg.dtype)
+            self.noncausal[key] = self.noncausal.get(key, 0) + calls[False]
         ran = {f for f, c in getattr(self.path.uses[0].ops, "launches_by_form", {}).items() if c}
         self.forms[(kind, cfg.dtype)] = self.forms.get((kind, cfg.dtype), set()) | ran
         return res, wall
@@ -2462,7 +2571,9 @@ class PassCounter:
             return
         kernel = self.path.uses[0].kernel
         log(f"{ph}: {kernel} forms by (pass kind, dtype): "
-            f"{ {k: sorted(v) for k, v in self.forms.items()} }")
+            f"{ {k: sorted(v) for k, v in self.forms.items()} }" +
+            (f"; non-causal calls (the encoder's and the cross-attentions') by (pass kind, "
+             f"dtype): {self.noncausal}" if self.noncausal else ""))
         assert self.forms == want, (kernel, self.forms, want)
 
 
@@ -2489,20 +2600,32 @@ def moe_dispatch_stats(cfg, ph, what, routes=False):
         f"filled {kept / st['slots']:.4f} ({kept} of {st['slots']} slots)")
 
 
-def prefill_decode(counted, cfg, params, toks, pre, extra):
+def lm_batch(toks, front=None):
+    """A pass's batch: tokens, and the frontend's embeddings where given."""
+    return {"tokens": toks} if front is None else {"tokens": toks, "frontend": front}
+
+
+def text_offset(cfg, front) -> int:
+    """Positions in front of the first token: a vision model's patches."""
+    return 0 if front is None or cfg.encoder_layers else front.shape[1]
+
+
+def prefill_decode(counted, cfg, params, toks, pre, extra, front=None):
     """Logits [rows, 1 + extra, vocab] (float32) of prefill of ``toks[:, :pre]``
-    (its last position) and of ``extra`` decode steps, and the prefill's wall."""
+    (behind or beside ``front``; its last position) and of ``extra`` decode
+    steps, and the prefill's wall."""
     from repro_torch.models import transformer as T
 
     vocab = cfg.vocab_size  # the padded columns hold -1e30: compare the real ones
+    off = text_offset(cfg, front)
     (cache, last), wall = counted(
-        lambda: T.prefill(cfg, params, {"tokens": toks[:, :pre]}, pre + extra + 8, device=DEV),
-        cfg, "prefill")
+        lambda: T.prefill(cfg, params, lm_batch(toks[:, :pre], front), off + pre + extra + 8,
+                          device=DEV), cfg, "prefill")
     out = [last[:, 0, :vocab].float()]
     for i in range(extra):
         (logits, cache), _ = counted(
-            lambda: T.decode_step(cfg, params, cache, toks[:, pre + i : pre + i + 1], pre + i,
-                                  device=DEV), cfg, "decode")
+            lambda: T.decode_step(cfg, params, cache, toks[:, pre + i : pre + i + 1],
+                                  off + pre + i, device=DEV), cfg, "decode")
         out.append(logits[:, 0, :vocab].float())
     return torch.stack(out, dim=1), wall
 
@@ -2563,6 +2686,15 @@ def logits_agree(ph, label, got, want, tol, pre, extra, against):
     assert err / scale < tol, (label, err, scale)
 
 
+def frontend_embeddings(cfg, b: int, n: int, gen):
+    """[b, n, d] unit-normal frames or patches in the model dtype (None if
+    n is 0): the frontend stubs' precomputed embeddings."""
+    if not n:
+        return None
+    return torch.randn((b, n, cfg.d_model), generator=gen, device=DEV).to(
+        getattr(torch, cfg.dtype))
+
+
 def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, Dict[str, int]]:
     """loss_fn and forward on B x S tokens (``path.forward``: 4 x 4096 by
     default), a profiled forward, then prefill of the first tokens of (up to)
@@ -2578,14 +2710,19 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, Dict[str, int]]:
     seqs = min(b, 2)  # the rows prefilled and decoded
     gen = torch.Generator(device=DEV).manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEV)
-    batch = {"tokens": toks}
+    front = frontend_embeddings(cfg, b, path.frontend[0], gen)
+    seq_front = None if front is None else front[:seqs]  # the prefilled rows' frames or patches
+    off = text_offset(cfg, front)
+    batch = lm_batch(toks, front)
+    what = "" if front is None else \
+        f" behind {front.shape[1]} patches" if off else f" over {front.shape[1]} frames"
     counted = PassCounter(path)
     per_pass = {u.kernel: u.launches(cfg, "forward") for u in path.uses}
 
     torch.cuda.reset_peak_memory_stats()
     loss, wall = counted(lambda: T.loss_fn(cfg, params, batch, device=DEV), cfg, "forward")
     assert bool(torch.isfinite(loss)), loss
-    log(f"{ph}: loss_fn B={b} S={s}: loss={float(loss):.4f} (ln vocab "
+    log(f"{ph}: loss_fn B={b} S={s}{what}: loss={float(loss):.4f} (ln vocab "
         f"{math.log(cfg.vocab_size):.4f}) wall={wall:.3f} s tokens/s={b * s / wall:,.0f} "
         f"launches={per_pass} max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -2595,11 +2732,12 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, Dict[str, int]]:
               else contextlib.nullcontext()):
             logits, wall = counted(lambda: T.forward(cfg, params, batch, device=DEV), cfg,
                                    "forward")
-        log(f"{ph}: forward {i + 1} B={b} S={s}: wall={wall:.3f} s "
+        log(f"{ph}: forward {i + 1} B={b} S={s}{what}: wall={wall:.3f} s "
             f"tokens/s={b * s / wall:,.0f} launches={per_pass} "
             f"max_memory_allocated={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     vocab = cfg.vocab_size  # the padded columns hold -1e30: compare the real ones
-    full = logits[:seqs, pre - 1 : pre + extra, :vocab].float()
+    assert logits.shape[1] == off + s
+    full = logits[:seqs, off + pre - 1 : off + pre + extra, :vocab].float()
     assert bool(torch.isfinite(full).all())
     del logits, loss
 
@@ -2620,7 +2758,8 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, Dict[str, int]]:
     log(f"{ph}:   device ms by kind: "
         f"{by_category([(k, t) for k, t, _ in rows], {u.kernel: u.symbol for u in path.uses})}")
 
-    short = {"tokens": toks[:seqs, :ref]}
+    short = lm_batch(toks[:seqs, :ref], seq_front)
+    at = slice(off + pre - 1, off + pre + extra)  # the prefilled rows' checked positions
     if path.lossless_ref:
         # A decoded token's hidden state carries bf16 roundings of other
         # product shapes than the forward's; where its k-th and (k+1)-th
@@ -2666,15 +2805,14 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, Dict[str, int]]:
             f"{float((full - want).abs().max() / want.abs().max()):.2e}, same argmax "
             f"{int((full.argmax(-1) == want.argmax(-1)).sum())}/{want.numel() // vocab}")
     else:
-        got, wall = prefill_decode(counted, cfg, params, toks[:seqs], pre, extra)
-        log(f"{ph}: bf16 prefill of {pre} tokens x{seqs}: wall {wall:.3f} s")
+        got, wall = prefill_decode(counted, cfg, params, toks[:seqs], pre, extra, seq_front)
+        log(f"{ph}: bf16 prefill of {pre} tokens{what} x{seqs}: wall {wall:.3f} s")
         logits_agree(ph, "bf16", got, full, LOGITS_TOL_BF16, pre, extra,
                      f"the {b} x {s} forward")
         # bf16's own floor at these positions: the same forward in another batch
         # shape, and (below) the float32 forward of the same weights.
         other, _ = counted(
-            lambda: T.forward(cfg, params, short, device=DEV)[:, pre - 1 : pre + extra,
-                                                              :vocab].float(),
+            lambda: T.forward(cfg, params, short, device=DEV)[:, at, :vocab].float(),
             cfg, "forward")
         log(f"{ph}: bf16 floor: forward of {seqs} x {ref} tokens vs the {b} x {s} "
             f"forward: relative {float((other - full).abs().max() / full.abs().max()):.2e}")
@@ -2689,12 +2827,11 @@ def phase_lm_forward(path: LMPath, cfg, params) -> Dict[str, Dict[str, int]]:
                 wide.copy_(narrow)
         torch.cuda.reset_peak_memory_stats()
         want32, _ = counted(
-            lambda: T.forward(cfg32, p32, short, device=DEV)[:, pre - 1 : pre + extra,
-                                                             :vocab].clone(),
+            lambda: T.forward(cfg32, p32, short, device=DEV)[:, at, :vocab].clone(),
             cfg32, "forward")
         log(f"{ph}: bf16 floor: bf16 forward vs float32 forward: relative "
             f"{float((full - want32).abs().max() / want32.abs().max()):.2e}")
-        got32, _ = prefill_decode(counted, cfg32, p32, toks[:seqs], pre, extra)
+        got32, _ = prefill_decode(counted, cfg32, p32, toks[:seqs], pre, extra, seq_front)
         logits_agree(ph, "float32", got32, want32, LOGITS_TOL_F32, pre, extra,
                      f"the float32 forward of {seqs} x {ref} tokens")
         log(f"{ph}: float32 leg: {sum(p.numel() for p in p32.parameters()) * 4 / 1e9:.2f} GB "
@@ -2755,10 +2892,11 @@ def phase_lm_f32(path: LMPath) -> Dict[str, Dict[str, int]]:
     return counted.total
 
 
-def decode_profile(path: LMPath, cfg, params, b: int, plen: int) -> None:
+def decode_profile(path: LMPath, cfg, params, b: int, plen: int, frames: int = 0) -> None:
     """One profiled decode step of ``b`` sequences after a ``plen``-token
-    prefill: its wall time against its device time and against the time to
-    read every weight once."""
+    prefill (over ``frames`` frames for an encoder–decoder): its wall time
+    against its device time and against the time to read every weight
+    once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2766,7 +2904,8 @@ def decode_profile(path: LMPath, cfg, params, b: int, plen: int) -> None:
 
     gen = torch.Generator(device=DEV).manual_seed(9)
     toks = torch.randint(2, cfg.vocab_size, (b, plen + 2), generator=gen, device=DEV)
-    cache, _ = T.prefill(cfg, params, {"tokens": toks[:, :plen]}, plen + 8, device=DEV)
+    cache, _ = T.prefill(cfg, params, lm_batch(toks[:, :plen], frontend_embeddings(
+        cfg, b, frames, gen)), plen + 8, device=DEV)
     T.decode_step(cfg, params, cache, toks[:, plen : plen + 1], plen, device=DEV)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2845,12 +2984,83 @@ def phase_lm_serve(path: LMPath, cfg, params) -> Dict[str, int]:
     return launched
 
 
+def phase_encdec_serve(path: LMPath, cfg, params) -> Dict[str, int]:
+    """An encoder–decoder's greedy serving loop through ``prefill`` and
+    ``decode_step`` (``BatchedServer`` takes token prompts only, as the JAX
+    package's does): ``path.serve`` requests of ``path.frontend[1]`` frames
+    and a prompt, in groups of ``slots``, each decoding its new tokens.
+    Logs decode tokens/s, latency p50/p99 and peak memory; asserts the
+    launches (a prefill: the encoder's, the decoder's and the
+    cross-attentions'; a decode step: the decoder's and the
+    cross-attentions') and returns them."""
+    from repro_torch.models import transformer as T
+
+    ph = path.serve_phase
+    n_req, plen, new, slots = path.serve
+    frames = path.frontend[1]
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    uses = path.uses
+
+    def group(b, steps):
+        """One group's tokens [b, steps] and its wall."""
+        toks = torch.randint(2, cfg.vocab_size, (b, plen), generator=gen, device=DEV)
+        batch = lm_batch(toks, frontend_embeddings(cfg, b, frames, gen))
+        t0 = time.perf_counter()
+        cache, logits = T.prefill(cfg, params, batch, plen + new + 8, device=DEV)
+        cur = logits[:, -1].float().argmax(-1)
+        out = [cur.tolist()]  # each step's tokens reach the host once, as the server's do
+        for i in range(steps - 1):
+            logits, cache = T.decode_step(cfg, params, cache, cur[:, None], plen + i,
+                                          device=DEV)
+            cur = logits[:, -1].float().argmax(-1)
+            out.append(cur.tolist())
+        return np.array(out).T, time.perf_counter() - t0
+
+    group(slots, 2)  # warm-up (cuBLAS picks its kernels for these shapes); not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for u in uses:
+        u.ops.reset_launches()
+    lat, t0 = [], time.perf_counter()
+    for base in range(0, n_req, slots):
+        toks, wall = group(min(slots, n_req - base), new)
+        assert toks.shape[1] == new and ((0 <= toks) & (toks < cfg.vocab_size)).all()
+        lat += [wall] * toks.shape[0]
+    wall = time.perf_counter() - t0
+    groups = -(-n_req // slots)
+    launched = {}
+    for u in uses:
+        n = u.ops.launches[u.kernel]
+        want = groups * (u.launches(cfg, "prefill") + (new - 1) * u.launches(cfg, "decode"))
+        assert n == want, f"{u.kernel} launched {n} times in {groups} groups, want {want}"
+        launched[u.kernel] = n
+    first = uses[0]
+    by_form = {f: c for f, c in getattr(first.ops, "launches_by_form", {}).items() if c}
+    # A group's prefill runs its encoder (frames rows) in the prefill form and
+    # its prompt's self- and cross-attention in the form plen names.
+    pform = first.ops.kernel_form(getattr(torch, cfg.dtype), plen, 1)
+    want_forms = {"prefill": groups * cfg.encoder_layers}
+    want_forms[pform] = want_forms.get(pform, 0) + groups * 2 * cfg.num_layers
+    want_forms["decode"] = want_forms.get("decode", 0) + \
+        groups * (new - 1) * 2 * cfg.num_layers
+    assert by_form == want_forms, (by_form, want_forms)
+    peak = torch.cuda.max_memory_allocated()
+    decode_profile(path, cfg, params, slots, plen, frames)
+    log(f"{ph}: served {n_req} requests x {new} tokens (prompt {plen} over {frames} frames, "
+        f"{slots} slots) through prefill + decode_step, greedy: wall={wall:.3f} s, "
+        f"{n_req * (new - 1)} decode tokens -> {n_req * (new - 1) / wall:,.1f} tokens/s; all "
+        f"{n_req * new} generated tokens -> {n_req * new / wall:,.1f} tokens/s; latency p50 "
+        f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f} s; launches="
+        f"{launched} by form {by_form}; max_memory_allocated={peak / 1e9:.2f} GB")
+    return launched
+
+
 def lm_phases(path: LMPath) -> Dict[str, int]:
     """A model's forward and serving phases; its parameters are freed when it
     returns. Returns each kernel's launches on the main path."""
     cfg, params = lm_setup(path)
     by_kind = phase_lm_forward(path, cfg, params)
-    served = phase_lm_serve(path, cfg, params)
+    served = (phase_encdec_serve if cfg.encoder_layers else phase_lm_serve)(path, cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2957,6 +3167,20 @@ def main() -> int:
     launches["ssm_scan"] = jamba["ssm_scan"]
     log(f"chip_smoke: phase 15 took {time.perf_counter() - t15:.1f} s, done at "
         f"{time.perf_counter() - t_all:.1f} s")
+
+    # -- phase 16: seamless-m4t's encoder-decoder, phi-3-vision's patches -------
+    t16 = time.perf_counter()
+    launches["flash_attention"] += lm_phases(LMPath(
+        "seamless-m4t-large-v2", (KernelUse(fa, "flash_attention", "flash_", 1, cross=True),),
+        "phase 16", "phase 16", GRANITE_FORMS, forward=SEAMLESS_FORWARD, serve=SEAMLESS_SERVE,
+        frontend=SEAMLESS_FRAMES))["flash_attention"]
+    log(f"chip_smoke: phase 16's seamless-m4t-large-v2 took {time.perf_counter() - t16:.1f} s")
+    t16 = time.perf_counter()
+    launches["flash_attention"] += lm_phases(LMPath(
+        "phi-3-vision-4.2b", attn, "phase 16", "phase 16", GRANITE_FORMS, forward=PHI3V_FORWARD,
+        serve=DENSE_SERVE, frontend=PHI3V_PATCHES))["flash_attention"]
+    log(f"chip_smoke: phase 16's phi-3-vision-4.2b took {time.perf_counter() - t16:.1f} s, "
+        f"done at {time.perf_counter() - t_all:.1f} s")
 
     for name in launches:
         assert launches[name] > 0, f"{name} was never launched on the main path"

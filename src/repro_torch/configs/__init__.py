@@ -1,10 +1,10 @@
 """Architecture registry (``--arch <id>``) and the input-shape grid.
 
-The registry lists only the architectures the port can run, plus the
+The JAX package's registry, in its order: its ten LM architectures and the
 paper-native ``huge-enum`` workload (kept out of ``ARCH_NAMES``, as the JAX
-package keeps it); each later slice of the port adds its own.
-``ShapeSpec``/``SHAPES``, ``shape_skip_reason`` and ``all_cells`` are the
-JAX package's, over the port's architectures.
+package keeps it). ``ShapeSpec``/``SHAPES``, ``shape_skip_reason`` and
+``all_cells`` are the JAX package's: ten architectures × four shapes = 40
+cells, ``long_500k`` run only by the sub-quadratic ones (rwkv6, jamba).
 """
 from __future__ import annotations
 
@@ -13,14 +13,16 @@ import importlib
 from typing import Dict, Optional
 
 ARCH_MODULES: Dict[str, str] = {
-    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "command-r-35b": "repro_torch.configs.command_r_35b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
     "huge-enum": "repro_torch.configs.huge_enum",
 }
 

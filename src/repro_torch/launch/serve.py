@@ -2,7 +2,7 @@
 
 LM batch serving (the default when no mode is given), on the card:
 
-    python -m repro_torch.launch.serve lm --arch rwkv6-7b [--smoke] [--device cpu]
+    python -m repro_torch.launch.serve lm --arch granite-3-8b [--smoke] [--device cpu]
 
 Multi-tenant graph service (N tenants' enumeration queries multiplexed onto
 one shared engine), on the card:
@@ -30,7 +30,7 @@ from repro_torch.serve.engine import BatchedServer, Request, ServeConfig
 
 def lm_main(argv=None):
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve lm")
-    ap.add_argument("--arch", default="rwkv6-7b", choices=ARCH_NAMES)
+    ap.add_argument("--arch", default="granite-3-8b", choices=ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=32)

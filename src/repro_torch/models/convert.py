@@ -5,7 +5,9 @@
 array (``np.asarray``), and fills an :class:`LM` with it. The JAX tree keeps
 the layers of each pattern position stacked (``blocks[pos]`` leaves are
 ``[n_groups, ...]``); layer ``g * period + pos`` of the port takes slice
-``g``. This module imports neither JAX nor the JAX package: it reads plain
+``g``. An encoder–decoder's ``encoder`` leaves are stacked ``[encoder_layers,
+...]`` and its ``cross`` leaves ``[num_layers, ...]``: encoder layer i and
+the cross-attention of decoder layer l take slices i and l. This module imports neither JAX nor the JAX package: it reads plain
 numpy arrays.
 """
 from __future__ import annotations
@@ -63,4 +65,9 @@ def from_jax_params(cfg: ModelConfig, tree: Mapping, *, device=None) -> LM:
         for layer, blk in enumerate(lm.blocks):
             g, pos = divmod(layer, cfg.period)
             _copy_tree(blk, tree["blocks"][pos], g, f"blocks[{pos}][{g}]")
+        if cfg.encoder_layers:
+            _copy(lm.enc_norm, tree["enc_norm"], "enc_norm")
+            for name in ("encoder", "cross"):
+                for i, module in enumerate(getattr(lm, name)):
+                    _copy_tree(module, tree[name], i, f"{name}[{i}]")
     return lm

@@ -6,10 +6,20 @@ mixer of the JAX package is ported: ``attn`` (global GQA attention),
 ``attn_local`` (the same with a sliding window of ``local_window`` keys),
 ``mamba`` and ``rwkv``; so are the ``dense``, ``moe`` and ``moe_dense`` (a
 dense MLP and the MoE layer side by side, their outputs summed) MLPs. Any
-other mixer or MLP raises ``NotImplementedError`` by name, and so do
-frontends and encoders. The LM runs on one process: its MoE layers take the
-``local`` dispatch (``_moe_comm_mode`` without a group);
-``models.moe.moe_block`` takes a group itself.
+other mixer or MLP raises ``NotImplementedError`` by name. The LM runs on
+one process: its MoE layers take the ``local`` dispatch (``_moe_comm_mode``
+without a group); ``models.moe.moe_block`` takes a group itself.
+
+Frontends are the JAX package's stubs: ``batch["frontend"]`` holds
+precomputed embeddings [B, F, d]. A vision model (phi-3-vision) puts them in
+front of the token embeddings (positions run over F + S, and ``loss_fn``
+skips their logits). An encoder–decoder (seamless-m4t, ``encoder_layers``)
+runs them through a bidirectional encoder (``encoder``, ``enc_norm``) whose
+output every decoder layer attends to through its cross-attention
+(``cross[l]``: an RMSNorm, then non-causal attention of ``h @ wq`` over the
+memory ``enc_out @ wk``, ``enc_out @ wv``, with no RoPE and no bias),
+between its self-attention and its MLP. Both attentions run the flash
+kernel's non-causal forms on the card.
 
 API (the JAX package's, with an explicit device and generator):
   init_params(cfg, gen=None, *, seed=0, device=None)      → LM
@@ -28,9 +38,14 @@ attention position (a local one too: ``max_len`` positions, as the JAX
 package allocates, not a ring of ``local_window``), ``{"pos<p>": {"mamba":
 (conv_tail [G, B, K-1, Di], h [G, B, Di, N] f32)}}`` for a Mamba one and
 ``{"pos<p>": {"rwkv": (x_prev [G, B, d], S [G, B, H, hd, hd])}}`` for an
-RWKV one. It is updated in place: ``decode_step`` returns the cache it was
-given, which saves a copy of the whole state at every step. ``len`` lives on
-the host, so reading the valid prefix of the KV cache needs no device sync.
+RWKV one. An encoder–decoder's cache also holds ``{"memory": {"k", "v":
+[L, B, enc_len, KV, hd]}}``, the cross-attention's keys and values of every
+decoder layer: zeros of ``frontend_len or max_len`` frames from
+``init_cache``, the frames' own from ``prefill``; a decode step attends to
+all of it, as the JAX package's does. The cache is updated in place:
+``decode_step`` returns the cache it was given, which saves a copy of the
+whole state at every step. ``len`` lives on the host, so reading the valid
+prefix of the KV cache needs no device sync.
 """
 from __future__ import annotations
 
@@ -43,6 +58,7 @@ from torch import nn
 
 from repro_torch.core.hybrid_comm import moe_dispatch_mode
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -232,16 +248,46 @@ class Block(nn.Module):
             self.moe = moe_mod.MoE(cfg.d_model, cfg.moe_d_ff, cfg.num_experts, dt, device)
 
 
-class LM(nn.Module):
-    """The decoder: embed [vocab_padded, d], ``blocks`` (one per layer, layer
-    ``g * period + pos`` being group g's position pos), final_norm [d] f32,
-    lm_head [d, vocab_padded] unless the embeddings are tied. The parameters
-    are allocated uninitialised; ``init_params`` and ``convert`` fill them."""
+def encoder_spec(cfg: ModelConfig) -> AttnSpec:
+    """The encoder's self-attention and the decoder's cross-attention:
+    global, non-causal."""
+    return dataclasses.replace(cfg.attn_spec(False), causal=False)
+
+
+class EncoderBlock(nn.Module):
+    """One encoder layer: ln1 → bidirectional attention → residual, ln2 →
+    dense MLP → residual."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.encoder_layers or cfg.frontend:
-            raise NotImplementedError(f"{cfg.family} frontends/encoders are not ported")
+        dt = dtype_of(cfg.dtype)
+        self.ln1 = empty_param((cfg.d_model,), torch.float32, device)
+        self.ln2 = empty_param((cfg.d_model,), torch.float32, device)
+        self.attn = Attention(cfg.d_model, encoder_spec(cfg), dt, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+
+class CrossBlock(nn.Module):
+    """A decoder layer's cross-attention: ln [d] f32 and its projections (of
+    which it reads wq, wk, wv and wo)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln = empty_param((cfg.d_model,), torch.float32, device)
+        self.attn = Attention(cfg.d_model, encoder_spec(cfg), dtype_of(cfg.dtype), device)
+
+
+class LM(nn.Module):
+    """The decoder: embed [vocab_padded, d], ``blocks`` (one per layer, layer
+    ``g * period + pos`` being group g's position pos), final_norm [d] f32,
+    lm_head [d, vocab_padded] unless the embeddings are tied; with
+    ``encoder_layers`` also ``encoder`` (that many ``EncoderBlock``s),
+    enc_norm [d] f32 and ``cross`` (a ``CrossBlock`` per decoder layer). The
+    parameters are allocated uninitialised; ``init_params`` and ``convert``
+    fill them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
         dt = dtype_of(cfg.dtype)
         self.cfg = cfg
         self.embed = empty_param((cfg.vocab_padded, cfg.d_model), dt, device)
@@ -249,6 +295,11 @@ class LM(nn.Module):
         self.final_norm = empty_param((cfg.d_model,), torch.float32, device)
         if not cfg.tie_embeddings:
             self.lm_head = empty_param((cfg.d_model, cfg.vocab_padded), dt, device)
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(EncoderBlock(cfg, device)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_norm = empty_param((cfg.d_model,), torch.float32, device)
+            self.cross = nn.ModuleList(CrossBlock(cfg, device) for _ in range(cfg.num_layers))
 
     @property
     def device(self) -> torch.device:
@@ -286,6 +337,17 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *, seed
     lm.final_norm.zero_()
     if not cfg.tie_embeddings:
         lm.lm_head.copy_(dense_init(gen, (cfg.d_model, cfg.vocab_padded), dt))
+    if cfg.encoder_layers:
+        spec = encoder_spec(cfg)
+        for enc in lm.encoder:
+            enc.ln1.zero_()
+            enc.ln2.zero_()
+            enc.attn = attn_init(gen, cfg.d_model, spec, dt)
+            enc.mlp = mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+        lm.enc_norm.zero_()
+        for xa in lm.cross:
+            xa.ln.zero_()
+            xa.attn = attn_init(gen, cfg.d_model, spec, dt)
     return lm
 
 
@@ -300,13 +362,34 @@ def _tokens(tokens, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=dev).to(torch.int64)
 
 
+def _frontend(cfg: ModelConfig, batch: Dict, dev: torch.device) -> Optional[torch.Tensor]:
+    """``batch["frontend"]`` [B, F, d] (a tensor or a numpy array) in the
+    model dtype; None if absent. An encoder–decoder without it raises
+    ``ValueError``: its decoder has no frames to attend to (the JAX package
+    fails there too, by an assertion in ``forward`` and a ``KeyError`` in
+    ``prefill``)."""
+    emb = batch.get("frontend")
+    if emb is None:
+        if cfg.encoder_layers:
+            raise ValueError(f"{cfg.name} is an encoder–decoder: batch['frontend'] must hold "
+                             f"its encoder's input frames [B, frames, {cfg.d_model}]")
+        return None
+    return torch.as_tensor(emb, device=dev).to(dtype_of(cfg.dtype))
+
+
 # ---------------------------------------------------------------------------
 # Forward / loss
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params: LM, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
+           frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scaled token embeddings, behind the frontend's embeddings unless the
+    frontend feeds an encoder (``family == "audio"``)."""
     x = params.embed[torch.clamp(tokens, 0, cfg.vocab_size - 1)] * (cfg.d_model ** 0.5)
-    return x.to(dtype_of(cfg.dtype))
+    x = x.to(dtype_of(cfg.dtype))
+    if frontend is not None and cfg.family != "audio":
+        x = torch.cat([frontend, x], dim=1)
+    return x
 
 
 def _logits(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
@@ -344,8 +427,46 @@ def _moe_comm_mode(cfg: ModelConfig, tokens_per_step: int, comm=None) -> str:
     ).mode
 
 
+def _encode(cfg: ModelConfig, params: LM, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over the frames [B, S_enc, d] (model dtype): bidirectional
+    self-attention with RoPE over ``arange(S_enc)``, then the MLP, in each
+    layer; then ``enc_norm``."""
+    spec = encoder_spec(cfg)
+    x = frames
+    positions = _positions(0, x.shape[1], x.device)
+    for enc in params.encoder:
+        h = rmsnorm(x, enc.ln1, cfg.norm_eps)
+        att, _ = attention_block(enc.attn, h, spec, positions, None, chunk=cfg.attn_chunk)
+        x = x + att
+        x = x + mlp_block(enc.mlp, rmsnorm(x, enc.ln2, cfg.norm_eps))
+    return rmsnorm(x, params.enc_norm, cfg.norm_eps)
+
+
+def _memory_kv(cfg: ModelConfig, xa: CrossBlock, enc_out: torch.Tensor):
+    """One decoder layer's cross-attention memory: (k, v) [B, S_enc, KV, hd],
+    ``enc_out @ wk`` and ``enc_out @ wv`` (no RoPE, no bias)."""
+    b, s, _ = enc_out.shape
+    return ((enc_out @ xa.attn.wk).view(b, s, cfg.num_kv_heads, cfg.hd),
+            (enc_out @ xa.attn.wv).view(b, s, cfg.num_kv_heads, cfg.hd))
+
+
+def _cross_attention(cfg: ModelConfig, xa: CrossBlock, h: torch.Tensor, mem_k: torch.Tensor,
+                     mem_v: torch.Tensor) -> torch.Tensor:
+    """Decoder → encoder attention: q = ``h @ wq`` (no RoPE, no bias) over
+    every memory frame, non-causal (the flash kernel's ``causal=False``); the
+    CPU path walks the memory in the JAX package's default chunks of 512."""
+    spec = encoder_spec(cfg)
+    b, s, _ = h.shape
+    q = (h @ xa.attn.wq).view(b, s, spec.num_heads, spec.head_dim)
+    out = attn_ops.attention(q.transpose(1, 2), mem_k.transpose(1, 2), mem_v.transpose(1, 2),
+                             causal=False, softcap=spec.attn_softcap)
+    return out.transpose(1, 2).reshape(b, s, spec.num_heads * spec.head_dim) @ xa.attn.wo
+
+
 def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, positions: torch.Tensor,
-                 state=None):
+                 state=None, cross=None):
+    """One decoder layer: the mixer, then (``cross`` = (CrossBlock, k, v) of
+    an encoder–decoder) the cross-attention, then the MLP."""
     h = rmsnorm(x, blk.ln1, cfg.norm_eps)
     if blk.spec is not None:
         y, new_state = attention_block(blk.attn, h, blk.spec, positions, state,
@@ -355,6 +476,9 @@ def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, positions: torch
     else:
         y, new_state = ssm_mod.rwkv6_block(blk.rwkv, h, cfg.num_heads, state)
     x = x + y
+    if cross is not None:
+        xa, mem_k, mem_v = cross
+        x = x + _cross_attention(cfg, xa, rmsnorm(x, xa.ln, cfg.norm_eps), mem_k, mem_v)
     h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
     delta = mlp_block(blk.mlp, h2) if hasattr(blk, "mlp") else None
     if hasattr(blk, "moe"):  # in the model dtype: the dense MLP's output first
@@ -366,23 +490,32 @@ def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, positions: torch
 
 @torch.inference_mode()
 def forward(cfg: ModelConfig, params: LM, batch: Dict, *, device=None) -> torch.Tensor:
-    """tokens [B, S] → logits [B, S, vocab_padded] in the model dtype."""
-    if batch.get("frontend") is not None:
-        raise NotImplementedError("frontend embeddings are not ported")
+    """tokens [B, S] (and ``frontend`` [B, F, d]) → logits [B, S', vocab_padded]
+    in the model dtype: S' = F + S for a vision frontend, else S."""
     dev = params_device(params, device)
-    x = _embed(cfg, params, _tokens(batch["tokens"], dev))
+    frontend = _frontend(cfg, batch, dev)
+    x = _embed(cfg, params, _tokens(batch["tokens"], dev), frontend)
     positions = _positions(0, x.shape[1], dev)
-    for blk in params.blocks:
-        x, _ = _apply_layer(cfg, blk, x, positions)
+    enc_out = _encode(cfg, params, frontend) if cfg.encoder_layers else None
+    for layer, blk in enumerate(params.blocks):
+        cross = None
+        if enc_out is not None:  # this layer's memory, made where it is read
+            xa = params.cross[layer]
+            cross = (xa, *_memory_kv(cfg, xa, enc_out))
+        x, _ = _apply_layer(cfg, blk, x, positions, cross=cross)
     return _logits(cfg, params, x)
 
 
 @torch.inference_mode()
 def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *, device=None) -> torch.Tensor:
-    """Mean next-token cross-entropy (float32), under ``loss_mask`` if given."""
+    """Mean next-token cross-entropy (float32) over the text positions (a
+    vision frontend's are skipped), under ``loss_mask`` if given."""
     logits = forward(cfg, params, batch, device=device)
     tokens = _tokens(batch["tokens"], logits.device)
-    preds = logits[:, :-1, :].to(torch.float32)
+    front = 0
+    if batch.get("frontend") is not None and cfg.family != "audio" and not cfg.encoder_layers:
+        front = batch["frontend"].shape[1]
+    preds = logits[:, front:-1, :].to(torch.float32)
     logz = torch.logsumexp(preds, dim=-1)
     gold = torch.gather(preds, -1, tokens[:, 1:, None])[..., 0]
     nll = logz - gold
@@ -396,11 +529,8 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *, device=None) -> torch.
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> Dict[str, Any]:
-    """Zero decode state for ``batch`` sequences: a KV cache of ``max_len``
-    positions for each attention layer; Mamba's and RWKV's states do not grow
-    with the sequence."""
-    dev = resolve_device(device)
+def _layer_cache(cfg: ModelConfig, batch: int, max_len: int, dev: torch.device) -> Dict:
+    """Zero decode state of every pattern position (``{"pos<p>": ...}``)."""
     dt = dtype_of(cfg.dtype)
     ng = cfg.num_groups
     cache = {}
@@ -429,6 +559,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> Di
     return cache
 
 
+def _memory(cfg: ModelConfig, batch: int, enc_len: int, dev: torch.device) -> Dict:
+    """Zero cross-attention memory {"k", "v": [L, B, enc_len, KV, hd]}."""
+    shape = (cfg.num_layers, batch, enc_len, cfg.num_kv_heads, cfg.hd)
+    dt = dtype_of(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> Dict[str, Any]:
+    """Zero decode state for ``batch`` sequences: a KV cache of ``max_len``
+    positions for each attention layer (Mamba's and RWKV's states do not
+    grow with the sequence) and, for an encoder–decoder, a zero memory of
+    ``frontend_len or max_len`` frames."""
+    dev = resolve_device(device)
+    cache = _layer_cache(cfg, batch, max_len, dev)
+    if cfg.encoder_layers:
+        cache["memory"] = _memory(cfg, batch, cfg.frontend_len or max_len, dev)
+    return cache
+
+
 def _cache_len(cfg: ModelConfig, cache: Dict) -> Optional[int]:
     """Tokens held by the KV cache (None for a model without attention)."""
     for pos in range(cfg.period):
@@ -440,19 +590,22 @@ def _cache_len(cfg: ModelConfig, cache: Dict) -> Optional[int]:
 
 def _run_with_cache(cfg: ModelConfig, params: LM, x: torch.Tensor, positions: torch.Tensor,
                     cache: Dict) -> torch.Tensor:
+    memory = cache.get("memory") if cfg.encoder_layers else None
     for layer, blk in enumerate(params.blocks):
         g, pos = divmod(layer, cfg.period)
         entry = cache[f"pos{pos}"]
+        cross = None if memory is None else \
+            (params.cross[layer], memory["k"][layer], memory["v"][layer])
         if blk.spec is not None:
             kv = entry["attn"]
             x, new = _apply_layer(cfg, blk, x, positions, {
-                "k": kv["k"][g], "v": kv["v"][g], "len": int(kv["len"][g])})
+                "k": kv["k"][g], "v": kv["v"][g], "len": int(kv["len"][g])}, cross)
             kv["len"][g] = new["len"]
             continue
         # Mamba's (conv tail, h) or RWKV's (x_prev, S), updated in place.
         first, second = entry[blk.mixer]
         x, (new_first, new_second) = _apply_layer(cfg, blk, x, positions,
-                                                  (first[g], second[g]))
+                                                  (first[g], second[g]), cross)
         first[g].copy_(new_first)
         second[g].copy_(new_second)
     return x
@@ -461,12 +614,21 @@ def _run_with_cache(cfg: ModelConfig, params: LM, x: torch.Tensor, positions: to
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params: LM, batch: Dict, max_len: int, *,
             device=None) -> Tuple[Dict, torch.Tensor]:
-    """Run the prompt [B, S] from a fresh cache → (cache, logits [B, 1, V])."""
+    """Run the prompt [B, S] (behind or beside ``batch["frontend"]``) from a
+    fresh cache → (cache, logits [B, 1, V]). An encoder–decoder's memory is
+    its frames' keys and values; a vision prompt fills F + S positions."""
     dev = params_device(params, device)
     tokens = _tokens(batch["tokens"], dev)
-    cache = init_cache(cfg, tokens.shape[0], max_len, device=dev)
-    x = _run_with_cache(cfg, params, _embed(cfg, params, tokens),
-                        _positions(0, tokens.shape[1], dev), cache)
+    frontend = _frontend(cfg, batch, dev)
+    b = tokens.shape[0]
+    cache = _layer_cache(cfg, b, max_len, dev)
+    if cfg.encoder_layers:
+        enc_out = _encode(cfg, params, frontend)
+        cache["memory"] = mem = _memory(cfg, b, enc_out.shape[1], dev)
+        for layer, xa in enumerate(params.cross):
+            mem["k"][layer], mem["v"][layer] = _memory_kv(cfg, xa, enc_out)
+    x = _embed(cfg, params, tokens, frontend)
+    x = _run_with_cache(cfg, params, x, _positions(0, x.shape[1], dev), cache)
     return cache, _logits(cfg, params, x[:, -1:, :])
 
 
@@ -474,11 +636,12 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict, max_len: int, *,
 def decode_step(cfg: ModelConfig, params: LM, cache: Dict, tokens, pos=None, *,
                 device=None) -> Tuple[torch.Tensor, Dict]:
     """tokens [B, 1] → (logits [B, 1, V], cache). ``pos`` is the new token's
-    position. With attention layers it must equal the KV cache's length,
-    else ``ValueError``: the kernel places the query on the diagonal after
-    the cached keys, where the JAX package masks by ``pos`` itself, and the
-    two agree only there (the JAX server never passes another). Mamba and
-    RWKV do not need it."""
+    position (after a vision prefill F + S). With attention layers it must
+    equal the KV cache's length, else ``ValueError``: the kernel places the
+    query on the diagonal after the cached keys, where the JAX package masks
+    by ``pos`` itself, and the two agree only there (the JAX server never
+    passes another). Mamba and RWKV do not need it. An encoder–decoder
+    attends to the cache's whole memory."""
     dev = params_device(params, device)
     length = _cache_len(cfg, cache)
     if length is not None and pos is not None and int(pos) != length:

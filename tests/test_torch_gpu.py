@@ -24,7 +24,9 @@ its tile edges (64 packed query rows, 32-key tiles). The sliding window
 (gemma2's local layers) is held in all three forms (``-k window``), each
 case also showing that the plain version without the window fails the
 check; the dense models' smoke configs run on the card as on the CPU
-(``-k dense``). The RWKV6 kernel walks
+(``-k dense``), and so do seamless-m4t's encoder-decoder and phi-3-vision's
+patch frontend (``-k "encdec or vision"``), whose non-causal and Dh-96
+shapes the form tables also hold. The RWKV6 kernel walks
 16-step chunks with decay factors as products; its tests sit at the decay
 edges (logdecay -8 and 1.2, w = 1.0, w = 1e-12) and the chunk edges. The
 fused extend kernel reads only each slab's valid prefix (slabs are sorted and
@@ -786,6 +788,21 @@ FORM_CASES = [
     (6, 2, 33, 97, 36, False, None, "prefill"),
     (6, 2, 200, 97, 36, True, None, "prefill"),
     (8, 2, 3, 97, 36, True, None, "decode"),
+    # Non-causal at Dh 64, group 1 (seamless-m4t's encoder and cross-attention)
+    (4, 4, 300, 130, 64, False, None, "prefill"),    # Sq > Sk: decoder tokens over fewer frames
+    (2, 2, 2048, 1000, 64, False, None, "prefill"),  # Sq > Sk, a ragged last key tile
+    (4, 4, 130, 517, 64, False, None, "prefill"),    # Sq < Sk
+    (2, 2, 509, 2048, 64, False, None, "prefill"),   # a prefill's tokens over 2,048 frames
+    (2, 2, 2048, 2048, 64, False, None, "prefill"),  # the encoder's bidirectional rows
+    (16, 16, 1, 1024, 64, False, None, "decode"),    # a decode step over 1,024 frames
+    (16, 16, 32, 1024, 64, False, None, "decode"),   # a served prefill's 32 tokens over them
+    (4, 4, 64, 999, 64, False, None, "decode"),      # 64 packed rows over a ragged tile
+    # Dh 96 (phi-3-vision), in the 128-wide template
+    (4, 4, 300, 300, 96, True, None, "prefill"),
+    (2, 2, 264, 264, 96, False, None, "prefill"),
+    (32, 32, 1, 300, 96, True, None, "decode"),
+    (8, 8, 1, 4100, 96, True, None, "decode"),       # a decode step after 256 patches + 3,840
+    (8, 8, 3, 97, 96, True, None, "decode"),
 ]
 
 
@@ -890,6 +907,11 @@ F32_CASES = [
     (8, 2, 20, 90, 64, True, None),       # tiles straddle two heads
     (64, 16, 256, 256, 128, True, None),  # the blocks fill the card: one split
     (16, 8, 128, 128, 128, False, None),  # no mask, split keys
+    (4, 4, 100, 37, 64, False, None),     # non-causal, Sq > Sk (cross-attention)
+    (4, 4, 37, 300, 64, False, None),     # non-causal, Sq < Sk
+    (16, 16, 1, 1000, 64, False, None),   # non-causal decode step over 1,000 frames
+    (4, 4, 70, 70, 96, True, None),       # Dh 96 (phi-3-vision)
+    (32, 32, 1, 300, 96, True, None),
 ]
 
 
@@ -1129,6 +1151,120 @@ def test_dense_smoke_on_card_equals_cpu_port(cuda, arch):
         logits, cache = T.decode_step(cfg, gpu_params, cache, toks[:, i : i + 1], i, device=cuda)
         steps.append(logits)
     assert float((torch.cat(steps, 1).cpu() - want[:, 35:40]).abs().max()) < 1e-4
+
+
+def _frontend_batch(cfg, b, frames, text, seed):
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (b, text)),
+            "frontend": rng.standard_normal((b, frames, cfg.d_model)).astype(np.float32)}
+
+
+def test_encdec_smoke_on_card_equals_cpu_port(cuda):
+    """seamless-m4t's smoke config in float32: 80 frames, 70 tokens. The
+    forward on the card equals the CPU port's (which the CPU tests hold to
+    the JAX package), with encoder_layers + 2 * num_layers flash launches
+    (the encoder's and the cross-attentions' non-causal); prefill + decode
+    steps (2 * num_layers launches a step) equal the forward; a decode from
+    a fresh cache (a zero memory of max_len frames) equals the CPU's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as T
+
+    cfg = smoke_config("seamless-m4t-large-v2").scaled(dtype="float32")
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    gpu_params = T.init_params(cfg, seed=0, device="cpu").to(cuda)
+    batch = _frontend_batch(cfg, 2, 80, 70, 1)
+    fa.reset_launches()
+    got = T.forward(cfg, gpu_params, batch, device=cuda)
+    assert fa.launches["flash_attention"] == cfg.encoder_layers + 2 * cfg.num_layers
+    want = T.forward(cfg, cpu_params, batch, device="cpu")
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    pre = {"tokens": batch["tokens"][:, :66], "frontend": batch["frontend"]}
+    cache, last = T.prefill(cfg, gpu_params, pre, 72, device=cuda)
+    assert cache["memory"]["k"].shape[2] == 80
+    steps = [last]
+    for i in range(66, 70):
+        fa.reset_launches()
+        logits, cache = T.decode_step(cfg, gpu_params, cache, batch["tokens"][:, i : i + 1], i,
+                                      device=cuda)
+        assert fa.launches["flash_attention"] == 2 * cfg.num_layers
+        steps.append(logits)
+    assert float((torch.cat(steps, 1).cpu() - want[:, 65:70]).abs().max()) < 1e-4
+    out = {}
+    for dev, params in (("cpu", cpu_params), (cuda, gpu_params)):
+        cache = T.init_cache(cfg, 2, 12, device=dev)
+        logits = [T.decode_step(cfg, params, cache, batch["tokens"][:, i : i + 1], i,
+                                device=dev)[0].cpu() for i in range(3)]
+        out[str(dev)] = torch.cat(logits, 1)
+    assert float((out["cuda"] - out["cpu"]).abs().max()) < 1e-4
+
+
+def test_encdec_smoke_on_card_bf16_prefill_and_decode_follow_the_forward(cuda):
+    """The same model in bf16 on the card (the kernel's prefill and decode
+    forms, non-causal in the encoder and the cross-attentions): prefill +
+    decode steps within 10% of the forward's largest logit, as the card's
+    full-width check holds them."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as T
+
+    cfg = smoke_config("seamless-m4t-large-v2")
+    params = T.init_params(cfg, seed=0, device=cuda)
+    batch = _frontend_batch(cfg, 2, 300, 140, 2)
+    fa.reset_launches()
+    want = T.forward(cfg, params, batch, device=cuda).float()
+    assert fa.launches_by_form["prefill"] == cfg.encoder_layers + 2 * cfg.num_layers
+    cache, last = T.prefill(cfg, params, {"tokens": batch["tokens"][:, :137],
+                                          "frontend": batch["frontend"]}, 144, device=cuda)
+    steps = [last.float()]
+    for i in range(137, 140):
+        before = dict(fa.launches_by_form)
+        logits, cache = T.decode_step(cfg, params, cache, batch["tokens"][:, i : i + 1], i,
+                                      device=cuda)
+        assert fa.launches_by_form["decode"] - before["decode"] == 2 * cfg.num_layers
+        steps.append(logits.float())
+    got, ref = torch.cat(steps, 1), want[:, 136:140]
+    assert float((got - ref).abs().max()) < 0.10 * float(ref.abs().max())
+
+
+def test_vision_smoke_on_card_equals_cpu_port(cuda):
+    """phi-3-vision's smoke config in float32: 8 patches in front of 70
+    tokens. The forward on the card equals the CPU port's; prefill + decode
+    steps at positions F + S on equal the forward; greedy text-only served
+    tokens equal the CPU's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import BatchedServer, Request, ServeConfig
+
+    cfg = smoke_config("phi-3-vision-4.2b").scaled(dtype="float32")
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    gpu_params = T.init_params(cfg, seed=0, device="cpu").to(cuda)
+    f = cfg.frontend_len
+    batch = _frontend_batch(cfg, 2, f, 70, 3)
+    fa.reset_launches()
+    got = T.forward(cfg, gpu_params, batch, device=cuda)
+    assert fa.launches["flash_attention"] == cfg.num_layers
+    want = T.forward(cfg, cpu_params, batch, device="cpu")
+    assert got.shape == (2, f + 70, cfg.vocab_padded)
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    pre = {"tokens": batch["tokens"][:, :66], "frontend": batch["frontend"]}
+    cache, last = T.prefill(cfg, gpu_params, pre, f + 72, device=cuda)
+    steps = [last]
+    for i in range(66, 70):
+        logits, cache = T.decode_step(cfg, gpu_params, cache, batch["tokens"][:, i : i + 1],
+                                      f + i, device=cuda)
+        steps.append(logits)
+    assert float((torch.cat(steps, 1).cpu() - want[:, f + 65 : f + 70]).abs().max()) < 1e-4
+    prompts = [np.random.default_rng(i).integers(2, cfg.vocab_size, 12).astype(np.int32)
+               for i in range(3)]
+    scfg = ServeConfig(max_len=24, batch_slots=2, max_new_tokens=5, eos_token=-1)
+    out = {}
+    for dev, params in (("cpu", cpu_params), (cuda, gpu_params)):
+        reqs = [Request(prompt=p.copy()) for p in prompts]
+        BatchedServer(cfg, params, scfg, device=dev).run(reqs)
+        out[str(dev)] = [r.out_tokens for r in reqs]
+    assert out["cuda"] == out["cpu"]
 
 
 # ---------------------------------------------------------------------------

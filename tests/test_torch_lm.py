@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models import ssm as jssm
@@ -84,8 +85,7 @@ def test_config_equals_jax(which):
     assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
     assert pc.param_count() == jc.param_count()
     assert pc.num_groups == jc.num_groups and pc.vocab_padded == jc.vocab_padded
-    assert ARCH_NAMES == [ARCH, "granite-3-8b", "gemma2-9b", "chatglm3-6b", "command-r-35b",
-                          "qwen3-moe-30b-a3b", "arctic-480b", "jamba-v0.1-52b"]
+    assert ARCH_NAMES == JAX_ARCH_NAMES and len(ARCH_NAMES) == 10  # the reference's, in order
 
 
 def test_full_config_is_the_7b_model():
@@ -96,8 +96,9 @@ def test_full_config_is_the_7b_model():
 
 
 def test_unported_mixer_raises_by_name():
-    """Every mixer of the JAX package is ported (jamba's ``mamba`` too); a
-    mixer name the port does not know, and an encoder-decoder, raise."""
+    """Every mixer of the JAX package is ported (jamba's ``mamba`` too), and
+    so are its encoder-decoder and its frontends; a mixer or MLP name the
+    port does not know raises, in an encoder-decoder too."""
     jamba = T.ModelConfig(**dataclasses.asdict(jax_smoke_config("jamba-v0.1-52b")))
     T.LM(jamba, device="meta")
     other = jamba.scaled(layer_pattern=("mamba", "retnet"))
@@ -106,8 +107,12 @@ def test_unported_mixer_raises_by_name():
     with pytest.raises(NotImplementedError, match="'retnet'"):
         T.init_cache(other, 1, 8, device="cpu")
     seamless = T.ModelConfig(**dataclasses.asdict(jax_smoke_config("seamless-m4t-large-v2")))
-    with pytest.raises(NotImplementedError, match="encoders"):
-        T.LM(seamless, device="cpu")
+    lm = T.LM(seamless, device="meta")
+    assert len(lm.encoder) == seamless.encoder_layers and len(lm.cross) == seamless.num_layers
+    T.LM(T.ModelConfig(**dataclasses.asdict(jax_smoke_config("phi-3-vision-4.2b"))),
+         device="meta")
+    with pytest.raises(NotImplementedError, match="'swiglu_moe'"):
+        T.LM(seamless.scaled(mlp_pattern=("swiglu_moe",)), device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
