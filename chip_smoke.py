@@ -48,10 +48,9 @@ Phases (each prints its results; any failure exits non-zero):
    fused (59,500 matches, appended to BENCH_torch_service.json); four
    tenants on the table4 graph (q1/huge, q2/seed, q3/rads, q3/huge) with a
    lease-oom at admission and a queue-overflow under per-tick checkpoints,
-   then standing triangle and q2 over a batch of inserts; two tenants at
-   full width (q3, triangle) against their full counts, with a profiled
-   window, latencies, and device memory back to its pre-submit level with
-   the cycle collector off;
+   then standing triangle and q2 over a batch of inserts (the full-width
+   leg, ``phase_service_full``, runs as a card test in
+   ``tests/test_torch_gpu.py``);
 5b. the engine's other paths: every injected fault kind recovered on the
    table4 graph (the kernels launching again after the restore),
    ``shortest_path_length`` at full width against scipy, and batches of
@@ -131,7 +130,21 @@ Phases (each prints its results; any failure exits non-zero):
    ``loss_fn`` and ``forward`` on 2 x (256 patches + 3,840 tokens), prefill
    of the patches + 509 tokens and decode steps at positions 765-767
    against the forward (bf16 and float32), one served group of text-only
-   prompts through ``BatchedServer``.
+   prompts through ``BatchedServer``;
+17. the flash attention backward kernel against its plain version
+   (``ref.attention_bwd_ref``) at the training shapes: granite's (B=2, 32/8
+   heads, 4,096 tokens, Dh 128, causal), gemma2's local and global layers
+   (Dh 256, softcap 50, window 4,096, 4,608 tokens), seamless's encoder and
+   cross-attention (Dh 64, non-causal, 2,048 and 509 x 2,048), phi-3-vision's
+   Dh 96 and one float32 shape, with times, bound and SDPA's backward;
+18. granite-3-8b training at full width, cut to 20 of its 40 layers
+   (4.19 B parameters, B=2 x 4,096): one step's loss, grad norm and five
+   leaves' gradients on the flash kernels against plain attention's
+   autograd, then 3 steps through ``launch.train.train`` (adaptive
+   microbatches, AdamW) with tokens/s, step times, peak memory and both
+   kernels' launches, then the comparison in float32 at 2 layers;
+19. the training driver at the smoke size on the card: ``--fail-at`` (exit
+   42), then a resume from the latest valid checkpoint to the end.
 
 The line before the last holds the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. It imports torch, numpy and the port only.
@@ -347,6 +360,50 @@ GEMMA2_FORMS = GRANITE_FORMS
 DENSE_FORMS = {"chatglm3-6b": GRANITE_FORMS,
                "command-r-35b": {k: v for k, v in GRANITE_FORMS.items() if k[1] == "bfloat16"}}
 DEV = "cuda"
+# Phase 17: the flash backward kernel against its plain version
+# (ref.attention_bwd_ref) at the training shapes: (what, B, Hq, Hkv, Sq, Sk,
+# Dh, softcap, dtype, window, causal). Held by max |kernel - plain| / max
+# |plain| of each of dq, dk, dv. Both sum in float32 from the same inputs
+# and round the results to the inputs' dtype (2^-9 of the largest value in
+# bf16); in bf16 the kernel also rounds P and dS to bf16 for its tensor-core
+# products, as the forward rounds P (3.1e-3 to 5.8e-3 at these shapes on an
+# H100 80GB HBM3). In float32 only the summation orders differ (the
+# kernel's dq by atomic adds; below 1e-5).
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+# No TPU kernel: the JAX package differentiates its plain attention.
+FLASH_BWD_REPLACES = "src/repro/kernels/flash_attention/ref.py:8"
+FLASH_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+FLASH_BWD_SHAPES = (
+    ("granite-3-8b training", 2, 32, 8, 4096, 4096, 128, None, torch.bfloat16, None, True),
+    ("gemma2-9b local", 1, 16, 8, 4608, 4608, 256, 50.0, torch.bfloat16, 4096, True),
+    ("gemma2-9b global", 1, 16, 8, 4608, 4608, 256, 50.0, torch.bfloat16, None, True),
+    ("seamless-m4t encoder", 2, 16, 16, 2048, 2048, 64, None, torch.bfloat16, None, False),
+    ("seamless-m4t cross-attention", 2, 16, 16, 509, 2048, 64, None, torch.bfloat16, None,
+     False),
+    ("phi-3-vision-4.2b Dh 96", 1, 32, 32, 4096, 4096, 96, None, torch.bfloat16, None, True),
+    ("float32", 1, 32, 8, 2048, 2048, 128, None, torch.float32, None, True),
+)
+# Phase 18: granite-3-8b training at full width, cut to 20 of its 40 layers
+# (4.19 B parameters: 8.37 GB of bf16 weights, as many of gradients, 33.5 GB
+# of float32 AdamW state), B x S = 2 x 4096, and the float32 leg's depth.
+TRAIN_LAYERS = 20
+TRAIN_SHAPE = (2, 4096)
+TRAIN_STEPS = 3
+TRAIN_F32_LAYERS = 2
+TRAIN_LEAVES = ("blocks.0.attn.wq", "blocks.9.attn.wv", "blocks.19.attn.wo",
+                "blocks.10.mlp.w_down", "final_norm")
+TRAIN_F32_LEAVES = ("blocks.0.attn.wq", "blocks.0.attn.wv", "blocks.1.attn.wo",
+                    "blocks.1.mlp.w_down", "final_norm")
+# One step on the kernels against the same step with attention through the
+# plain version's autograd: loss and grad norm relative to the plain's, each
+# leaf by max |kernel - plain| / max |plain|. In bf16 the two attentions
+# round differently (the forward kernel rounds P to bf16 before P V, the
+# plain version does not) in each of 20 layers, and the bf16 activations
+# carry that through the forward and the backward: a few parts in 100 of a
+# leaf's largest gradient. In float32 (2 layers) only the summation orders
+# differ.
+TRAIN_TOL = {torch.bfloat16: {"loss": 1e-2, "grad_norm": 5e-2, "leaf": 5e-2},
+             torch.float32: {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-4}}
 REPLACES = {
     "fused_extend": "src/repro/kernels/intersect/intersect.py:181",
     "fused_verify": "src/repro/kernels/intersect/intersect.py:239",
@@ -3055,6 +3112,7 @@ def phase_encdec_serve(path: LMPath, cfg, params) -> Dict[str, int]:
     return launched
 
 
+@torch.inference_mode()
 def lm_phases(path: LMPath) -> Dict[str, int]:
     """A model's forward and serving phases; its parameters are freed when it
     returns. Returns each kernel's launches on the main path."""
@@ -3076,6 +3134,295 @@ def lm_phases(path: LMPath) -> Dict[str, int]:
             assert n > 0 or (kind == "decode" and u.per_decode == 0), (u.kernel, kind)
         out[u.kernel] = sum(by_kind[u.kernel].values()) + served[u.kernel]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 17-19: training (the flash backward kernel, granite-3-8b, the driver)
+# ---------------------------------------------------------------------------
+
+def attention_bwd_plain(ref, q, k, v, o, do, lse, cap, window, causal):
+    """``ref.attention_bwd_ref`` on [B, H, S, Dh] operands (flattened to its
+    [B·H, S, Dh]); the gradients come back in the operands' shapes."""
+    flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v, o, do)]
+    grads = ref.attention_bwd_ref(*flat, lse.reshape(-1, q.shape[-2]), causal=causal,
+                                  softcap=cap, window=window)
+    return tuple(g.view(x.shape) for g, x in zip(grads, (q, k, v)))
+
+
+def attention_grads(fa, ref, q, k, v, do, cap, window, causal):
+    """The forward with its log-sum-exp, then the backward kernel and its
+    plain version on the same inputs: (out, lse, kernel's (dq, dk, dv),
+    plain's (dq, dk, dv))."""
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    out = fa.attention(q, k, v, causal=causal, softcap=cap, window=window, lse=lse)
+    got = fa.attention_bwd(q, k, v, out, do, lse, causal=causal, softcap=cap, window=window)
+    want = attention_bwd_plain(ref, q, k, v, out, do, lse, cap, window, causal)
+    torch.cuda.synchronize()
+    return out, lse, got, want
+
+
+def grad_errs(got, want):
+    """(max |got - want|, max |got - want| / max |want|) of each of dq, dk, dv."""
+    out = []
+    for g, w in zip(got, want):
+        diff = float((g.float() - w.float()).abs().max())
+        out.append((diff, diff / max(float(w.float().abs().max()), 1e-30)))
+    return out
+
+
+def phase_flash_backward(fa):
+    """Phase 17: the backward kernel against its plain version
+    (``ref.attention_bwd_ref``) at the training shapes, each of dq, dk, dv
+    held by max |kernel - plain| / max |plain| (``FLASH_BWD_TOL``), with the
+    reading of a fault put into the plain version (every P halved: the
+    log-sum-exp off by log 2) to show the check can fail; the kernel's
+    device time (``queued_ms``) and call time, the plain version's call
+    time, the bound (10 * Dh flop a visible pair at the dtype's peak, or the
+    bytes of q, k, v, o, dO read and dq, dk, dv written, whichever is
+    larger) and SDPA's backward where one SDPA call computes the same
+    function (no softcap or window), timed by ``queued_ms`` of
+    ``torch.autograd.grad`` on a kept graph."""
+    from repro_torch.kernels.flash_attention import ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    log("phase 17: flash attention backward kernel vs its plain version and SDPA's backward")
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    out = {"max_abs_err": 0.0, "max_rel_err": 0.0, "configs": []}
+    for what, b, hq, hkv, sq, sk, dh, cap, dtype, window, causal in FLASH_BWD_SHAPES:
+        t_shape = time.perf_counter()
+        randn = lambda *s: torch.randn(s, generator=gen, device=DEV)
+        q = randn(b, hq, sq, dh) * (SOFTCAP_Q_SCALE if cap is not None else 1.0)
+        q, k, v, do = (x.to(dtype) for x in (q, randn(b, hkv, sk, dh), randn(b, hkv, sk, dh),
+                                             randn(b, hq, sq, dh)))
+        o, lse, got, want = attention_grads(fa, ref, q, k, v, do, cap, window, causal)
+        errs = grad_errs(got, want)
+        tol = FLASH_BWD_TOL[dtype]
+        assert all(math.isfinite(e) and r < tol for e, r in errs), (
+            f"flash_attention_bwd {what}: max |kernel - plain| / max |plain| of dq, dk, dv "
+            f"{[r for _, r in errs]} (tolerance {tol})")
+        fault = grad_errs(attention_bwd_plain(ref, q, k, v, o, do, lse + math.log(2), cap,
+                                              window, causal), want)
+        assert min(r for _, r in fault) > tol, f"flash_attention_bwd {what}: the check misses P/2"
+
+        def kernel():
+            return fa.attention_bwd(q, k, v, o, do, lse, causal=causal, softcap=cap, window=window)
+
+        call = call_ms(kernel, iters=3, repeats=3, warmup=2)
+        ms, lo, hi = queued_ms(kernel, iters=3, repeats=3)
+        pcall = call_ms(lambda: attention_bwd_plain(ref, q, k, v, o, do, lse, cap, window,
+                                                    causal), iters=1, repeats=3, warmup=1)
+        lib_ms = lib_call = None
+        if cap is None and window is None:
+            assert not causal or sq == sk  # SDPA's causal diagonal is top-left
+            qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+            lib_out = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
+
+            def lib():
+                return torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True)
+
+            lib_call, lib_ms = call_ms(lib, iters=3, repeats=3, warmup=2), queued_ms(
+                lib, iters=3, repeats=3)
+            del lib_out, qs, ks, vs
+        _, _, fwd_bytes, _, pairs = attention_bound(q.flatten(0, 1), k.flatten(0, 1),
+                                                    v.flatten(0, 1), causal, window)
+        nbytes = 2 * fwd_bytes + lse.numel() * 4  # q, o, dO, dq; k, v, dk, dv; the lse
+        flops = 10 * pairs * dh
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        bound, by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+        shape = (f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} "
+                 f"{'causal' if causal else 'non-causal'} {str(dtype)[6:]}" +
+                 (f" window={window}" if window else "") +
+                 (f" softcap={cap:g}, q x{SOFTCAP_Q_SCALE:g}" if cap else ""))
+        out["configs"].append(dict(
+            shape=shape, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0], plain_ms=pcall[0],
+            bound_ms=bound, bound_by=by, bound_bytes=nbytes, bound_flops=flops,
+            tflops=flops / (ms * 1e-3) / 1e12, max_abs_err=max(e for e, _ in errs),
+            rel_errs=[r for _, r in errs], fault_rel_errs=[r for _, r in fault],
+            library="SDPA backward" if lib_ms else None, library_ms=lib_ms and lib_ms[0],
+            library_call_ms=lib_call and lib_call[0], seconds=time.perf_counter() - t_shape))
+        out["max_abs_err"] = max(out["max_abs_err"], max(e for e, _ in errs))
+        out["max_rel_err"] = max(out["max_rel_err"], max(r for _, r in errs))
+        log(f"  flash_attention_bwd [{what}: {shape}] max |kernel - plain| / max |plain| "
+            f"dq/dk/dv = {', '.join(f'{r:.3e}' for _, r in errs)} (tolerance {tol:g}; with P "
+            f"halved in the plain version {', '.join(f'{r:.3e}' for _, r in fault)}) | kernel "
+            f"queued={ms:.3f} ms (min {lo:.3f}, max {hi:.3f}) call={call[0]:.3f} ms | plain "
+            f"call={pcall[0]:.3f} ms | bound={bound:.4f} ms by {by} ({nbytes} B; {pairs} visible "
+            f"pairs, {flops} flop) | achieved {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{bound / ms:.4f} of the bound | " + (
+                f"SDPA backward queued={lib_ms[0]:.3f} ms (min {lib_ms[1]:.3f}, max "
+                f"{lib_ms[2]:.3f}) call={lib_call[0]:.3f} ms; kernel / SDPA = "
+                f"{ms / lib_ms[0]:.2f}" if lib_ms else "no library call computes this function")
+            + f" | {time.perf_counter() - t_shape:.1f} s")
+        del q, k, v, do, o, lse, got, want, fault
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def plain_attention(fa):
+    """Attention through the plain version (``ref.attention_ref``, its
+    scores materialised) and its autograd, in place of the kernels."""
+    from repro_torch.kernels.flash_attention import ref
+
+    kernel = fa.attention
+
+    def plain(q, k, v, *, causal=True, softcap=None, chunk=512, window=None, lse=None):
+        flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v)]
+        return ref.attention_ref(*flat, causal=causal, softcap=softcap,
+                                 window=window).reshape(q.shape)
+
+    fa.attention = plain
+    try:
+        yield
+    finally:
+        fa.attention = kernel
+
+
+def train_grads(cfg, lm, batch, leaves):
+    """One step's loss, global grad norm and the gradients of the named
+    ``leaves`` (float32 copies), the others freed."""
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import _loss
+
+    names = [n for n, _ in lm.named_parameters()]
+    params = [p.requires_grad_(True) for p in lm.parameters()]
+    loss = _loss(cfg, lm, batch, 0.0)
+    grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+    kept = {n: g.float().clone() for n, g in zip(names, grads) if n in leaves}
+    gnorm = float(global_norm(grads))
+    del grads
+    return float(loss.detach()), gnorm, kept
+
+
+def train_step_check(fa, cfg, lm, batch, tol, what, leaves):
+    """The step's loss, grad norm and named leaves' gradients on the kernels
+    (forward and backward) against the same step with attention through the
+    plain version's autograd, on the card."""
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    got = train_grads(cfg, lm, batch, leaves)
+    torch.cuda.synchronize()
+    k_s, seen = time.perf_counter() - t0, dict(fa.launches)
+    assert seen["flash_attention_bwd"] == cfg.num_layers, seen
+    t0 = time.perf_counter()
+    with plain_attention(fa):
+        want = train_grads(cfg, lm, batch, leaves)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    gnorm_err = abs(got[1] - want[1]) / want[1]
+    leaf_errs = {n: float((got[2][n] - want[2][n]).abs().max() / want[2][n].abs().max())
+                 for n in leaves}
+    log(f"phase 18: {what}: loss {got[0]:.6f} (plain attention {want[0]:.6f}, rel {loss_err:.2e}) "
+        f"grad norm {got[1]:.6f} (plain {want[1]:.6f}, rel {gnorm_err:.2e}); leaves' "
+        f"max |kernel - plain| / max |plain|: " +
+        ", ".join(f"{n} {e:.2e}" for n, e in leaf_errs.items()) +
+        f" (tolerances {tol}) | step on the kernels {k_s:.2f} s, on the plain version "
+        f"{p_s:.2f} s (both first calls) | kernel launches {seen}")
+    assert math.isfinite(got[0]) and math.isfinite(got[1])
+    assert loss_err < tol["loss"] and gnorm_err < tol["grad_norm"], (loss_err, gnorm_err)
+    assert all(e < tol["leaf"] for e in leaf_errs.values()), leaf_errs
+    return dict(loss=got[0], plain_loss=want[0], grad_norm=got[1], plain_grad_norm=want[1],
+                leaf_rel_errs=leaf_errs)
+
+
+def phase_train_granite(fa):
+    """Phase 18: granite-3-8b at full width cut to ``TRAIN_LAYERS`` layers
+    (B x S = ``TRAIN_SHAPE``, the seeded Zipf stream): one step's loss, grad
+    norm and leaves on the kernels against plain attention, then
+    ``TRAIN_STEPS`` steps through ``launch.train.train`` (the driver's loop:
+    adaptive microbatches, AdamW in float32 state) on the forward and
+    backward kernels, with their launches, tokens/s, step times and peak
+    memory; then the comparison in float32 at ``TRAIN_F32_LAYERS`` layers.
+    Returns each kernel's launches in the training steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as T
+    from repro_torch.train.data import DataConfig, synth_batch
+
+    b, s = TRAIN_SHAPE
+    full = get_config("granite-3-8b")
+    cfg = full.scaled(num_layers=TRAIN_LAYERS)
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b), 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = T.init_params(cfg, torch.Generator(device=DEV).manual_seed(18), device=DEV)
+    nbytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    log(f"phase 18: {cfg.name} full width cut to {cfg.num_layers} of its {full.num_layers} "
+        f"layers: {cfg.param_count()} parameters (param_count), {nbytes / 1e9:.2f} GB of bf16 "
+        f"weights, initialised on the card in {time.perf_counter() - t0:.2f} s; B={b} x S={s}")
+    check = train_step_check(fa, cfg, lm, batch, TRAIN_TOL[torch.bfloat16], "bf16",
+                             TRAIN_LEAVES)
+    torch.cuda.synchronize()
+    log(f"phase 18: comparison peak max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    lines = []
+    res = train(cfg, steps=TRAIN_STEPS, global_batch=b, seq_len=s, log_every=1, device=DEV,
+                lm=lm, log=lambda m: (lines.append(m), log(f"phase 18: {m}")))
+    torch.cuda.synchronize()
+    seen = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in res["history"]]
+    step_s = [h["step_s"] for h in res["history"]]
+    log(f"phase 18: {TRAIN_STEPS} steps ({res['decision'].note}, est. activations "
+        f"{res['decision'].est_activation_bytes / 1e9:.2f} GB): losses {losses}, grad norms "
+        f"{[h['grad_norm'] for h in res['history']]}, step times {step_s} s, "
+        f"tokens/s={res['tokens_per_s']:,.0f} (steps after the first "
+        f"{b * s / (sum(step_s[1:]) / max(len(step_s) - 1, 1)):,.0f}), "
+        f"peak max_memory_allocated={peak:.2f} GB, launches {seen}")
+    assert all(math.isfinite(x) for x in losses) and len(losses) == TRAIN_STEPS
+    want = {"flash_attention": 2 * cfg.num_layers * TRAIN_STEPS,  # forward and its recompute
+            "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS}
+    assert seen == want, (seen, want)
+    del lm, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = full.scaled(num_layers=TRAIN_F32_LAYERS, dtype="float32")
+    lm = T.init_params(cfg32, torch.Generator(device=DEV).manual_seed(18), device=DEV)
+    check32 = train_step_check(fa, cfg32, lm, batch, TRAIN_TOL[torch.float32],
+                               f"float32 at {TRAIN_F32_LAYERS} layers", TRAIN_F32_LEAVES)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seen, dict(bf16=check, float32=check32, steps=dict(
+        losses=losses, step_s=step_s, peak_gb=peak, launches=seen))
+
+
+def phase_train_driver():
+    """Phase 19: the training driver (``python -m repro_torch.launch.train``)
+    on the card at the smoke size: a run killed by ``--fail-at`` (exit 42)
+    after its async checkpoints, then the same command resuming from the
+    latest valid checkpoint to the end, as the reference's restart test."""
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    ck = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite-3-8b",
+           "--smoke", "--steps", "16", "--ckpt-dir", ck, "--ckpt-every", "2",
+           "--global-batch", "4", "--seq-len", "16", "--log-every", "5"]
+    try:
+        t0 = time.perf_counter()
+        r1 = subprocess.run(cmd + ["--fail-at", "12"], env=env, cwd=root, capture_output=True,
+                            text=True, timeout=300)
+        t1 = time.perf_counter()
+        r2 = subprocess.run(cmd, env=env, cwd=root, capture_output=True, text=True, timeout=300)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    for label, r, wall in (("crashed run", r1, t1 - t0), ("resumed run", r2, t2 - t1)):
+        log(f"phase 19: {label} exit {r.returncode} in {wall:.1f} s:")
+        for line in r.stdout.strip().splitlines():
+            log(f"phase 19:   {line}")
+    assert r1.returncode == 42 and "injected failure at step 12" in r1.stdout, r1.stderr[-2000:]
+    assert r2.returncode == 0, r2.stderr[-2000:]
+    assert "resuming from valid checkpoint step" in r2.stdout and "done: final loss" in r2.stdout
 
 
 def main() -> int:
@@ -3100,7 +3447,7 @@ def main() -> int:
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = (ik.LIB, rk.LIB, fa.LIB, sk.LIB, chase_library())
+    libs = (ik.LIB, rk.LIB, fa.LIB, fa.BWD_LIB, sk.LIB, chase_library())
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, started together
         list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:
@@ -3182,6 +3529,20 @@ def main() -> int:
     log(f"chip_smoke: phase 16's phi-3-vision-4.2b took {time.perf_counter() - t16:.1f} s, "
         f"done at {time.perf_counter() - t_all:.1f} s")
 
+    # -- phases 17-19: training ---------------------------------------------------
+    t17 = time.perf_counter()
+    flash_bwd = phase_flash_backward(fa)
+    log(f"chip_smoke: phase 17 took {time.perf_counter() - t17:.1f} s")
+    t18 = time.perf_counter()
+    seen, flash_bwd["training"] = phase_train_granite(fa)
+    launches["flash_attention"] += seen["flash_attention"]
+    launches["flash_attention_bwd"] = seen["flash_attention_bwd"]
+    log(f"chip_smoke: phase 18 took {time.perf_counter() - t18:.1f} s")
+    t19 = time.perf_counter()
+    phase_train_driver()
+    log(f"chip_smoke: phase 19 took {time.perf_counter() - t19:.1f} s, done at "
+        f"{time.perf_counter() - t_all:.1f} s")
+
     for name in launches:
         assert launches[name] > 0, f"{name} was never launched on the main path"
     kernels = []
@@ -3215,6 +3576,16 @@ def main() -> int:
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
         configs=scan["configs"], edges=scan["edges"], mamba_layer=scan["mamba_layer"]))
+    head = flash_bwd["configs"][0]
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda", source=FLASH_BWD_SOURCE,
+        replaces=FLASH_BWD_REPLACES,
+        replaces_note="the gradient of the JAX package's plain attention (no TPU kernel)",
+        launches=launches["flash_attention_bwd"], max_abs_err=flash_bwd["max_abs_err"],
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
+        configs=flash_bwd["configs"], max_rel_err=flash_bwd["max_rel_err"],
+        training=flash_bwd["training"]))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3332,12 +3703,15 @@ def enumeration_phases(ik):
         log_preflight("phase 5d", preflight)
 
         # -- phase 5c ----------------------------------------------------------
+        # The full-width leg (phase_service_full) runs as a card test
+        # (tests/test_torch_gpu.py); phase 5b's streaming starts from the full
+        # counts it holds the service to.
         for leg, run in (("reference load", lambda: phase_service_load(ik, launches)),
-                         ("table4 graph", lambda: phase_service_table4(ik, launches)),
-                         ("full width", lambda: phase_service_full(ik, launches, big))):
+                         ("table4 graph", lambda: phase_service_table4(ik, launches))):
             t0 = time.perf_counter()
-            before = run()  # the last leg's: the full-width triangle and q2 counts
+            run()
             log(f"phase 5c: {leg} took {time.perf_counter() - t0:.1f} s")
+        before = dict(FULL_COUNTS)
         log_preflight("phase 5c", preflight)
 
         # -- phase 5b ----------------------------------------------------------

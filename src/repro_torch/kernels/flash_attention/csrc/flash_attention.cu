@@ -133,7 +133,20 @@ struct Params {
   float softcap;     // <= 0: none
   int causal;
   int window;        // row i sees keys j > i + sk - sq - window; >= sk + sq: no window
+  float* lse;        // [bhq, sq]: each row's log-sum-exp of its scores, or nullptr
 };
+
+// A row's natural-log log-sum-exp from its running max m (base-2 units: the
+// scores times log2 e) and its sum l of exp2(score - m); +inf for a row that
+// sees no key, so that exp(s - lse) is 0 there (the backward's P).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : INFINITY;
+}
+
+// Writes row ``row`` of query row bh's log-sum-exp when the caller asked for it.
+__device__ __forceinline__ void store_lse(const Params& p, int bh, int row, float m, float l) {
+  if (p.lse != nullptr) p.lse[static_cast<int64_t>(bh) * p.sq + row] = row_lse(m, l);
+}
 
 __device__ __forceinline__ int64_t q_base(const Operand& op, int bh, int hq) {
   const int b = bh / hq, h = bh - b * hq;
@@ -654,9 +667,11 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, uint32_t qs, uint3
                       q_base(p.o, bh, p.hq);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+    const float lsum = quad_sum(l[r]);
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
     const int row = row_a + 8 * r;
     if (row >= p.sq) continue;
+    if (t == 0) store_lse(p, bh, row, m[r], lsum);
     __nv_bfloat16* orow = og + static_cast<int64_t>(row) * p.o.ss;
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
@@ -892,6 +907,7 @@ flash_decode_kernel(Params p, int rows, int split_keys, int stages, float* part_
       if (t == 0) part_ml[slot] = make_float2(m[r], lsum);
     } else {
       const float inv = 1.f / fmaxf(lsum, 1e-30f);
+      if (t == 0) store_lse(p, f * p.group + row / p.sq, row % p.sq, m[r], lsum);
       __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(const_cast<void*>(p.o.ptr)) +
                             q_base(p.o, f * p.group + row / p.sq, p.hq) + (row % p.sq) * p.o.ss;
 #pragma unroll
@@ -924,6 +940,7 @@ flash_merge_kernel(Params p, int rows, int splits, const float* part_acc, const 
     den += exp2f(ml.x - mx) * ml.y;
   }
   const float inv = 1.f / fmaxf(den, 1e-30f);
+  if (lane == 0) store_lse(p, f * p.group + row / p.sq, row % p.sq, mx, den);
   T* orow = static_cast<T*>(const_cast<void*>(p.o.ptr)) +
             q_base(p.o, f * p.group + row / p.sq, p.hq) + (row % p.sq) * p.o.ss;
   if constexpr (std::is_same<T, float>::value) {  // any Dh: one column a lane
@@ -1201,6 +1218,7 @@ flash_f32_kernel(Params p, int rows, int split_keys, int vec, float* part_acc, f
       dst = static_cast<float*>(const_cast<void*>(p.o.ptr)) +
             q_base(p.o, f * p.group + r / p.sq, p.hq) + (r % p.sq) * p.o.ss;
       scale = 1.f / fmaxf(lsum, 1e-30f);
+      if (kg == 0) store_lse(p, f * p.group + r / p.sq, r % p.sq, m[i], lsum);
     }
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -1356,14 +1374,17 @@ enum Form { kFormF32 = 0, kFormPrefill = 1, kFormDecode = 2 };  // ops.py: FORMS
 // window (sk + sq or more: no window). form: one of Form (ops.py picks it). Decode
 // only: ``splits`` key splits of ``split_keys`` keys and, when splits > 1,
 // float32 scratch part_acc [splits, BHq/group, Sq*group, Dh] and part_ml
-// [splits, BHq/group, Sq*group, 2]. Returns a cudaError_t (0 on success).
+// [splits, BHq/group, Sq*group, 2]. lse: nullptr, or float32 [BHq, Sq] that
+// every form (the merge where the keys are split) fills with each query
+// row's natural-log log-sum-exp of its scores, the backward's input.
+// Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const int64_t* strides, int bhq, int hq, int hkv,
                                       int group, int sq, int sk, int dh, float scale,
                                       float softcap, int causal, int window, int form,
                                       int splits,
                                       int split_keys, void* part_acc, void* part_ml,
-                                      void* stream) {
+                                      void* lse, void* stream) {
   Params p;
   const void* ptrs[4] = {q, k, v, o};
   Operand* ops[4] = {&p.q, &p.k, &p.v, &p.o};
@@ -1380,6 +1401,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.softcap = softcap;
   p.causal = causal;
   p.window = window;
+  p.lse = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dh < 1 || dh > 256 || window < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (form) {

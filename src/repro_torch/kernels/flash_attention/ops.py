@@ -42,6 +42,16 @@ block at the first tile its rows see.
 each whatever the launches inside (``reset_launches`` zeroes it), so a run
 can show that it went through the kernel; ``launches_by_form`` splits that
 count by form.
+
+Training. Where grad mode is on and q, k or v requires grad, ``attention``
+runs as an ``autograd.Function``: its forward is the same kernel (or CPU
+path) asked to write each query row's float32 log-sum-exp too (``lse``, an
+optional output every serving call leaves out), and its backward is
+``attention_bwd``: on the card the hand-written backward kernel
+(``csrc/flash_attention_bwd.cu``, its own library), counted in
+``launches["flash_attention_bwd"]``, on the CPU its plain version
+``ref.attention_bwd_ref``. There is no fallback: a failed build or launch
+raises :class:`KernelFault`.
 """
 from __future__ import annotations
 
@@ -54,7 +64,8 @@ import torch
 
 from repro_torch.core.faults import KernelFault
 from repro_torch.kernels.build import CudaLibrary
-from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv, visible
+from repro_torch.kernels.flash_attention.ref import (NEG_INF, attention_bwd_ref, expand_kv,
+                                                     visible)
 
 MAX_HEAD_DIM = 256  # the kernel's widest head (gemma2's)
 MAX_GRID_Y = 65535  # grid rows: the decode form's KV rows (at most the query rows bh)
@@ -67,14 +78,22 @@ F32_ROWS = 64  # packed query rows of a KV head an f32-form block takes (csrc's 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = ([p, p, p, p, p] + [i32] * 7 + [f32, f32]
-                                           + [i32] * 5 + [p, p, p])
+                                           + [i32] * 5 + [p, p, p, p])
     lib.flash_attention_launch.restype = ctypes.c_int
 
 
-LIB = CudaLibrary("flash_attention",
-                  Path(__file__).resolve().parent / "csrc" / "flash_attention.cu", _declare)
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_launch.argtypes = ([p] * 12 + [i32] * 7 + [f32, f32]
+                                               + [i32] * 3 + [p])
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
 
-launches: Dict[str, int] = {"flash_attention": 0}
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+LIB = CudaLibrary("flash_attention", CSRC / "flash_attention.cu", _declare)
+BWD_LIB = CudaLibrary("flash_attention_bwd", CSRC / "flash_attention_bwd.cu", _declare_bwd)
+
+launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 launches_by_form: Dict[str, int] = {form: 0 for form in FORMS}
 
 
@@ -142,12 +161,14 @@ def _sm_count(index: int) -> int:
 
 
 def attention_chunked(q, k, v, *, causal: bool = True, softcap: float | None = None,
-                      chunk: int = 512, window: int | None = None):
+                      chunk: int = 512, window: int | None = None, return_lse: bool = False):
     """Online-softmax attention walked over KV chunks of ``chunk`` keys, the
     JAX package's ``attention_chunked`` (with ``_sdpa``'s sliding window):
     peak memory O(Sq·chunk), a ragged Sk padded to a chunk multiple and
     masked. A chunk that the mask hides wholly from a row adds nothing to it:
-    its p is zeroed under the mask, as ``_sdpa`` does. 3-D inputs only."""
+    its p is zeroed under the mask, as ``_sdpa`` does. 3-D inputs only. With
+    ``return_lse`` also each row's log-sum-exp [BHq, Sq] float32 (+inf for a
+    row that sees no key), as the kernel writes it."""
     bh, sq, dh = q.shape
     k, v = expand_kv(q, k, v)
     sk = k.shape[1]
@@ -177,7 +198,11 @@ def attention_chunked(q, k, v, *, causal: bool = True, softcap: float | None = N
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.einsum("bqk,bkd->bqd", p, vb)
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), torch.inf)[..., 0]
+    return out, lse
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -230,25 +255,60 @@ def _strides(x: torch.Tensor):
     return x.stride(0), x.stride(1), x.stride(2)
 
 
+class _Attention(torch.autograd.Function):
+    """``attention`` with its backward: the forward saves the output and each
+    row's log-sum-exp, the backward is ``attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap, chunk, window):
+        lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+        out = attention(q, k, v, causal=causal, softcap=softcap, chunk=chunk, window=window,
+                        lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, softcap, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, softcap, window = ctx.mask
+        q, k, v, out, lse = ctx.saved_tensors  # read once: checkpoint's unpack allows no more
+        dq, dk, dv = attention_bwd(q, k, v, out, dout, lse, causal=causal, softcap=softcap,
+                                   window=window)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention(q, k, v, *, causal: bool = True, softcap: float | None = None,
-              chunk: int = 512, window: int | None = None):
+              chunk: int = 512, window: int | None = None, lse: torch.Tensor | None = None):
     """Causal (or full) softmax attention with scores ``(q·k)/√Dh``, optionally
     soft-capped; under ``causal`` query i sees key j iff ``i + Sk − Sq ≥ j``
     (q is the suffix of the key sequence), and under a sliding ``window``
     also iff ``i + Sk − Sq − j < window``. Returns q's dtype and leading
     shape. ``chunk`` is the CPU path's chunk length; the kernel takes any
     Sq, Sk ≥ 1 and Dh ≤ 256, and reads only the keys some row sees
-    (``visible_keys``)."""
+    (``visible_keys``). ``lse``: None, or a float32 tensor of q's shape but
+    Dh, contiguous, filled with each row's log-sum-exp. Differentiable where
+    grad mode is on and an input requires grad (``_Attention``)."""
     _check_shapes(q, k, v)
     if softcap is not None and not softcap > 0:
         raise ValueError(f"attention: softcap must be positive, got {softcap}")
     if window is not None and not (isinstance(window, int) and window >= 1):
         raise ValueError(f"attention: window must be a positive int, got {window!r}")
+    if lse is None and torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, softcap, chunk, window)
+    if lse is not None and (lse.shape != q.shape[:-1] or lse.dtype != torch.float32
+                            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"attention: lse must be contiguous float32 {tuple(q.shape[:-1])} "
+                         f"on {q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
     if not _on_cuda(q, k, v):
         lead = q.shape[:-2]
         flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v)]
-        return attention_chunked(*flat, causal=causal, softcap=softcap, chunk=chunk,
-                                 window=window).reshape(*lead, *q.shape[-2:])
+        out = attention_chunked(*flat, causal=causal, softcap=softcap, chunk=chunk,
+                                window=window, return_lse=lse is not None)
+        if lse is not None:
+            out, rows = out
+            lse.copy_(rows.reshape(lse.shape))
+        return out.reshape(*lead, *q.shape[-2:])
     sq, dh = q.shape[-2:]
     first = visible_keys(sq, k.shape[-2], window)
     k, v = k[..., first:, :], v[..., first:, :]
@@ -300,6 +360,7 @@ def attention(q, k, v, *, causal: bool = True, softcap: float | None = None,
         0.0 if softcap is None else float(softcap), int(bool(causal)), win, FORMS.index(form),
         splits, split_keys, None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
@@ -308,3 +369,77 @@ def attention(q, k, v, *, causal: bool = True, softcap: float | None = None,
     launches["flash_attention"] += 1
     launches_by_form[form] += 1
     return out if width == dh else out[..., :dh]
+
+
+def bwd_width(dh: int) -> int:
+    """The backward kernel's head width: Dh padded to 64, 128 or 256 (csrc's
+    BwdCfg), the row length of its float32 dQ scratch."""
+    return 64 if dh <= 64 else 128 if dh <= 128 else 256
+
+
+def _like_out(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of x's shape and dtype: for 4-D a [B, H, S, Dh] view of
+    a [B, S, H, Dh] tensor, the layout the model's projections have."""
+    if x.ndim == 3:
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    b, h, s, d = x.shape
+    return torch.empty((b, s, h, d), dtype=x.dtype, device=x.device).transpose(1, 2)
+
+
+def attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                  softcap: float | None = None, window: int | None = None):
+    """The gradients (dq, dk, dv) of ``attention`` at q, k, v (3-D or 4-D, as
+    ``attention`` takes them) from its output ``out``, the output's gradient
+    ``dout`` and the forward's ``lse``. On the card the backward kernel (keys
+    before ``visible_keys`` get a zero gradient; the kernel sees the rest),
+    or :class:`KernelFault`; on the CPU ``ref.attention_bwd_ref``."""
+    _check_shapes(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != q.shape[:-1]:
+        raise ValueError(f"attention_bwd: shapes q={tuple(q.shape)} out={tuple(out.shape)} "
+                         f"dout={tuple(dout.shape)} lse={tuple(lse.shape)}")
+    if not _on_cuda(q, k, v, out, dout, lse):
+        flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v, out, dout)]
+        dq, dk, dv = attention_bwd_ref(*flat, lse.reshape(-1, q.shape[-2]), causal=causal,
+                                       softcap=softcap, window=window)
+        return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
+    sq, dh = q.shape[-2:]
+    if dh > MAX_HEAD_DIM:
+        raise KernelFault(f"flash_attention_bwd kernel takes Dh <= {MAX_HEAD_DIM}, got Dh={dh}",
+                          op="flash_attention_bwd")
+    if len({q.dtype, k.dtype, v.dtype, out.dtype, dout.dtype}) != 1 \
+            or q.dtype not in (torch.float32, torch.bfloat16) or lse.dtype != torch.float32:
+        raise TypeError(f"attention_bwd: q, k, v, out, dout must share float32 or bfloat16 and "
+                        f"lse be float32, got {q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}, "
+                        f"{dout.dtype}, {lse.dtype}")
+    first = visible_keys(sq, k.shape[-2], window)
+    dq, dk, dv = _like_out(q), _like_out(k), _like_out(v)
+    if first:
+        dk.zero_()
+        dv.zero_()
+    k, v, dk_seen, dv_seen = (x[..., first:, :] for x in (k, v, dk, dv))
+    sk = k.shape[-2]
+    win = sk + sq if window is None else min(window, sk + sq)
+    bhq = q.shape[:-2].numel()
+    hq, hkv = (1, 1) if q.ndim == 3 else (q.shape[1], k.shape[1])
+    group = q.shape[-3] // k.shape[-3]
+    if bhq // group > MAX_GRID_Y:
+        raise KernelFault(f"flash_attention_bwd kernel takes at most {MAX_GRID_Y} KV rows, "
+                          f"got {bhq // group}", op="flash_attention_bwd")
+    q, k, v, out, dout = (x if x.stride(-1) == 1 else x.contiguous()
+                          for x in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((bhq, sq, bwd_width(dh)), dtype=torch.float32, device=q.device)
+    operands = (q, k, v, out, dout, dq, dk_seen, dv_seen)
+    stride_arr = (ctypes.c_int64 * 24)(*[s for x in operands for s in _strides(x)])
+    rc = BWD_LIB.load().flash_attention_bwd_launch(
+        *(x.data_ptr() for x in operands), ctypes.addressof(stride_arr), lse.data_ptr(),
+        delta.data_ptr(), dq_acc.data_ptr(), bhq, hq, hkv, group, sq, sk, dh,
+        1.0 / (dh ** 0.5), 0.0 if softcap is None else float(softcap), int(bool(causal)), win,
+        0 if q.dtype == torch.float32 else 1, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise KernelFault(f"flash_attention_bwd launch failed: cudaError {rc}",
+                          op="flash_attention_bwd")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -13,6 +13,11 @@ mean of v), as in the JAX twin; the kernel and the chunked path give 0 there.
 ``attention_split_ref`` is the plain version of the kernel's decode form:
 partial (m, l, acc) per split of the keys, merged by log-sum-exp. It gives 0
 on a row that sees no key, as the kernel does.
+
+``attention_bwd_ref`` is the plain version of the backward kernel
+(``csrc/flash_attention_bwd.cu``): the gradients of q, k and v from the
+forward's output, its log-sum-exp per row and the output's gradient, written
+out rather than taken through autograd.
 """
 from __future__ import annotations
 
@@ -93,3 +98,44 @@ def attention_split_ref(q, k, v, split: int, *, causal: bool = True,
         den = den + w * l
         acc = acc + w * a
     return (acc / torch.clamp(den, min=1e-30)).to(q.dtype)
+
+
+def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                      softcap: float | None = None, window: int | None = None):
+    """(dq, dk, dv) of ``attention`` at q [BHq, Sq, Dh], k and v [BHkv, Sk, Dh]
+    with output o and its gradient ``do`` [BHq, Sq, Dh], and ``lse``
+    [BHq, Sq] float32, the natural-log log-sum-exp of each row's (soft-capped)
+    scores (+inf for a row that sees no key). In float32:
+
+        P = exp(s − lse) where the row sees the key, else 0
+        dV = Pᵀ dO,  dP = dO Vᵀ,  D = rowsum(dO ∘ O)
+        dS = P ∘ (dP − D) ∘ (1 − tanh²) · scale   (the tanh factor with a softcap only)
+        dQ = dS K,  dK = dSᵀ Q
+
+    dK and dV are summed over each KV row's group of query rows. The results
+    take the inputs' dtypes."""
+    dh = q.shape[-1]
+    bhq, bhkv = q.shape[0], k.shape[0]
+    ke, ve = expand_kv(q, k, v)
+    f32 = torch.float32
+    scale = dh ** -0.5
+    qf, kf, vf, of, gf = (x.to(f32) for x in (q, ke, ve, o, do))
+    x = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    if softcap is not None:
+        t = torch.tanh(x / softcap)
+        x = softcap * t
+    sq, sk = x.shape[-2:]
+    mask = visible(sq, sk, torch.arange(sk, device=q.device), causal, window)
+    p = torch.where(mask, torch.exp(x - lse.to(f32)[..., None]), 0.0)
+    dv = torch.einsum("bqk,bqd->bkd", p, gf)
+    dp = torch.einsum("bqd,bkd->bqk", gf, vf)
+    ds = p * (dp - torch.sum(gf * of, dim=-1, keepdim=True))
+    if softcap is not None:
+        ds = ds * (1 - t * t)
+    ds = ds * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    group = bhq // bhkv
+    dk = dk.view(bhkv, group, sk, dh).sum(1)
+    dv = dv.view(bhkv, group, sk, dh).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -122,9 +122,14 @@ def rwkv6(r, k, v, w, u, *, chunk: int = 64, return_state: bool = False):
     r, k, w [BH, T, K], v [BH, T, V] (float32 or bfloat16, one dtype), u
     [BH, K] → out float32 [BH, T, V], and with ``return_state`` the final
     state float32 [BH, K, V]. ``chunk`` is the CPU path's chunk length; the
-    kernel takes any T >= 1."""
+    kernel takes any T >= 1. On the card an input that requires grad (grad
+    mode on) raises ``NotImplementedError``: there is no backward kernel yet."""
     if not _on_cuda(r, k, v, w, u):
         return rwkv6_chunked(r, k, v, w, u, chunk=chunk, return_state=return_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u)):
+        raise NotImplementedError(
+            "rwkv6: the rwkv6 kernel has no backward kernel yet, so it cannot train on the "
+            "card (the CPU path differentiates its plain version)")
     bh, t, kd = r.shape
     vd = v.shape[-1]
     if k.shape != r.shape or w.shape != r.shape or v.shape[:2] != (bh, t) \

@@ -71,9 +71,14 @@ def ssm_scan(dt, x, a, bmat, cmat, h0):
     dt float32 [B, T, Di], x [B, T, Di], a float32 [Di, N], bmat and cmat
     [B, T, N] (x's dtype, float32 or bfloat16; any batch and time strides),
     h0 float32 [B, Di, N] → (y float32 [B, T, Di], h_T float32 [B, Di, N]).
-    T = 1 is one decode step."""
+    T = 1 is one decode step. On the card an input that requires grad (grad
+    mode on) raises ``NotImplementedError``: there is no backward kernel yet."""
     if not _on_cuda(dt, x, a, bmat, cmat, h0):
         return ssm_scan_ref(dt, x, a, bmat, cmat, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (dt, x, a, bmat, cmat, h0)):
+        raise NotImplementedError(
+            "ssm_scan: the ssm_scan kernel has no backward kernel yet, so it cannot train on the "
+            "card (the CPU path differentiates its plain version)")
     bsz, t, di = dt.shape
     n = a.shape[-1]
     if x.shape != dt.shape or a.shape != (di, n) or bmat.shape != (bsz, t, n) \

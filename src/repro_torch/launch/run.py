@@ -59,7 +59,7 @@ SUITES = {
     "table4": table4,
 }
 # Modules of this package that are command lines, not suites.
-NOT_SUITES = ("__init__", "common", "enumerate", "run", "serve")
+NOT_SUITES = ("__init__", "common", "enumerate", "run", "serve", "train")
 # Suites that run plain and fused themselves (they take no --fused).
 RUNS_BOTH = ("table4", "exp_dist_hybrid")
 

@@ -9,10 +9,18 @@ the layers of each pattern position stacked (``blocks[pos]`` leaves are
 ...]`` and its ``cross`` leaves ``[num_layers, ...]``: encoder layer i and
 the cross-attention of decoder layer l take slices i and l. This module imports neither JAX nor the JAX package: it reads plain
 numpy arrays.
+
+``to_jax_params`` is the inverse: an :class:`LM` → the JAX tree of numpy
+arrays, the layers of each pattern position stacked again (bfloat16
+parameters come as float32 arrays, which hold them exactly: numpy has no
+bfloat16). ``jax_leaves`` names every leaf of that tree by its path (the
+checkpoint's keys, ``blocks/0/attn/wq``) with the port tensors it is made
+of: the training checkpoint and the optimizer's weight-decay rule (by the
+rank of the JAX leaf, stacked or not) are written on it.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, List, Mapping, Union
 
 import numpy as np
 import torch
@@ -71,3 +79,52 @@ def from_jax_params(cfg: ModelConfig, tree: Mapping, *, device=None) -> LM:
                 for i, module in enumerate(getattr(lm, name)):
                     _copy_tree(module, tree[name], i, f"{name}[{i}]")
     return lm
+
+
+STACKED = ("blocks", "encoder", "cross")  # the JAX tree's stacked subtrees
+
+
+def jax_leaves(cfg: ModelConfig, lm: LM) -> Dict[str, Union[torch.Tensor, List[torch.Tensor]]]:
+    """Every leaf of the JAX parameter tree by its path (keys joined by
+    ``/``, tuple positions as numbers): a top-level leaf's port tensor, or a
+    stacked leaf's list of port tensors in stacking order (group g of
+    pattern position p is layer ``g * period + p``; encoder layer i; the
+    cross-attention of decoder layer l)."""
+    out: Dict[str, Union[torch.Tensor, List[torch.Tensor]]] = {"embed": lm.embed,
+                                                               "final_norm": lm.final_norm}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = lm.lm_head
+
+    def stack(prefix: str, modules) -> None:
+        for module in modules:
+            for name, t in module.named_parameters():
+                out.setdefault(f"{prefix}/{name.replace('.', '/')}", []).append(t)
+
+    for pos in range(cfg.period):
+        stack(f"blocks/{pos}", lm.blocks[pos::cfg.period])
+    if cfg.encoder_layers:
+        out["enc_norm"] = lm.enc_norm
+        stack("encoder", lm.encoder)
+        stack("cross", lm.cross)
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def to_jax_params(cfg: ModelConfig, lm: LM) -> Dict[str, Any]:
+    """An :class:`LM` → the JAX package's parameter tree (nested dicts, a
+    tuple of pattern positions under ``blocks``) of numpy arrays, bfloat16
+    parameters as float32."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in jax_leaves(cfg, lm).items():
+        arr = np.stack([_numpy(t) for t in leaf]) if isinstance(leaf, list) else _numpy(leaf)
+        *parents, last = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = arr
+    tree["blocks"] = tuple(tree["blocks"][str(pos)] for pos in range(cfg.period))
+    return tree

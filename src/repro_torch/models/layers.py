@@ -4,7 +4,8 @@ attention with its KV cache, the SwiGLU MLP.
 The same arithmetic as the JAX package's ``models/layers.py``, in the same
 dtypes: weights are ``x @ W`` matrices of shape [d_in, d_out], norms and
 RoPE compute in float32 and return the input's dtype. Parameters live in
-``nn.Module``s (never trained here: ``requires_grad=False``). The JAX
+``nn.Module``s, made with ``requires_grad=False``; the trainer
+(``train/train_step.py``) switches them on. The JAX
 package's sharding annotations are the identity off a mesh and are dropped.
 Attention runs the flash attention kernel (``kernels/flash_attention``) on
 the card, a local layer's sliding window (``AttnSpec.window``) inside it.

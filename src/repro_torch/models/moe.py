@@ -117,9 +117,12 @@ def _capacity(n_routed: int, e: int, capacity_factor: float) -> int:
 def _expert_ffn(ex: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                 wd: torch.Tensor) -> torch.Tensor:
     """ex [E, C, d] through each expert's SwiGLU FFN → [E, C, d], in the
-    model dtype. ``silu`` and the gate product run in place: the same
-    roundings, two [E, C, ff] temporaries fewer."""
-    h = torch.nn.functional.silu(torch.bmm(ex, wg), inplace=True)
+    model dtype. Outside a graph ``silu`` and the gate product run in place:
+    the same roundings, two [E, C, ff] temporaries fewer."""
+    gate = torch.bmm(ex, wg)
+    if gate.requires_grad:  # their backward reads the inputs an in-place step would overwrite
+        return torch.bmm(torch.nn.functional.silu(gate) * torch.bmm(ex, wu), wd)
+    h = torch.nn.functional.silu(gate, inplace=True)
     h.mul_(torch.bmm(ex, wu))
     return torch.bmm(h, wd)
 

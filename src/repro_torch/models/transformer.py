@@ -31,7 +31,12 @@ API (the JAX package's, with an explicit device and generator):
 
 ``device`` goes through :func:`repro_torch.device.resolve_device`: ``cuda``
 unless the caller asks for the CPU, and the parameters must live there.
-Everything runs under ``torch.inference_mode()``. The decode cache has the
+``forward`` and ``loss_fn`` are differentiable: where grad mode is on and a
+parameter requires grad (the trainer switches them on), each layer runs
+under ``torch.utils.checkpoint`` (its activations are recomputed in the
+backward, the JAX package's ``jax.checkpoint`` of a layer group) and
+attention through the flash kernel's backward. ``prefill`` and
+``decode_step`` run under ``torch.inference_mode()``. The decode cache has the
 JAX package's layout, with G the number of layer groups: ``{"pos<p>":
 {"attn": {"k", "v": [G, B, max_len, KV, hd], "len": [G] int32}}}`` for an
 attention position (a local one too: ``max_len`` positions, as the JAX
@@ -55,6 +60,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.hybrid_comm import moe_dispatch_mode
 from repro_torch.device import resolve_device
@@ -396,7 +402,10 @@ def _logits(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = x @ head
-    if cfg.logit_softcap is not None:
+    if cfg.logit_softcap is not None and logits.requires_grad:
+        # tanh's backward reads its output: no in-place step after it.
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    elif cfg.logit_softcap is not None:
         # cap * tanh(logits / cap), each op rounded as JAX rounds it, in place:
         # gemma2's [B, S, 256000] logits take no second and third copy.
         logits = logits.div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
@@ -427,18 +436,31 @@ def _moe_comm_mode(cfg: ModelConfig, tokens_per_step: int, comm=None) -> str:
     ).mode
 
 
+def _recompute(params: LM) -> bool:
+    """Whether a pass builds a graph for a backward: grad mode on and the
+    parameters trainable. Such a pass recomputes each layer in the backward."""
+    return torch.is_grad_enabled() and params.embed.requires_grad
+
+
+def _encoder_layer(cfg: ModelConfig, enc: EncoderBlock, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(x, enc.ln1, cfg.norm_eps)
+    att, _ = attention_block(enc.attn, h, encoder_spec(cfg), positions, None,
+                             chunk=cfg.attn_chunk)
+    x = x + att
+    return x + mlp_block(enc.mlp, rmsnorm(x, enc.ln2, cfg.norm_eps))
+
+
 def _encode(cfg: ModelConfig, params: LM, frames: torch.Tensor) -> torch.Tensor:
     """The encoder over the frames [B, S_enc, d] (model dtype): bidirectional
     self-attention with RoPE over ``arange(S_enc)``, then the MLP, in each
-    layer; then ``enc_norm``."""
-    spec = encoder_spec(cfg)
+    layer (recomputed in the backward of a training pass); then ``enc_norm``."""
     x = frames
     positions = _positions(0, x.shape[1], x.device)
+    recompute = _recompute(params)
     for enc in params.encoder:
-        h = rmsnorm(x, enc.ln1, cfg.norm_eps)
-        att, _ = attention_block(enc.attn, h, spec, positions, None, chunk=cfg.attn_chunk)
-        x = x + att
-        x = x + mlp_block(enc.mlp, rmsnorm(x, enc.ln2, cfg.norm_eps))
+        x = checkpoint(_encoder_layer, cfg, enc, x, positions, use_reentrant=False) \
+            if recompute else _encoder_layer(cfg, enc, x, positions)
     return rmsnorm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -488,25 +510,33 @@ def _apply_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, positions: torch
     return x + delta, new_state
 
 
-@torch.inference_mode()
+def _decoder_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor, positions: torch.Tensor,
+                   xa: Optional[CrossBlock], enc_out: Optional[torch.Tensor]) -> torch.Tensor:
+    """One layer of a full pass; an encoder–decoder's memory of this layer is
+    made here, where it is read (and recomputed with the layer)."""
+    cross = None if xa is None else (xa, *_memory_kv(cfg, xa, enc_out))
+    return _apply_layer(cfg, blk, x, positions, cross=cross)[0]
+
+
 def forward(cfg: ModelConfig, params: LM, batch: Dict, *, device=None) -> torch.Tensor:
     """tokens [B, S] (and ``frontend`` [B, F, d]) → logits [B, S', vocab_padded]
-    in the model dtype: S' = F + S for a vision frontend, else S."""
+    in the model dtype: S' = F + S for a vision frontend, else S.
+    Differentiable (each layer recomputed in the backward) where grad mode is
+    on and the parameters require grad."""
     dev = params_device(params, device)
     frontend = _frontend(cfg, batch, dev)
     x = _embed(cfg, params, _tokens(batch["tokens"], dev), frontend)
     positions = _positions(0, x.shape[1], dev)
     enc_out = _encode(cfg, params, frontend) if cfg.encoder_layers else None
+    recompute = _recompute(params)
     for layer, blk in enumerate(params.blocks):
-        cross = None
-        if enc_out is not None:  # this layer's memory, made where it is read
-            xa = params.cross[layer]
-            cross = (xa, *_memory_kv(cfg, xa, enc_out))
-        x, _ = _apply_layer(cfg, blk, x, positions, cross=cross)
+        xa = params.cross[layer] if enc_out is not None else None
+        x = checkpoint(_decoder_layer, cfg, blk, x, positions, xa, enc_out,
+                       use_reentrant=False) if recompute \
+            else _decoder_layer(cfg, blk, x, positions, xa, enc_out)
     return _logits(cfg, params, x)
 
 
-@torch.inference_mode()
 def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *, device=None) -> torch.Tensor:
     """Mean next-token cross-entropy (float32) over the text positions (a
     vision frontend's are skipped), under ``loss_mask`` if given."""

@@ -51,6 +51,21 @@ edges (T = 1, 31, 32, 33), channel counts that leave a block part empty,
 N < 16, B and C as strided slices of one projection, and the decay edges
 (underflow to 0, and decay about 1 over 4,096 steps); jamba's smoke config
 at 16 layers runs on the card as on the CPU (``-k jamba``).
+The flash attention backward kernel (``-k backward``) must be within 1e-2
+(bfloat16) and 1e-5 (float32) of its plain version (``ref.
+attention_bwd_ref``) in each of dq, dk, dv, relative to the largest plain
+value: both sum in float32 from the same inputs and the forward's
+log-sum-exp, and round to the inputs' dtype (2^-9 of the largest value in
+bfloat16); in bfloat16 the kernel also rounds P and dS to bfloat16 for its
+tensor-core products, and it sums dq by atomic adds in another order. Its cases
+cover every variant the training forwards reach (bf16 and float32; Dh 64,
+96, 128, 256; causal and not; window and softcap; GQA groups; Sq != Sk;
+the forward's decode and split forms), the log-sum-exp each forward form
+writes only when asked, a failed launch raising ``KernelFault``, granite's
+smoke training step on the card against the CPU's (``-k training``), and
+RWKV6's and the scan's refusal to take a gradient on the card. The graph
+service at full width (``-k full_width``), cut from ``chip_smoke.py``'s
+phase 5c for time, runs that leg here (minutes: a 16 GB adjacency).
 """
 import dataclasses
 import math
@@ -1465,3 +1480,163 @@ def test_jamba_smoke_on_card_equals_cpu(cuda):
     assert out["cpu"][1] == 0
     assert out["cuda"][1] == 14 * 3 * 6  # three groups: a prefill and 5 decode steps each
     assert out["cuda"][0] == out["cpu"][0]
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash attention backward kernel, and the model's train step
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def _bwd_case(dev, b, hq, hkv, sq, sk, dh, dtype, causal, cap, window, seed=0):
+    """Inputs [B, H, S, Dh], the kernel's forward (with its log-sum-exp) and
+    both backwards."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    q = r(b, hq, sq, dh) * (SOFTCAP_Q_SCALE if cap else 1.0)
+    q, k, v, do = (x.to(dtype) for x in (q, r(b, hkv, sk, dh), r(b, hkv, sk, dh), r(b, hq, sq, dh)))
+    lse = torch.empty((b, hq, sq), device=dev)
+    out = fa.attention(q, k, v, causal=causal, softcap=cap, window=window, lse=lse)
+    before = fa.launches["flash_attention_bwd"]
+    got = fa.attention_bwd(q, k, v, out, do, lse, causal=causal, softcap=cap, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention_bwd"] == before + 1
+    flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v, out, do)]
+    want = attention_bwd_ref(*flat, lse.reshape(-1, sq), causal=causal, softcap=cap,
+                             window=window)
+    return got, [w.view(x.shape) for w, x in zip(want, (q, k, v))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh,causal,cap,window", [
+    (2, 4, 2, 100, 100, 64, True, None, None),
+    (1, 4, 1, 130, 130, 128, True, None, None),   # key tiles past the 64-row edge
+    (1, 2, 2, 70, 70, 256, True, 50.0, 33),       # gemma2's width, softcap and window
+    (1, 2, 2, 200, 200, 256, True, 50.0, None),
+    (1, 2, 1, 37, 80, 96, False, None, None),     # phi-3-vision's Dh, Sq < Sk
+    (1, 2, 2, 80, 37, 64, False, None, None),     # Sq > Sk, non-causal
+    (1, 8, 2, 5, 40, 128, True, None, None),      # the decode form's forward
+    (2, 16, 16, 33, 300, 64, False, None, None),  # seamless's cross-attention, split keys
+    (1, 3, 3, 64, 64, 40, True, None, 7),         # Dh not a power of two, a narrow window
+    (1, 2, 2, 50, 50, 36, True, None, None),      # Dh % 8 != 0: 2-byte copies in bf16
+    (1, 2, 2, 30, 12, 64, True, None, None),      # rows that see no key: zero gradients
+])
+def test_flash_attention_backward_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, dh, causal,
+                                                       cap, window, dtype):
+    got, want = _bwd_case(cuda, b, hq, hkv, sq, sk, dh, dtype, causal, cap, window,
+                          seed=sq + sk + dh)
+    for x, w in zip(got, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        err = float((x.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err < FLASH_BWD_TOL[dtype], err
+
+
+@pytest.mark.parametrize("sq,sk,hq,hkv,dh,dtype,form", [
+    (200, 200, 4, 2, 128, torch.bfloat16, "prefill"), (1, 544, 8, 2, 128, torch.bfloat16, "decode"),
+    (4, 3000, 4, 4, 64, torch.bfloat16, "decode"), (100, 100, 4, 2, 64, torch.float32, "f32"),
+    (1, 3000, 8, 8, 128, torch.float32, "f32"),
+])
+def test_flash_attention_lse_only_when_asked(cuda, sq, sk, hq, hkv, dh, dtype, form):
+    """Each form (split ones through their merge) writes the rows' log-sum-exp
+    into the buffer it is given, and the output is the same bits with and
+    without it: a serving call asks for none."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    q, k, v = _qkv(hq, hkv, sq, sk, dh, dtype, cuda, seed=sq)
+    lse = torch.full((hq, sq), float("nan"), device=cuda)
+    before = dict(fa.launches_by_form)
+    with_lse = fa.attention(q, k, v, lse=lse)
+    assert _form_ran(before, form)
+    plain = fa.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(with_lse, plain)
+    _, want = fa.attention_chunked(q, k, v, return_lse=True)
+    assert float((lse - want).abs().max()) < 1e-4
+
+
+def test_flash_attention_backward_failed_launch_raises(cuda):
+    from repro_torch.core.faults import KernelFault
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    q, k, v = _qkv(2, 2, 16, 16, 64, torch.bfloat16, cuda)
+    lse = torch.empty((2, 16), device=cuda)
+    out = fa.attention(q, k, v, lse=lse)
+    with pytest.raises(KernelFault, match="flash_attention_bwd"):  # window 0: refused
+        fa.attention_bwd(q, k, v, out, torch.ones_like(out), lse, window=0)
+    with pytest.raises(KernelFault, match="Dh <= 256"):
+        wide = torch.zeros((1, 4, 300), device=cuda, dtype=torch.bfloat16)
+        fa.attention_bwd(wide, wide, wide, wide, wide, torch.zeros((1, 4), device=cuda))
+
+
+def test_rwkv6_and_ssm_scan_refuse_a_gradient_on_the_card(cuda):
+    """No backward kernel yet: an input that requires grad raises, naming it,
+    rather than taking the plain path; without grad mode they run."""
+    r, k, v, w, u = _rwkv_inputs(2, 16, 64, 64, torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="rwkv6 kernel has no backward"):
+        rk.rwkv6(r.requires_grad_(), k, v, w, u)
+    with torch.no_grad():
+        rk.rwkv6(r, k, v, w, u)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    dt, x = torch.rand((1, 8, 32), **f32), torch.randn((1, 8, 32), **f32)
+    bmat, cmat = torch.randn((1, 8, 4), **f32), torch.randn((1, 8, 4), **f32)
+    a, h0 = -torch.rand((32, 4), **f32), torch.zeros((1, 32, 4), **f32)
+    with pytest.raises(NotImplementedError, match="ssm_scan kernel has no backward"):
+        sk.ssm_scan(dt, x.requires_grad_(), a, bmat, cmat, h0)
+    sk.ssm_scan(dt, x.detach(), a, bmat, cmat, h0)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-9b", "seamless-m4t-large-v2"])
+def test_training_step_on_card_matches_cpu(cuda, arch):
+    """A float32 smoke model's loss and gradients on the card (the flash
+    kernel's forward and backward) against the CPU port's (the plain
+    versions): 1e-4 of each leaf's largest gradient (cuBLAS against the
+    CPU's products, the kernels' summation orders)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import _loss
+
+    cfg = smoke_config(arch).scaled(dtype="float32")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 64))}
+    if cfg.encoder_layers:
+        batch["frontend"] = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        lm = T.init_params(cfg, seed=0, device="cpu").to(dev)
+        params = [p.requires_grad_(True) for p in lm.parameters()]
+        fa.reset_launches()
+        loss = _loss(cfg, lm, batch, 0.0)
+        grads[str(dev)] = (float(loss.detach()), [g.cpu() for g in torch.autograd.grad(
+            loss, params, allow_unused=True, materialize_grads=True)])
+    calls = cfg.num_layers + (cfg.num_layers + cfg.encoder_layers if cfg.encoder_layers else 0)
+    assert fa.launches["flash_attention_bwd"] == calls
+    assert fa.launches["flash_attention"] == 2 * calls  # the forward and its recompute
+    (l0, g0), (l1, g1) = grads["cpu"], grads["cuda"]
+    assert abs(l0 - l1) <= 1e-5 * abs(l0)
+    for a, b in zip(g0, g1):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(a.abs().max()), 1e-30)
+
+
+def test_graph_service_full_width_leg(cuda):
+    """``chip_smoke.py``'s phase 5c at full width (two tenants, q3 and
+    triangle, against their full counts; a profiled window; memory back to
+    its pre-submit level), moved here to keep the smoke run in its time."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke as c
+    from repro_torch.graph import powerlaw_graph
+
+    ik.LIB.build()
+    big = powerlaw_graph(*c.FULL_GRAPH[:2], exponent=c.FULL_GRAPH[2], seed=c.FULL_GRAPH[3],
+                         device=cuda)
+    launches = {n: 0 for n in ik.launches}
+    assert c.phase_service_full(ik, launches, big) == c.FULL_COUNTS
+    assert launches["fused_extend"] > 0

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports ``jax``, ``repro`` or ``benchmarks``, and its entry points refuse
-to run silently on the CPU when the caller did not ask for it."""
+``chip_smoke.py``) imports ``jax``, ``repro``, ``benchmarks`` or ``ml_dtypes`` (the machine
+with the card has none), and its entry points refuse to run silently on the CPU when the
+caller did not ask for it."""
 import os
 import pkgutil
 import subprocess
@@ -46,18 +47,22 @@ def test_port_imports_without_jax_or_repro():
               "repro_torch.configs.huge_enum", "repro_torch.models.moe",
               "repro_torch.configs.qwen3_moe_30b_a3b", "repro_torch.configs.arctic_480b",
               "repro_torch.kernels.ssm_scan.ops", "repro_torch.kernels.ssm_scan.ref",
-              "repro_torch.configs.jamba_v01_52b"):
+              "repro_torch.configs.jamba_v01_52b", "repro_torch.train.data",
+              "repro_torch.train.optimizer", "repro_torch.train.train_step",
+              "repro_torch.train.checkpoint", "repro_torch.train.elastic",
+              "repro_torch.train.compress", "repro_torch.core.adaptive_schedule",
+              "repro_torch.launch.train"):
         assert m in mods, m
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'benchmarks', 'ml_dtypes'):\n"
         "    sys.modules[name] = None  # any import of them now raises\n"
         f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
         "import importlib\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
-        "(m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))]\n"
+        "(m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks', 'ml_dtypes'))]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -76,7 +81,9 @@ def test_port_imports_without_jax_or_repro():
     "repro_torch.serve.graph_service", "repro_torch.launch.service_load",
     "repro_torch.core.distributed", "repro_torch.graph.partition",
     "repro_torch.launch.dist_hybrid", "repro_torch.launch.run",
-    "repro_torch.analysis.__main__",
+    "repro_torch.analysis.__main__", "repro_torch.train.train_step",
+    "repro_torch.train.checkpoint", "repro_torch.launch.train",
+    "repro_torch.core.adaptive_schedule",
 ])
 def test_each_entry_module_imports_first(first):
     """No import cycle bites a program whose first import is this module."""
@@ -201,3 +208,18 @@ def test_paper_suites_raise_without_cuda(capsys):
     out = capsys.readouterr().out
     assert "exp6/ERROR,0.0,RuntimeError:repro_torch runs on a CUDA device" in out
     assert "table1/ERROR,0.0,RuntimeError" in out
+
+
+def test_train_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA device")
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train as cli
+    from repro_torch.train.train_step import TrainConfig, init_all
+
+    cfg = smoke_config("granite-3-8b")
+    for call in (lambda: init_all(cfg, TrainConfig()),
+                 lambda: cli.train(cfg, steps=1, global_batch=2, seq_len=8),
+                 lambda: cli.main(["--smoke", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
