@@ -2,7 +2,7 @@
 
 Phases (each prints its results; any failure exits non-zero):
 
-1. set-up: the card's name and power limit, versions, the four kernel
+1. set-up: the card's name and power limit, versions, the seven kernel
    libraries' builds and the probe's (one nvcc per source, started
    together);
 2. each intersect kernel against its plain PyTorch version, on the card, at
@@ -144,10 +144,32 @@ Phases (each prints its results; any failure exits non-zero):
    microbatches, AdamW) with tokens/s, step times, peak memory and both
    kernels' launches, then the comparison in float32 at 2 layers;
 19. the training driver at the smoke size on the card: ``--fail-at`` (exit
-   42), then a resume from the latest valid checkpoint to the end.
+   42), then a resume from the latest valid checkpoint to the end;
+20. the backward kernels of RWKV6 and the scan against their plain versions
+   (``rwkv6_bwd_ref``, ``ssm_scan_bwd_ref``) at the training shapes
+   (rwkv6-7b's BH=128 x 4,096, K=V=64, bf16; jamba's B=2 x 4,096, Di 8,192,
+   N 16, bf16) and a float32 shape each, with times and bound; untimed at
+   the decay edges (w = 1, the model's clamp, mixed; decays underflowing
+   to 0 and about 1 over 4,096 steps) and against a fault put into each
+   plain version (u's terms dropped, dh_T ignored);
+21. rwkv6-7b training at full width: one step's loss, grad norm and five
+   leaves' gradients on the kernels against the plain chunked scan's
+   autograd at 2 layers in bf16 (deeper, the random model's gradients are
+   chaotic in the forward's rounding), then, cut to 16 of its 32 layers
+   (4.71 B parameters, B=2 x 4,096), 3 steps through ``launch.train.train``
+   with tokens/s, step times, peak memory and both kernels' launches (2
+   and 1 a layer a step), then the comparison in float32 at 2 layers; and
+   jamba's Mamba mixer at full width as a layer (d_model 4,096, Di 8,192,
+   N 16): one forward and backward at B=2 x 4,096 on the scan kernels
+   against the plain scan's autograd, every parameter's gradient and the
+   input's, in bf16 and float32.
 
 The line before the last holds the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. It imports torch, numpy and the port only.
+
+``python3 chip_smoke.py --rwkv-depth-witness`` runs none of the phases: it
+prints how far rwkv6-7b's float32 gradients part by depth under a change of
+the forward's rounding alone (``rwkv_depth_witness``).
 """
 from __future__ import annotations
 
@@ -404,6 +426,66 @@ TRAIN_F32_LEAVES = ("blocks.0.attn.wq", "blocks.0.attn.wv", "blocks.1.attn.wo",
 # differ.
 TRAIN_TOL = {torch.bfloat16: {"loss": 1e-2, "grad_norm": 5e-2, "leaf": 5e-2},
              torch.float32: {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-4}}
+# Phase 20: the recurrences' backward kernels against their plain versions
+# (rwkv6_bwd_ref, ssm_scan_bwd_ref) at the training shapes: (what, BH or B,
+# T, dtype, with dS_T / dh_T) for RWKV6 (K = V = 64) and the scan (Di
+# 8,192, N 16). Held by max |kernel - plain| / max |plain| of each
+# gradient: both sum in float32 from the same inputs and round to the
+# inputs' dtype, in other orders (the scan's dB and dC by atomic adds);
+# 1e-2 in bf16 (the rounding of the outputs, 2^-9 of the largest value,
+# and of the float32 sums that reach them), 1e-5 in float32.
+RWKV_BWD_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6_bwd.cu"
+# No TPU kernel: the JAX package differentiates its plain chunked scan.
+RWKV_BWD_REPLACES = "src/repro/kernels/rwkv6/ops.py:15"
+SCAN_BWD_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu"
+# No TPU kernel: the JAX package differentiates its plain lax.scan.
+SCAN_BWD_REPLACES = "src/repro/models/ssm.py:54"
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+RWKV_BWD_SHAPES = (("rwkv6-7b training B=2", 128, 4096, torch.bfloat16, False),
+                   ("float32 +dS_T", 32, 2048, torch.float32, True))
+# Untimed at the decay edges, bf16 at BH 32 x 1,024 with dS_T.
+RWKV_BWD_EDGES = {"w 1.0": 1.0, "logdecay 1.2 (the clamp)": math.exp(-math.exp(1.2)),
+                  "mixed": None}
+SCAN_BWD_SHAPES = (("jamba training B=2", 2, 4096, torch.bfloat16, False),
+                   ("float32 +h0 +dh_T", 1, 1024, torch.float32, True))
+# Phase 21: rwkv6-7b training at full width, cut to 16 of its 32 layers
+# (4.71 B parameters: 9.41 GB of bf16 weights, as many of gradients, 37.6 GB
+# of float32 AdamW state), B x S = TRAIN_SHAPE; the comparison against the
+# plain version (rwkv6_chunked's autograd) at RWKV_CMP_LAYERS layers, in
+# bf16 and float32, held to RWKV_TRAIN_TOL; five leaves of its last layer.
+# Deeper, the randomly initialised model's gradients are chaotic in its
+# forward's rounding. In float32 a change of rounding alone grows about 70x
+# from 2 to 16 layers: the plain form at chunk 16 against chunk 64, leaves
+# 2.7e-6 -> 8.9e-5; the kernels against chunk 64, 1.8e-5 -> 1.5e-3
+# (``--rwkv-depth-witness``). In bf16 the same growth takes a leaf to O(1)
+# (u at layer 7: 1.05), while the backward kernel against its plain version
+# under the same forward kernel stays within 1.3e-2 at 16 layers (measured
+# on one H100).
+RWKV_TRAIN_LAYERS = 16
+RWKV_CMP_LAYERS = 2
+RWKV_LEAF_NAMES = ("mix_w", "w0", "w_a", "u", "wr")
+RWKV_CMP_LEAVES = tuple(f"blocks.1.rwkv.{n}" for n in RWKV_LEAF_NAMES)
+# Tighter than TRAIN_TOL: attention's two forms round P differently in every
+# layer, while the RWKV6 kernel and the chunked form both sum in float32 and
+# differ only in order. At 2 layers in bf16 the loss read 1.5e-6, the grad
+# norm 9.3e-5, the leaves 2.1e-3 to 8.4e-3 (the rounding of each layer's bf16
+# activations and of the gradients to bf16, 2^-9 of their largest value,
+# over the two layers): loss 1e-4, grad norm 1e-3 and leaves 2e-2 leave 67x,
+# 11x and 2.4x over those readings. In float32 the loss and grad norm read
+# 0 and the leaves up to 1.8e-5 (u, whose gradient sums r k (v . do) over
+# all 8,192 tokens in other orders): 1e-6, 1e-5 and 1e-4.
+RWKV_TRAIN_TOL = {torch.bfloat16: {"loss": 1e-4, "grad_norm": 1e-3, "leaf": 2e-2},
+                  torch.float32: {"loss": 1e-6, "grad_norm": 1e-5, "leaf": 1e-4}}
+# ``--rwkv-depth-witness``: the depths at which it reads the parting.
+RWKV_WITNESS_LAYERS = (2, 16)
+# jamba-v0.1-52b's Mamba mixer at full width (d_model 4,096, Di 8,192, N 16)
+# as a layer, B x S = TRAIN_SHAPE: every parameter's gradient and the
+# input's on the kernels against the plain scan's autograd, by max |kernel
+# - plain| / max |plain|. In bf16 the block rounds its activations, and the
+# two scans' gradients differ by the rounding of dx, dB, dC to bf16 (up to
+# 4.8e-3 read); in float32 only the summation orders differ (up to 1.8e-6
+# read; measured on one H100).
+MAMBA_TRAIN_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 REPLACES = {
     "fused_extend": "src/repro/kernels/intersect/intersect.py:181",
     "fused_verify": "src/repro/kernels/intersect/intersect.py:239",
@@ -3260,23 +3342,25 @@ def phase_flash_backward(fa):
 
 
 @contextlib.contextmanager
-def plain_attention(fa):
-    """Attention through the plain version (``ref.attention_ref``, its
-    scores materialised) and its autograd, in place of the kernels."""
-    from repro_torch.kernels.flash_attention import ref
-
-    kernel = fa.attention
-
-    def plain(q, k, v, *, causal=True, softcap=None, chunk=512, window=None, lse=None):
-        flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v)]
-        return ref.attention_ref(*flat, causal=causal, softcap=softcap,
-                                 window=window).reshape(q.shape)
-
-    fa.attention = plain
+def swapped(mod, name, fn):
+    """``mod.<name>`` replaced by ``fn`` inside the context: a kernel's
+    wrapper swapped for its plain version, whose autograd then runs."""
+    kept = getattr(mod, name)
+    setattr(mod, name, fn)
     try:
         yield
     finally:
-        fa.attention = kernel
+        setattr(mod, name, kept)
+
+
+def attention_plain(q, k, v, *, causal=True, softcap=None, chunk=512, window=None, lse=None):
+    """``fa.attention`` through the plain version (``ref.attention_ref``, its
+    scores materialised)."""
+    from repro_torch.kernels.flash_attention import ref
+
+    flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v)]
+    return ref.attention_ref(*flat, causal=causal, softcap=softcap,
+                             window=window).reshape(q.shape)
 
 
 def train_grads(cfg, lm, batch, leaves):
@@ -3295,18 +3379,20 @@ def train_grads(cfg, lm, batch, leaves):
     return float(loss.detach()), gnorm, kept
 
 
-def train_step_check(fa, cfg, lm, batch, tol, what, leaves):
+def train_step_check(mod, bwd, plain, phase, cfg, lm, batch, tol, what, leaves):
     """The step's loss, grad norm and named leaves' gradients on the kernels
-    (forward and backward) against the same step with attention through the
-    plain version's autograd, on the card."""
-    fa.reset_launches()
+    (forward and backward) against the same step with the kernels of
+    ``mod`` swapped for their plain versions' autograd (the context
+    ``plain``, a ``swapped``), on the card; the backward kernel ``bwd`` must
+    run once a layer."""
+    mod.reset_launches()
     t0 = time.perf_counter()
     got = train_grads(cfg, lm, batch, leaves)
     torch.cuda.synchronize()
-    k_s, seen = time.perf_counter() - t0, dict(fa.launches)
-    assert seen["flash_attention_bwd"] == cfg.num_layers, seen
+    k_s, seen = time.perf_counter() - t0, dict(mod.launches)
+    assert seen[bwd] == cfg.num_layers, seen
     t0 = time.perf_counter()
-    with plain_attention(fa):
+    with plain:
         want = train_grads(cfg, lm, batch, leaves)
     torch.cuda.synchronize()
     p_s = time.perf_counter() - t0
@@ -3314,7 +3400,7 @@ def train_step_check(fa, cfg, lm, batch, tol, what, leaves):
     gnorm_err = abs(got[1] - want[1]) / want[1]
     leaf_errs = {n: float((got[2][n] - want[2][n]).abs().max() / want[2][n].abs().max())
                  for n in leaves}
-    log(f"phase 18: {what}: loss {got[0]:.6f} (plain attention {want[0]:.6f}, rel {loss_err:.2e}) "
+    log(f"{phase}: {what}: loss {got[0]:.6f} (plain version {want[0]:.6f}, rel {loss_err:.2e}) "
         f"grad norm {got[1]:.6f} (plain {want[1]:.6f}, rel {gnorm_err:.2e}); leaves' "
         f"max |kernel - plain| / max |plain|: " +
         ", ".join(f"{n} {e:.2e}" for n, e in leaf_errs.items()) +
@@ -3324,7 +3410,7 @@ def train_step_check(fa, cfg, lm, batch, tol, what, leaves):
     assert loss_err < tol["loss"] and gnorm_err < tol["grad_norm"], (loss_err, gnorm_err)
     assert all(e < tol["leaf"] for e in leaf_errs.values()), leaf_errs
     return dict(loss=got[0], plain_loss=want[0], grad_norm=got[1], plain_grad_norm=want[1],
-                leaf_rel_errs=leaf_errs)
+                leaf_rel_errs=leaf_errs, step_s=k_s, plain_step_s=p_s)
 
 
 def phase_train_granite(fa):
@@ -3352,7 +3438,8 @@ def phase_train_granite(fa):
     log(f"phase 18: {cfg.name} full width cut to {cfg.num_layers} of its {full.num_layers} "
         f"layers: {cfg.param_count()} parameters (param_count), {nbytes / 1e9:.2f} GB of bf16 "
         f"weights, initialised on the card in {time.perf_counter() - t0:.2f} s; B={b} x S={s}")
-    check = train_step_check(fa, cfg, lm, batch, TRAIN_TOL[torch.bfloat16], "bf16",
+    check = train_step_check(fa, "flash_attention_bwd", swapped(fa, "attention", attention_plain),
+                             "phase 18", cfg, lm, batch, TRAIN_TOL[torch.bfloat16], "bf16",
                              TRAIN_LEAVES)
     torch.cuda.synchronize()
     log(f"phase 18: comparison peak max_memory_allocated="
@@ -3384,7 +3471,9 @@ def phase_train_granite(fa):
 
     cfg32 = full.scaled(num_layers=TRAIN_F32_LAYERS, dtype="float32")
     lm = T.init_params(cfg32, torch.Generator(device=DEV).manual_seed(18), device=DEV)
-    check32 = train_step_check(fa, cfg32, lm, batch, TRAIN_TOL[torch.float32],
+    check32 = train_step_check(fa, "flash_attention_bwd",
+                               swapped(fa, "attention", attention_plain), "phase 18", cfg32,
+                               lm, batch, TRAIN_TOL[torch.float32],
                                f"float32 at {TRAIN_F32_LAYERS} layers", TRAIN_F32_LEAVES)
     del lm
     gc.collect()
@@ -3425,6 +3514,399 @@ def phase_train_driver():
     assert "resuming from valid checkpoint step" in r2.stdout and "done: final loss" in r2.stdout
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-21: the recurrences' backward kernels, and training through them
+# ---------------------------------------------------------------------------
+
+def grad_rels(got, want):
+    """max |got - want| / max |want| of each gradient, after checking dtype,
+    shape and finiteness."""
+    out = []
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape, (g.dtype, w.dtype, g.shape, w.shape)
+        assert bool(torch.isfinite(g).all())
+        diff = float((g.float() - w.float()).abs().max())
+        out.append(diff / max(float(w.float().abs().max()), 1e-30))
+    return out
+
+
+def rwkv_bwd_bound(args, do, ds):
+    """(bound ms, what bounds it, bytes, flops, bytes ms, ops ms): r, k, v,
+    w, u, dout (and dS_T) read once, dr, dk, dv, dw, du written once, at
+    3.35 TB/s; against 14 float32 operations an element of the state a step
+    (S recomputed: 3; S do, G v, G^T k, G.S: 2 each; G's update: 3) at 67
+    TFLOP/s. The kernel does 17: it walks S forward twice."""
+    r, v = args[0], args[2]
+    bh, t, kd = r.shape
+    vd = v.shape[-1]
+    ins = sum(x.numel() * x.element_size() for x in args)
+    nbytes = 2 * ins + do.numel() * 4 + (0 if ds is None else ds.numel() * 4)
+    flops = 14 * bh * t * kd * vd
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), \
+        nbytes, flops, bytes_ms, ops_ms
+
+
+def scan_bwd_bound(args, clock_hz):
+    """(bound ms, what bounds it, bytes, exponentials, bytes ms, exp ms):
+    dt, x, a, B, C, h0, dy and dh_T read once, ddt, dx, da, dB, dC and dh0
+    written once, at 3.35 TB/s; against the B*T*Di*N decays' exponentials
+    taken once (16 a clock an SM at the card's highest SM clock). The kernel
+    takes each twice (once in each walk over a tile)."""
+    dt, x, a, bm, cm, h0 = args
+    b, t, di = dt.shape
+    n = a.shape[1]
+    es = x.element_size()
+    nbytes = (dt.numel() * (4 + es + 4 + 4 + es)          # dt, x, dy read; ddt, dx written
+              + (bm.numel() + cm.numel()) * es * 2        # B, C read; dB, dC written
+              + a.numel() * 4 * 2 + h0.numel() * 4 * 3)   # a, h0, dh_T read; da, dh0 written
+    exps = b * t * di * n
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    exp_ms = exps / (sms * SFU_EXP_PER_CLOCK * clock_hz) * 1e3
+    return max(bytes_ms, exp_ms), ("bytes" if bytes_ms >= exp_ms else "operations"), \
+        nbytes, exps, bytes_ms, exp_ms
+
+
+def bwd_timings(kernel, plain):
+    """The kernel's CUDA-event call time and queued device time, and the
+    plain version's call time: CUDA events around one call, warmed by the
+    correctness check's call (it launches tens of torch ops a step and
+    takes seconds, so one call reads it to well under a percent)."""
+    call = call_ms(kernel, iters=3, repeats=3, warmup=2)
+    queued = queued_ms(kernel, iters=3, repeats=3)
+    pcall = call_ms(plain, iters=1, repeats=1, warmup=0)
+    return call, queued, pcall
+
+
+def phase_rwkv6_backward(rk):
+    """The RWKV6 backward kernel against ``rwkv6_bwd_ref`` at the training
+    shapes with times and bound, then untimed at the decay edges, and
+    against u's terms dropped from the plain version (the check must fail)."""
+    from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
+
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    out = {"max_abs_err": 0.0, "max_rel_err": 0.0, "configs": [], "edges": {}}
+
+    def cotangents(bh, t, with_ds):
+        do = torch.randn((bh, t, 64), generator=gen, device=DEV)
+        return do, (torch.randn((bh, 64, 64), generator=gen, device=DEV) if with_ds else None)
+
+    for what, bh, t, dtype, with_ds in RWKV_BWD_SHAPES:
+        t_shape = time.perf_counter()
+        args = rwkv_inputs(bh, t, gen, dtype=dtype)
+        do, ds = cotangents(bh, t, with_ds)
+        got = rk.rwkv6_bwd(*args, do, ds)
+        want = rwkv6_bwd_ref(*args, do, ds)
+        torch.cuda.synchronize()
+        rels, tol = grad_rels(got, want), BWD_TOL[dtype]
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        assert max(rels) < tol, f"rwkv6_bwd {what}: dr, dk, dv, dw, du {rels} (tolerance {tol})"
+        del got, want
+        call, (ms, lo, hi), pcall = bwd_timings(lambda: rk.rwkv6_bwd(*args, do, ds),
+                                                lambda: rwkv6_bwd_ref(*args, do, ds))
+        bound, by, nbytes, flops, bytes_ms, ops_ms = rwkv_bwd_bound(args, do, ds)
+        shape = f"BH={bh} T={t} K=V=64 {str(dtype)[6:]}" + (" +dS_T" if with_ds else "")
+        out["configs"].append(dict(
+            shape=shape, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0], plain_ms=pcall[0],
+            bound_ms=bound, bound_by=by, bound_bytes=nbytes, bound_flops=flops,
+            max_abs_err=err, rel_errs=rels, library_ms=None,
+            seconds=time.perf_counter() - t_shape))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["max_rel_err"] = max(out["max_rel_err"], max(rels))
+        log(f"  rwkv6_bwd [{what}: {shape}] max |kernel - plain| / max |plain| dr/dk/dv/dw/du "
+            f"= {', '.join(f'{r:.3e}' for r in rels)} (tolerance {tol:g}) | kernel queued="
+            f"{ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) call={call[0]:.4f} ms | plain call="
+            f"{pcall[0]:.2f} ms | bound={bound:.4f} ms by {by} (bytes {nbytes} -> "
+            f"{bytes_ms:.4f} ms at 3.35 TB/s; {flops} flop -> {ops_ms:.4f} ms at 67 TFLOP/s "
+            f"f32), {bound / ms:.3f} of the bound | library: none | "
+            f"{time.perf_counter() - t_shape:.1f} s")
+        del args, do, ds
+    levels = torch.tensor([x for x in RWKV_BWD_EDGES.values() if x is not None], device=DEV)
+    for edge, value in RWKV_BWD_EDGES.items():
+        args = rwkv_inputs(32, 1024, gen)
+        shape = args[3].shape
+        w = (levels[torch.randint(0, len(levels), shape, generator=gen, device=DEV)]
+             if value is None else torch.full(shape, value, device=DEV))
+        args[3] = w.to(args[3].dtype)
+        do, ds = cotangents(32, 1024, True)
+        rels = grad_rels(rk.rwkv6_bwd(*args, do, ds), rwkv6_bwd_ref(*args, do, ds))
+        out["edges"][edge] = max(rels)
+        log(f"  rwkv6_bwd [decay edge {edge}: BH=32 T=1024 K=V=64 bf16 +dS_T] max |kernel - "
+            f"plain| / max |plain| {max(rels):.3e} (tolerance {BWD_TOL[torch.bfloat16]:g})")
+        assert max(rels) < BWD_TOL[torch.bfloat16], (edge, rels)
+    args = rwkv_inputs(32, 1024, gen, dtype=torch.float32)
+    do, _ = cotangents(32, 1024, False)
+    got = rk.rwkv6_bwd(*args, do)
+    bad = rwkv6_bwd_ref(*args[:4], torch.zeros_like(args[4]), do)
+    fault = max(grad_rels(got[:4], bad[:4]))
+    out["edges"]["fault: u's terms dropped"] = fault
+    log(f"  rwkv6_bwd [fault in the plain version: u's terms dropped, BH=32 T=1024 float32] "
+        f"{fault:.3e} (the check fails above {BWD_TOL[torch.float32]:g})")
+    assert fault > BWD_TOL[torch.float32]
+    return out
+
+
+def phase_scan_backward(sk):
+    """The scan's backward kernel against ``ssm_scan_bwd_ref`` at jamba's
+    training shape (its tile states from the forward kernel, as training
+    keeps them) and a float32 shape with h0 and dh_T, with times and bound;
+    then untimed at the decay edges, and against dh_T ignored by the plain
+    version (the check must fail)."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+
+    clock = sm_clock_hz()
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    out = {"max_abs_err": 0.0, "max_rel_err": 0.0, "configs": [], "edges": {}}
+
+    def cotangents(b, t, nonzero):
+        dy = torch.randn((b, t, SCAN_DI), generator=gen, device=DEV)
+        dh = torch.randn((b, SCAN_DI, SCAN_N), generator=gen, device=DEV) if nonzero else \
+            torch.zeros((b, SCAN_DI, SCAN_N), device=DEV)
+        return dy, dh
+
+    def kernel_bwd(args, dy, dh):
+        """The backward kernel from the tile states the forward kernel keeps."""
+        return sk.ssm_scan_bwd(*args, dy, dh, hb=sk._scan(*args, tile_states=True)[2])
+
+    for what, b, t, dtype, nonzero in SCAN_BWD_SHAPES:
+        t_shape = time.perf_counter()
+        args = scan_inputs(b, t, gen, h0=nonzero, dtype=dtype)
+        dy, dh = cotangents(b, t, nonzero)
+        hb = sk._scan(*args, tile_states=True)[2]
+        got = sk.ssm_scan_bwd(*args, dy, dh, hb=hb)
+        want = ssm_scan_bwd_ref(*args, dy, dh)
+        torch.cuda.synchronize()
+        rels, tol = grad_rels(got, want), BWD_TOL[dtype]
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        assert max(rels) < tol, (f"ssm_scan_bwd {what}: ddt, dx, da, dB, dC, dh0 {rels} "
+                                 f"(tolerance {tol})")
+        del got, want
+        call, (ms, lo, hi), pcall = bwd_timings(lambda: sk.ssm_scan_bwd(*args, dy, dh, hb=hb),
+                                                lambda: ssm_scan_bwd_ref(*args, dy, dh))
+        bound, by, nbytes, exps, bytes_ms, exp_ms = scan_bwd_bound(args, clock)
+        shape = f"B={b} T={t} Di={SCAN_DI} N={SCAN_N} {str(dtype)[6:]}" + \
+            (" +h0 +dh_T" if nonzero else "")
+        out["configs"].append(dict(
+            shape=shape, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0], plain_ms=pcall[0],
+            bound_ms=bound, bound_by=by, bound_bytes=nbytes, bound_exps=exps,
+            max_abs_err=err, rel_errs=rels, library_ms=None,
+            seconds=time.perf_counter() - t_shape))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["max_rel_err"] = max(out["max_rel_err"], max(rels))
+        log(f"  ssm_scan_bwd [{what}: {shape}] max |kernel - plain| / max |plain| "
+            f"ddt/dx/da/dB/dC/dh0 = {', '.join(f'{r:.3e}' for r in rels)} (tolerance {tol:g}) "
+            f"| kernel queued={ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) call={call[0]:.4f} ms "
+            f"(the forward that keeps the tile states not included) | plain call="
+            f"{pcall[0]:.2f} ms | bound={bound:.4f} ms by {by} (bytes {nbytes} -> "
+            f"{bytes_ms:.4f} ms at 3.35 TB/s; {exps} exp -> {exp_ms:.4f} ms at 16 a clock an "
+            f"SM), {bound / ms:.3f} of the bound | library: none | "
+            f"{time.perf_counter() - t_shape:.1f} s")
+        del args, dy, dh, hb
+    for edge, b, t, dt_scale in (("decay underflows to 0", 2, 512, 200.0),
+                                 ("decay about 1 over 4,096 steps", 1, 4096, 1e-5)):
+        args = scan_inputs(b, t, gen, h0=True, dt_scale=dt_scale)
+        dy, dh = cotangents(b, t, True)
+        rels = grad_rels(kernel_bwd(args, dy, dh), ssm_scan_bwd_ref(*args, dy, dh))
+        out["edges"][edge] = max(rels)
+        log(f"  ssm_scan_bwd [edge: {edge}, B={b} T={t} bf16 +h0 +dh_T] max |kernel - plain| / "
+            f"max |plain| {max(rels):.3e} (tolerance {BWD_TOL[torch.bfloat16]:g})")
+        assert max(rels) < BWD_TOL[torch.bfloat16], (edge, rels)
+    args = scan_inputs(1, 1024, gen, h0=True, dt_scale=0.05, dtype=torch.float32)
+    dy, dh = cotangents(1, 1024, True)
+    fault = max(grad_rels(kernel_bwd(args, dy, dh),
+                          ssm_scan_bwd_ref(*args, dy, torch.zeros_like(dh))))
+    out["edges"]["fault: dh_T ignored"] = fault
+    log(f"  ssm_scan_bwd [fault in the plain version: dh_T ignored, B=1 T=1024 float32] "
+        f"{fault:.3e} (the check fails above {BWD_TOL[torch.float32]:g})")
+    assert fault > BWD_TOL[torch.float32]
+    return out
+
+
+def phase_train_rwkv6(rk):
+    """Phase 21a: rwkv6-7b at full width: one step's loss, grad norm and five
+    leaves on the kernels against the plain chunked form's autograd at
+    ``RWKV_CMP_LAYERS`` layers in bf16; then, cut to ``RWKV_TRAIN_LAYERS``
+    layers (B x S = ``TRAIN_SHAPE``, the seeded Zipf stream),
+    ``TRAIN_STEPS`` steps through ``launch.train.train`` on the forward and
+    backward kernels, with their launches, tokens/s, step times and peak
+    memory; then the comparison in float32. Returns the kernels' launches in
+    the training steps and the records."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as T
+    from repro_torch.train.data import DataConfig, synth_batch
+
+    b, s = TRAIN_SHAPE
+    full = get_config("rwkv6-7b")
+    batch = synth_batch(DataConfig(vocab_size=full.vocab_size, seq_len=s, global_batch=b), 0)
+
+    def compare(dtype):
+        cfg = full.scaled(num_layers=RWKV_CMP_LAYERS, dtype=str(dtype)[6:])
+        lm = T.init_params(cfg, torch.Generator(device=DEV).manual_seed(21), device=DEV)
+        check = train_step_check(rk, "rwkv6_bwd", swapped(rk, "rwkv6", rk.rwkv6_chunked),
+                                 "phase 21", cfg, lm, batch, RWKV_TRAIN_TOL[dtype],
+                                 f"{str(dtype)[6:]} at {cfg.num_layers} layers", RWKV_CMP_LEAVES)
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        return check
+
+    check = compare(torch.bfloat16)
+    cfg = full.scaled(num_layers=RWKV_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = T.init_params(cfg, torch.Generator(device=DEV).manual_seed(21), device=DEV)
+    nbytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    log(f"phase 21: {cfg.name} full width cut to {cfg.num_layers} of its {full.num_layers} "
+        f"layers: {cfg.param_count()} parameters (param_count), {nbytes / 1e9:.2f} GB of "
+        f"weights, initialised on the card in {time.perf_counter() - t0:.2f} s; B={b} x S={s}")
+    rk.reset_launches()
+    res = train(cfg, steps=TRAIN_STEPS, global_batch=b, seq_len=s, log_every=1, device=DEV,
+                lm=lm, log=lambda m: log(f"phase 21: {m}"))
+    torch.cuda.synchronize()
+    seen = dict(rk.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in res["history"]]
+    step_s = [h["step_s"] for h in res["history"]]
+    later = b * s / (sum(step_s[1:]) / max(len(step_s) - 1, 1))
+    tokens_per_s = res["tokens_per_s"]
+    log(f"phase 21: {TRAIN_STEPS} steps ({res['decision'].note}, est. activations "
+        f"{res['decision'].est_activation_bytes / 1e9:.2f} GB): losses {losses}, grad norms "
+        f"{[h['grad_norm'] for h in res['history']]}, step times {step_s} s, "
+        f"tokens/s={tokens_per_s:,.0f} (steps after the first {later:,.0f}), "
+        f"peak max_memory_allocated={peak:.2f} GB, launches {seen}")
+    assert all(math.isfinite(x) for x in losses) and len(losses) == TRAIN_STEPS
+    want = {"rwkv6": 2 * cfg.num_layers * TRAIN_STEPS,  # forward and its recompute
+            "rwkv6_bwd": cfg.num_layers * TRAIN_STEPS}
+    assert seen == want, (seen, want)
+    del lm, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    check32 = compare(torch.float32)
+    return seen, dict(bf16=check, float32=check32, steps=dict(
+        losses=losses, step_s=step_s, tokens_per_s=tokens_per_s, tokens_per_s_later=later,
+        peak_gb=peak, launches=seen))
+
+
+def phase_train_mamba_layer(sk):
+    """Phase 21b: jamba-v0.1-52b's Mamba mixer at full width as a layer
+    (``models/ssm.py::mamba_block``, ``mamba_init``'s parameters), one
+    forward and backward at B x S = ``TRAIN_SHAPE`` of a scalar loss (the
+    output against a seeded cotangent), in bf16 and float32: every
+    parameter's gradient and the input's on the kernels against the plain
+    scan's autograd, with the scan kernels' launches, times and peak memory.
+    Returns the launches of the bf16 leg and the records."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models.ssm import mamba_block, mamba_init
+
+    cfg = get_config("jamba-v0.1-52b")
+    b, s = TRAIN_SHAPE
+    out, seen_bf16 = {}, None
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=DEV).manual_seed(21)
+        p = mamba_init(gen, cfg.d_model, expand=cfg.mamba_expand, state=cfg.ssm_state,
+                       conv_dim=cfg.ssm_conv, dtype=dtype)
+        names = [n for n, _ in p.named_parameters()]
+        params = [t.requires_grad_(True) for t in p.parameters()]
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device=DEV).to(dtype)
+        x.requires_grad_(True)
+        cot = torch.randn((b, s, cfg.d_model), generator=gen, device=DEV)
+
+        def step():
+            y, _ = mamba_block(p, x)
+            return torch.autograd.grad((y.float() * cot).sum(), [x, *params])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        got = step()
+        torch.cuda.synchronize()
+        k_s, seen = time.perf_counter() - t0, dict(sk.launches)
+        k_peak = torch.cuda.max_memory_allocated() / 1e9
+        assert seen == {"ssm_scan": 1, "ssm_scan_bwd": 1}, seen
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with swapped(sk, "ssm_scan", ssm_scan_ref):
+            want = step()
+        torch.cuda.synchronize()
+        p_s = time.perf_counter() - t0
+        p_peak = torch.cuda.max_memory_allocated() / 1e9
+        errs = dict(zip(["x", *names], grad_rels(got, want)))
+        tol = MAMBA_TRAIN_TOL[dtype]
+        what = str(dtype)[6:]
+        log(f"phase 21: jamba's Mamba mixer at full width (d_model {cfg.d_model}, Di "
+            f"{cfg.mamba_expand * cfg.d_model}, N {cfg.ssm_state}), B={b} x S={s}, {what}: "
+            f"gradients' max |kernel - plain| / max |plain|: " +
+            ", ".join(f"{n} {e:.2e}" for n, e in errs.items()) + f" (tolerance {tol:g}) | "
+            f"forward + backward on the kernels {k_s:.3f} s (peak {k_peak:.2f} GB), on the "
+            f"plain scan {p_s:.3f} s (peak {p_peak:.2f} GB), both first calls | launches {seen}")
+        assert all(e < tol for e in errs.values()), errs
+        out[what] = dict(rel_errs=errs, step_s=k_s, plain_step_s=p_s, peak_gb=k_peak,
+                         plain_peak_gb=p_peak, launches=seen)
+        seen_bf16 = seen_bf16 or seen
+        del p, params, x, cot, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return seen_bf16, out
+
+
+def rwkv_depth_witness() -> int:
+    """``python3 chip_smoke.py --rwkv-depth-witness``: how far rwkv6-7b's
+    gradients at full width part, by depth, when only its forward's rounding
+    changes. In float32, B x S = ``TRAIN_SHAPE``, phase 21's weights and
+    batch, at each of ``RWKV_WITNESS_LAYERS`` layers: the plain chunked form
+    at chunk 16, and the kernels, each against the plain chunked form at the
+    model's chunk 64 (loss, grad norm, five leaves of the first and of the
+    last layer). Not a phase of the smoke: it prints its readings, and
+    asserts only that they are finite."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import ops as rk
+    from repro_torch.models import transformer as T
+    from repro_torch.train.data import DataConfig, synth_batch
+
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True).stdout.strip())
+    b, s = TRAIN_SHAPE
+    full = get_config("rwkv6-7b")
+    batch = synth_batch(DataConfig(vocab_size=full.vocab_size, seq_len=s, global_batch=b), 0)
+
+    def chunk16(r, k, v, w, u, *, chunk=64, return_state=False):
+        return rk.rwkv6_chunked(r, k, v, w, u, chunk=16, return_state=return_state)
+
+    for layers in RWKV_WITNESS_LAYERS:
+        cfg = full.scaled(num_layers=layers, dtype="float32")
+        lm = T.init_params(cfg, torch.Generator(device=DEV).manual_seed(21), device=DEV)
+        leaves = tuple(f"blocks.{i}.rwkv.{n}" for i in (0, layers - 1) for n in RWKV_LEAF_NAMES)
+        with swapped(rk, "rwkv6", rk.rwkv6_chunked):
+            base = train_grads(cfg, lm, batch, leaves)
+        for what, ctx in (("plain chunked form at chunk 16", swapped(rk, "rwkv6", chunk16)),
+                          ("kernels", contextlib.nullcontext())):
+            t0 = time.perf_counter()
+            with ctx:
+                got = train_grads(cfg, lm, batch, leaves)
+            torch.cuda.synchronize()
+            errs = {n: float((got[2][n] - base[2][n]).abs().max() / base[2][n].abs().max())
+                    for n in leaves}
+            log(f"rwkv depth witness: float32 at {layers} layers, {what} against the plain "
+                f"chunked form at chunk 64: loss {got[0]:.7f} ({base[0]:.7f}, rel "
+                f"{abs(got[0] - base[0]) / abs(base[0]):.2e}) grad norm {got[1]:.6f} "
+                f"({base[1]:.6f}, rel {abs(got[1] - base[1]) / base[1]:.2e}); leaves' max |a - "
+                f"b| / max |b|: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()) +
+                f" | {time.perf_counter() - t0:.1f} s")
+            assert math.isfinite(got[0]) and math.isfinite(got[1])
+        del lm, base, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3447,7 +3929,7 @@ def main() -> int:
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = (ik.LIB, rk.LIB, fa.LIB, fa.BWD_LIB, sk.LIB, chase_library())
+    libs = (ik.LIB, rk.LIB, fa.LIB, fa.BWD_LIB, sk.LIB, rk.BWD_LIB, sk.BWD_LIB, chase_library())
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, started together
         list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:
@@ -3543,6 +4025,22 @@ def main() -> int:
     log(f"chip_smoke: phase 19 took {time.perf_counter() - t19:.1f} s, done at "
         f"{time.perf_counter() - t_all:.1f} s")
 
+    # -- phases 20-21: the recurrences' backward kernels, training through them ---
+    t20 = time.perf_counter()
+    log("phase 20: the RWKV6 and scan backward kernels vs their plain versions")
+    rwkv_bwd = phase_rwkv6_backward(rk)
+    scan_bwd = phase_scan_backward(sk)
+    log(f"chip_smoke: phase 20 took {time.perf_counter() - t20:.1f} s")
+    t21 = time.perf_counter()
+    seen, rwkv_bwd["training"] = phase_train_rwkv6(rk)
+    launches["rwkv6"] += seen["rwkv6"]
+    launches["rwkv6_bwd"] = seen["rwkv6_bwd"]
+    seen, scan_bwd["mamba_layer"] = phase_train_mamba_layer(sk)
+    launches["ssm_scan"] += seen["ssm_scan"]
+    launches["ssm_scan_bwd"] = seen["ssm_scan_bwd"]
+    log(f"chip_smoke: phase 21 took {time.perf_counter() - t21:.1f} s, done at "
+        f"{time.perf_counter() - t_all:.1f} s")
+
     for name in launches:
         assert launches[name] > 0, f"{name} was never launched on the main path"
     kernels = []
@@ -3586,6 +4084,21 @@ def main() -> int:
         bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
         configs=flash_bwd["configs"], max_rel_err=flash_bwd["max_rel_err"],
         training=flash_bwd["training"]))
+    for name, rec, source, replaces, note in (
+            ("rwkv6_bwd", rwkv_bwd, RWKV_BWD_SOURCE, RWKV_BWD_REPLACES,
+             "the gradient (jax.grad) of the JAX package's plain chunked scan rwkv6_chunked "
+             "(no TPU kernel)"),
+            ("ssm_scan_bwd", scan_bwd, SCAN_BWD_SOURCE, SCAN_BWD_REPLACES,
+             "the gradient (jax.grad) of the JAX package's plain lax.scan _ssm_scan_chunked "
+             "(no TPU kernel)")):
+        head = rec["configs"][0]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, replaces_note=note,
+            launches=launches[name], max_abs_err=rec["max_abs_err"], ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=None, shape=head["shape"], configs=rec["configs"],
+            max_rel_err=rec["max_rel_err"], edges=rec["edges"],
+            training=rec.get("training") or rec.get("mamba_layer")))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3779,4 +4292,4 @@ def profile_window(graph, flow, cfg, engine_cls, run_wall, run_steps, steps: int
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rwkv_depth_witness() if sys.argv[1:] == ["--rwkv-depth-witness"] else main())

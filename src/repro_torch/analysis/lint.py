@@ -9,8 +9,9 @@
     (``machine·|V|+vid`` is an int32 key).
 
 ``kernel-ref-missing`` / ``kernel-test-missing``
-    A public function of ``kernels/<name>/ops.py`` whose body reaches the
-    compiled library (``LIB``) without a plain PyTorch twin ``<op>_ref`` in
+    A public function of ``kernels/<name>/ops.py`` whose body reaches a
+    compiled library (``LIB``, ``BWD_LIB``; directly or through one of the
+    module's private functions) without a plain PyTorch twin ``<op>_ref`` in
     the sibling ``ref.py``, or not named by the card tests
     (``tests/test_torch_gpu.py``): the differential-testing contract every
     kernel keeps.
@@ -115,17 +116,21 @@ def _lint_queue_dtypes(tree: ast.Module, relpath: str,
 # Kernel ref-twin / card-test rule
 # ---------------------------------------------------------------------------
 
-def _reaches_library(fn: ast.AST) -> bool:
-    return any(isinstance(n, ast.Name) and n.id == "LIB" for n in ast.walk(fn))
+def _reaches_library(fn: ast.AST, helpers: Set[str] = frozenset()) -> bool:
+    """Whether ``fn`` names a compiled library (``LIB``, ``*_LIB``) or one of
+    ``helpers``."""
+    return any(isinstance(n, ast.Name) and (n.id == "LIB" or n.id.endswith("_LIB")
+                                            or n.id in helpers) for n in ast.walk(fn))
 
 
 def kernel_ops(path: str) -> List[str]:
-    """Public functions of an ``ops.py`` whose body reaches ``LIB``."""
+    """Public functions of an ``ops.py`` whose body reaches a compiled
+    library, directly or through the module's private functions that do."""
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), filename=path)
-    return [n.name for n in tree.body
-            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
-            and not n.name.startswith("_") and _reaches_library(n)]
+    fns = [n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+    helpers = {n.name for n in fns if n.name.startswith("_") and _reaches_library(n)}
+    return [n.name for n in fns if not n.name.startswith("_") and _reaches_library(n, helpers)]
 
 
 def check_kernel_twins(kernels_dir: str, tests_file: Optional[str],

@@ -10,8 +10,13 @@ that is its CPU path, and the one-token step of the decode path.
   :class:`KernelFault`; there is no fallback;
 * inputs on several devices → ``ValueError``.
 
-``launches["rwkv6"]`` counts the kernel's launches (``reset_launches`` zeroes
-it), so a run can show that it went through the kernel.
+Where grad mode is on and an input requires grad, ``rwkv6`` is ``_RWKV6``:
+the same forward, and ``rwkv6_bwd`` as its backward (on the CPU
+``ref.rwkv6_bwd_ref``, on the card ``csrc/rwkv6_bwd.cu``).
+
+``launches["rwkv6"]`` and ``launches["rwkv6_bwd"]`` count the kernels'
+launches (``reset_launches`` zeroes them), so a run can show that it went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 
 from repro_torch.core.faults import KernelFault
 from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
 
 MAX_DIM = 64  # the kernel keeps K x V <= 64 x 64 of state per head
 
@@ -33,9 +39,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rwkv6_launch.restype = ctypes.c_int
 
 
-LIB = CudaLibrary("rwkv6", Path(__file__).resolve().parent / "csrc" / "rwkv6.cu", _declare)
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.rwkv6_bwd_launch.argtypes = [p] * 13 + [i64, i64, i32, i32, i32, p]
+    lib.rwkv6_bwd_launch.restype = ctypes.c_int
 
-launches: Dict[str, int] = {"rwkv6": 0}
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+LIB = CudaLibrary("rwkv6", _CSRC / "rwkv6.cu", _declare)
+BWD_LIB = CudaLibrary("rwkv6_bwd", _CSRC / "rwkv6_bwd.cu", _declare_bwd)
+BWD_CHUNK = 8  # steps between the backward kernel's saved states (csrc: kChunk)
+
+launches: Dict[str, int] = {"rwkv6": 0, "rwkv6_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -116,20 +131,25 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     return True
 
 
-def rwkv6(r, k, v, w, u, *, chunk: int = 64, return_state: bool = False):
-    """The RWKV6 recurrence over whole sequences, from a zero state.
+class _RWKV6(torch.autograd.Function):
+    """``rwkv6`` with its backward ``rwkv6_bwd``; the forward saves its inputs."""
 
-    r, k, w [BH, T, K], v [BH, T, V] (float32 or bfloat16, one dtype), u
-    [BH, K] → out float32 [BH, T, V], and with ``return_state`` the final
-    state float32 [BH, K, V]. ``chunk`` is the CPU path's chunk length; the
-    kernel takes any T >= 1. On the card an input that requires grad (grad
-    mode on) raises ``NotImplementedError``: there is no backward kernel yet."""
-    if not _on_cuda(r, k, v, w, u):
-        return rwkv6_chunked(r, k, v, w, u, chunk=chunk, return_state=return_state)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u)):
-        raise NotImplementedError(
-            "rwkv6: the rwkv6 kernel has no backward kernel yet, so it cannot train on the "
-            "card (the CPU path differentiates its plain version)")
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk, return_state):
+        res = rwkv6(r, k, v, w, u, chunk=chunk, return_state=return_state)
+        ctx.save_for_backward(r, k, v, w, u)
+        return res
+
+    @staticmethod
+    def backward(ctx, dout, ds=None):
+        r, k, v, w, u = ctx.saved_tensors  # read once: checkpoint's unpack allows no more
+        grads = rwkv6_bwd(r, k, v, w, u, dout, ds)
+        grads = grads[:4] + (grads[4].to(u.dtype),)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
+
+
+def _check(r, k, v, w, u) -> None:
     bh, t, kd = r.shape
     vd = v.shape[-1]
     if k.shape != r.shape or w.shape != r.shape or v.shape[:2] != (bh, t) \
@@ -144,6 +164,23 @@ def rwkv6(r, k, v, w, u, *, chunk: int = 64, return_state: bool = False):
     dtypes = {x.dtype for x in (r, k, v, w)}
     if len(dtypes) != 1 or r.dtype not in _DTYPE_CODE:
         raise TypeError(f"rwkv6: r, k, v, w must share float32 or bfloat16, got {dtypes}")
+
+
+def rwkv6(r, k, v, w, u, *, chunk: int = 64, return_state: bool = False):
+    """The RWKV6 recurrence over whole sequences, from a zero state.
+
+    r, k, w [BH, T, K], v [BH, T, V] (float32 or bfloat16, one dtype), u
+    [BH, K] → out float32 [BH, T, V], and with ``return_state`` the final
+    state float32 [BH, K, V]. ``chunk`` is the CPU path's chunk length; the
+    kernel takes any T >= 1. Differentiable where grad mode is on and an
+    input requires grad (``_RWKV6``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u)):
+        return _RWKV6.apply(r, k, v, w, u, chunk, return_state)
+    if not _on_cuda(r, k, v, w, u):
+        return rwkv6_chunked(r, k, v, w, u, chunk=chunk, return_state=return_state)
+    _check(r, k, v, w, u)
+    bh, t, kd = r.shape
+    vd = v.shape[-1]
     # heads() hands over transposed views; the kernel reads dense rows.
     r, k, v, w = (x.contiguous() for x in (r, k, v, w))
     u = u.to(torch.float32).contiguous()
@@ -159,3 +196,43 @@ def rwkv6(r, k, v, w, u, *, chunk: int = 64, return_state: bool = False):
         raise KernelFault(f"rwkv6 launch failed: cudaError {rc}", op="rwkv6")
     launches["rwkv6"] += 1
     return (out, state) if return_state else out
+
+
+def rwkv6_bwd(r, k, v, w, u, dout, ds=None):
+    """The gradients (dr, dk, dv, dw, du) of ``rwkv6`` (out, and the final
+    state where ``ds`` is given) at r, k, v, w, u, from dout float32 [BH, T,
+    V] and ds float32 [BH, K, V] or None (zero). dr, dk, dv, dw come back in
+    the inputs' dtype, du float32 [BH, K]. On the CPU
+    ``ref.rwkv6_bwd_ref``; on the card the backward kernel, or
+    :class:`KernelFault`."""
+    if not _on_cuda(r, k, v, w, u, dout, *(() if ds is None else (ds,))):
+        return rwkv6_bwd_ref(r, k, v, w, u, dout, ds)
+    _check(r, k, v, w, u)
+    bh, t, kd = r.shape
+    vd = v.shape[-1]
+    f32 = torch.float32
+    if dout.shape != (bh, t, vd) or (ds is not None and ds.shape != (bh, kd, vd)):
+        raise ValueError(f"rwkv6_bwd: dout {tuple(dout.shape)} and ds "
+                         f"{None if ds is None else tuple(ds.shape)} do not fit r "
+                         f"{tuple(r.shape)}, v {tuple(v.shape)}")
+    r, k, v, w = (x.contiguous() for x in (r, k, v, w))
+    u, dout = u.to(f32).contiguous(), dout.to(f32).contiguous()
+    ds = None if ds is None else ds.to(f32).contiguous()
+    dr, dk, dw = (torch.empty_like(r) for _ in range(3))
+    dv = torch.empty_like(v)
+    du = torch.empty((bh, kd), dtype=f32, device=r.device)
+    # The state before every chunk of BWD_CHUNK steps but the first, written
+    # by the kernel's forward walk and read back by its backward walk.
+    chunks = -(-t // BWD_CHUNK)
+    scratch = torch.empty((bh, max(chunks - 1, 1), MAX_DIM * MAX_DIM), dtype=f32,
+                          device=r.device)
+    rc = BWD_LIB.load().rwkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), dout.data_ptr(),
+        0 if ds is None else ds.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dw.data_ptr(), du.data_ptr(), scratch.data_ptr(), bh, t, kd, vd,
+        _DTYPE_CODE[r.dtype], torch.cuda.current_stream(r.device).cuda_stream,
+    )
+    if rc != 0:
+        raise KernelFault(f"rwkv6_bwd launch failed: cudaError {rc}", op="rwkv6_bwd")
+    launches["rwkv6_bwd"] += 1
+    return dr, dk, dv, dw, du

@@ -48,6 +48,56 @@ def rwkv6_ref(r, k, v, w, u, *, return_state: bool = False):
     return (out, S) if return_state else out
 
 
+def rwkv6_bwd_ref(r, k, v, w, u, dout, ds=None, *, chunk: int = 64):
+    """The gradients of ``rwkv6_ref``'s (out, final S) at r, k, v, w, u, from
+    dout [BH, T, V] and the final state's gradient ``ds`` [BH, K, V] (None:
+    zero). With G_t = ∂L/∂S_t (G_T = ds), walking t from T down to 1:
+
+        dr_t = S_{t-1} do_t + (u ⊙ k_t)(v_t·do_t)
+        dk_t = G_t v_t + (u ⊙ r_t)(v_t·do_t)
+        dv_t = G_tᵀ k_t + (r_t·(u ⊙ k_t)) do_t
+        dw_t = Σ_j G_t[:, j] ⊙ S_{t-1}[:, j]
+        du   = Σ_t (r_t ⊙ k_t)(v_t·do_t)
+        G_{t-1} = diag(w_t) G_t + r_t do_tᵀ
+
+    S_{t-1} is recomputed forward from states kept every ``chunk`` steps (S
+    is never run backwards: that would divide by w). Decays are clamped at
+    ``W_MIN`` as the kernels clamp them; below it dw is 0, as the clamp's
+    gradient is. Returns (dr, dk, dv, dw) in the inputs' dtypes and du
+    float32 [BH, K]."""
+    f32 = torch.float32
+    dtypes = (r.dtype, k.dtype, v.dtype, w.dtype)
+    r, k, v, w, u, do = (x.to(f32) for x in (r, k, v, w, u, dout))
+    bh, t, kd = r.shape
+    vd = v.shape[-1]
+    weff = w.clamp_min(W_MIN)
+    S = torch.zeros((bh, kd, vd), dtype=f32, device=r.device)
+    starts = []
+    for c0 in range(0, t, chunk):  # the state before each chunk
+        starts.append(S)
+        for i in range(c0, min(c0 + chunk, t)):
+            S = weff[:, i, :, None] * S + k[:, i, :, None] * v[:, i, None, :]
+    G = torch.zeros_like(S) if ds is None else ds.to(f32).clone()
+    vdo = (v * do).sum(-1)                                          # [BH, T]
+    ruk = (r * u[:, None] * k).sum(-1)                              # [BH, T]
+    dr, dk, dw = (torch.empty((bh, t, kd), dtype=f32, device=r.device) for _ in range(3))
+    dv = torch.empty((bh, t, vd), dtype=f32, device=r.device)
+    for c, c0 in reversed(list(enumerate(range(0, t, chunk)))):
+        S, prev = starts[c], []
+        for i in range(c0, min(c0 + chunk, t)):
+            prev.append(S)                                          # S_{i-1}
+            S = weff[:, i, :, None] * S + k[:, i, :, None] * v[:, i, None, :]
+        for i in reversed(range(c0, min(c0 + chunk, t))):
+            sp = prev[i - c0]
+            dr[:, i] = torch.einsum("bkv,bv->bk", sp, do[:, i]) + u * k[:, i] * vdo[:, i, None]
+            dk[:, i] = torch.einsum("bkv,bv->bk", G, v[:, i]) + u * r[:, i] * vdo[:, i, None]
+            dv[:, i] = torch.einsum("bkv,bk->bv", G, k[:, i]) + ruk[:, i, None] * do[:, i]
+            dw[:, i] = (G * sp).sum(-1)
+            G = weff[:, i, :, None] * G + r[:, i, :, None] * do[:, i, None, :]
+    dw = torch.where(w >= W_MIN, dw, 0.0)
+    du = (r * k * vdo[..., None]).sum(1)
+    return (*(g.to(dt) for g, dt in zip((dr, dk, dv, dw), dtypes)), du)
+
 
 CHUNK = 16     # steps a chunk (csrc: kChunk)
 SUB = 4        # steps a sub-chunk: the anchors below A's diagonal blocks (csrc: kSub)

@@ -20,7 +20,10 @@
 // contiguous; a [Di, N] float32 contiguous; B and C [B, T, N] of x's dtype,
 // addressed through their batch and time strides (the model hands over
 // slices of x_proj's output) with unit stride along N; h0 [B, Di, N] float32
-// contiguous; y [B, T, Di] float32 and h_T [B, Di, N] float32, contiguous.
+// contiguous; y [B, T, Di] float32 and h_T [B, Di, N] float32, contiguous;
+// hb [B, ceil(T / kTile), Di, N] float32 or null: when given (training), h at
+// the start of each tile, from which ssm_scan_bwd.cu recomputes the tile
+// (a kernel of its own, kStates, so that serving's has no code for it).
 // N is at most 16; offsets are int64.
 //
 // What bounds it on an H100: the exponentials, B*T*Di*N of them on the
@@ -124,11 +127,12 @@ struct TileRegs {
   }
 };
 
-template <typename T>
+template <typename T, bool kStates>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) ssm_scan_kernel(
     const float* __restrict__ dt_g, const T* __restrict__ x_g, const float* __restrict__ a_g,
     const T* __restrict__ b_g, const T* __restrict__ c_g, const float* __restrict__ h0_g,
-    float* __restrict__ y_g, float* __restrict__ ht_g, int64_t n_steps, int64_t di,
+    float* __restrict__ y_g, float* __restrict__ ht_g, float* __restrict__ hb_g,
+    int64_t n_steps, int64_t di,
     int n_state, int64_t groups, int64_t b_sb, int64_t b_st, int64_t c_sb, int64_t c_st) {
   __shared__ Smem sm;
   const int tid = threadIdx.x;
@@ -149,7 +153,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) ssm_scan_kernel(
 
   TileRegs<T> regs;
   regs.load(dt_g, x_g, b_g, c_g, bi, 0, n_steps, di, d0, n_state, b_sb, b_st, c_sb, c_st);
+  const int64_t tiles = (n_steps + kTile - 1) / kTile;
   for (int64_t t0 = 0; t0 < n_steps; t0 += kTile) {
+    if (kStates) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (d < di && n0 + k < n_state) {
+          hb_g[((bi * tiles + t0 / kTile) * di + d) * n_state + n0 + k] = h[k];
+        }
+      }
+    }
     regs.store(sm);
     __syncthreads();
     if (t0 + kTile < n_steps) {  // the next tile's loads fly while this one is computed
@@ -194,15 +207,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) ssm_scan_kernel(
 
 template <typename T>
 cudaError_t launch_typed(const float* dt, const void* x, const float* a, const void* bm,
-                         const void* cm, const float* h0, float* y, float* ht, int64_t batch,
+                         const void* cm, const float* h0, float* y, float* ht, float* hb,
+                         int64_t batch,
                          int64_t n_steps, int64_t di, int n_state, int64_t b_sb, int64_t b_st,
                          int64_t c_sb, int64_t c_st, cudaStream_t stream) {
   const int64_t groups = (di + kChannels - 1) / kChannels;
   const int64_t blocks = batch * groups;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  ssm_scan_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+  const auto kernel = hb != nullptr ? ssm_scan_kernel<T, true> : ssm_scan_kernel<T, false>;
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
       dt, static_cast<const T*>(x), a, static_cast<const T*>(bm), static_cast<const T*>(cm), h0,
-      y, ht, n_steps, di, n_state, groups, b_sb, b_st, c_sb, c_st);
+      y, ht, hb, n_steps, di, n_state, groups, b_sb, b_st, c_sb, c_st);
   return cudaGetLastError();
 }
 
@@ -210,10 +225,12 @@ cudaError_t launch_typed(const float* dt, const void* x, const float* a, const v
 
 extern "C" {
 
-// dtype: 0 = float32 x, B, C; 1 = bfloat16. Strides are in elements.
+// dtype: 0 = float32 x, B, C; 1 = bfloat16. Strides are in elements. hb may
+// be null (serving).
 // Returns a cudaError_t (0 = launched).
 int ssm_scan_launch(const float* dt, const void* x, const float* a, const void* bm,
-                    const void* cm, const float* h0, float* y, float* ht, int64_t batch,
+                    const void* cm, const float* h0, float* y, float* ht, float* hb,
+                    int64_t batch,
                     int64_t n_steps, int64_t di, int n_state, int64_t b_sb, int64_t b_st,
                     int64_t c_sb, int64_t c_st, int dtype, void* stream) {
   if (batch < 1 || n_steps < 1 || di < 1 || n_state < 1 || n_state > kMaxState ||
@@ -222,10 +239,10 @@ int ssm_scan_launch(const float* dt, const void* x, const float* a, const void* 
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? launch_typed<float>(dt, x, a, bm, cm, h0, y, ht, batch, n_steps, di, n_state,
-                                       b_sb, b_st, c_sb, c_st, st)
-                 : launch_typed<__nv_bfloat16>(dt, x, a, bm, cm, h0, y, ht, batch, n_steps, di,
-                                               n_state, b_sb, b_st, c_sb, c_st, st);
+      dtype == 0 ? launch_typed<float>(dt, x, a, bm, cm, h0, y, ht, hb, batch, n_steps, di,
+                                       n_state, b_sb, b_st, c_sb, c_st, st)
+                 : launch_typed<__nv_bfloat16>(dt, x, a, bm, cm, h0, y, ht, hb, batch, n_steps,
+                                               di, n_state, b_sb, b_st, c_sb, c_st, st);
   return static_cast<int>(err);
 }
 

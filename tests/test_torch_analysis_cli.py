@@ -138,10 +138,12 @@ def test_queue_dtype_rule_matches_the_reference():
 def test_kernel_twin_rule_covers_every_kernel_op():
     kernels = os.path.join(ROOT, "src", "repro_torch", "kernels")
     ops = {name: lint.kernel_ops(os.path.join(kernels, name, "ops.py"))
-           for name in ("intersect", "rwkv6", "flash_attention")}
+           for name in ("intersect", "rwkv6", "flash_attention", "ssm_scan")}
     assert ops == {"intersect": ["multiway_membership", "fused_extend", "fused_verify",
                                  "lex_bounds"],
-                   "rwkv6": ["rwkv6"], "flash_attention": ["attention"]}
+                   "rwkv6": ["rwkv6", "rwkv6_bwd"],
+                   "flash_attention": ["attention", "attention_bwd"],
+                   "ssm_scan": ["ssm_scan", "ssm_scan_bwd"]}
     tests = os.path.join(ROOT, "tests", "test_torch_gpu.py")
     assert lint.check_kernel_twins(kernels, tests) == []
     diags, _ = fixtures_pt.run_fixture("bad-kernel-twins")

@@ -62,8 +62,15 @@ cover every variant the training forwards reach (bf16 and float32; Dh 64,
 96, 128, 256; causal and not; window and softcap; GQA groups; Sq != Sk;
 the forward's decode and split forms), the log-sum-exp each forward form
 writes only when asked, a failed launch raising ``KernelFault``, granite's
-smoke training step on the card against the CPU's (``-k training``), and
-RWKV6's and the scan's refusal to take a gradient on the card. The graph
+smoke training step on the card against the CPU's (``-k training``: the
+attention models, rwkv6-7b and jamba-v0.1-52b). The backward kernels of
+RWKV6 and the scan (``-k backward``) must be within 1e-2 (bfloat16) and
+1e-5 (float32) of their plain versions (``rwkv6_bwd_ref``,
+``ssm_scan_bwd_ref``) in each gradient, relative to its largest plain
+value, at their chunk and tile edges, the decay edges and odd widths; a
+fault put into each plain version (u's terms dropped, dh_T ignored) reads
+far above that, and ``rwkv6``/``ssm_scan`` with grad on run both kernels of
+each (``-k autograd``). The graph
 service at full width (``-k full_width``), cut from ``chip_smoke.py``'s
 phase 5c for time, runs that leg here (minutes: a 16 GB adjacency).
 """
@@ -1572,29 +1579,239 @@ def test_flash_attention_backward_failed_launch_raises(cuda):
         fa.attention_bwd(wide, wide, wide, wide, wide, torch.zeros((1, 4), device=cuda))
 
 
-def test_rwkv6_and_ssm_scan_refuse_a_gradient_on_the_card(cuda):
-    """No backward kernel yet: an input that requires grad raises, naming it,
-    rather than taking the plain path; without grad mode they run."""
-    r, k, v, w, u = _rwkv_inputs(2, 16, 64, 64, torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="rwkv6 kernel has no backward"):
-        rk.rwkv6(r.requires_grad_(), k, v, w, u)
-    with torch.no_grad():
-        rk.rwkv6(r, k, v, w, u)
-    f32 = dict(dtype=torch.float32, device=cuda)
-    dt, x = torch.rand((1, 8, 32), **f32), torch.randn((1, 8, 32), **f32)
-    bmat, cmat = torch.randn((1, 8, 4), **f32), torch.randn((1, 8, 4), **f32)
-    a, h0 = -torch.rand((32, 4), **f32), torch.zeros((1, 32, 4), **f32)
-    with pytest.raises(NotImplementedError, match="ssm_scan kernel has no backward"):
-        sk.ssm_scan(dt, x.requires_grad_(), a, bmat, cmat, h0)
-    sk.ssm_scan(dt, x.detach(), a, bmat, cmat, h0)
+# The recurrences' backward kernels against their plain versions
+# (rwkv6_bwd_ref, ssm_scan_bwd_ref): max |kernel - plain| / max |plain| of
+# each gradient. Both sum in float32 from the same inputs and round to the
+# inputs' dtype; they differ in summation order only (the scan's dB and dC
+# by atomic adds, whose order varies from run to run): below 1e-5 in
+# float32, and in bfloat16 within the rounding of the outputs (2^-9 of the
+# largest value) and of the float32 sums that reach them.
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-9b", "seamless-m4t-large-v2"])
+def _grad_rel(got, want):
+    """The largest max |got - want| / max |want| over the gradients, after
+    checking each one's dtype and shape."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape, (g.dtype, w.dtype, g.shape, w.shape)
+        assert bool(torch.isfinite(g).all())
+        diff = float((g.float() - w.float()).abs().max())
+        worst = max(worst, diff / max(float(w.float().abs().max()), 1e-30))
+    return worst
+
+
+def _rwkv_bwd_case(args, with_ds, seed, plain=None):
+    """dout (and dS_T) from ``seed``, the kernel's gradients and the plain
+    version's (``plain``, else ``rwkv6_bwd_ref``)."""
+    from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
+
+    r, v = args[0], args[2]
+    g = torch.Generator(device=r.device).manual_seed(seed)
+    do = torch.randn((*v.shape[:2], v.shape[-1]), generator=g, device=r.device)
+    ds = torch.randn((r.shape[0], r.shape[-1], v.shape[-1]), generator=g, device=r.device) \
+        if with_ds else None
+    before = rk.launches["rwkv6_bwd"]
+    got = rk.rwkv6_bwd(*args, do, ds)
+    torch.cuda.synchronize()
+    assert rk.launches["rwkv6_bwd"] == before + 1
+    return got, (plain or rwkv6_bwd_ref)(*args, do, ds)
+
+
+@pytest.mark.parametrize("with_ds", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", [16, 64])
+@pytest.mark.parametrize("t", [1, 8, 9, 37, 512])
+def test_rwkv6_backward_kernel_matches_plain(cuda, t, kv, dtype, with_ds):
+    """T below, at and past one 8-step chunk of saved states, and over many."""
+    args = _rwkv_inputs(6, t, kv, kv, dtype, cuda, seed=t + kv)
+    got, want = _rwkv_bwd_case(args, with_ds, seed=t)
+    assert _grad_rel(got, want) < BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rwkv6_backward_kernel_at_the_training_shape(cuda, dtype):
+    """rwkv6-7b's training shape: B=2 x 64 heads (BH=128), T=4,096, K=V=64."""
+    args = _rwkv_inputs(128, 4096, 64, 64, dtype, cuda, seed=7)
+    got, want = _rwkv_bwd_case(args, False, seed=8)
+    assert _grad_rel(got, want) < BWD_TOL[dtype]
+
+
+# The backward's decay edges: w = 1 exactly, the model's clamp (logdecay
+# 1.2: 0.036 a step), logdecay -8, w below the kernels' clamp at 1e-12 (dw
+# is 0 there), and all of them mixed.
+RWKV_BWD_EDGES = {
+    "w 1.0": lambda n, g, dev: torch.ones(n, device=dev),
+    "logdecay 1.2": RWKV_EDGES["logdecay 1.2"],
+    "logdecay -8": RWKV_EDGES["logdecay -8"],
+    "w below the clamp": lambda n, g, dev: torch.full(n, 1e-13, device=dev),
+    "mixed": RWKV_EDGES["mixed"],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("edge", list(RWKV_BWD_EDGES))
+@pytest.mark.parametrize("t", [8, 100])
+def test_rwkv6_backward_kernel_at_decay_edges(cuda, edge, t, dtype):
+    args = _rwkv_inputs(4, t, 64, 64, torch.float32, cuda, seed=t)
+    args[3] = RWKV_BWD_EDGES[edge]((4, t, 64), torch.Generator(device=cuda).manual_seed(t), cuda)
+    args = [x.to(dtype) for x in args[:4]] + [args[4]]
+    got, want = _rwkv_bwd_case(args, True, seed=t + 1)
+    assert _grad_rel(got, want) < BWD_TOL[dtype], edge
+    if edge == "w below the clamp":
+        assert not bool(got[3].any())
+
+
+@pytest.mark.parametrize("kd,vd", [(64, 16), (24, 40), (17, 33)])
+def test_rwkv6_backward_kernel_widths_on_transposed_views(cuda, kd, vd):
+    base = _rwkv_edge_inputs(6, 37, kd, vd, "mixed", torch.float32, cuda, seed=kd + vd)
+    views = [x.transpose(0, 1).contiguous().transpose(0, 1) for x in base[:4]] + [base[4]]
+    assert not views[0].is_contiguous()
+    got, want = _rwkv_bwd_case(views, True, seed=kd)
+    assert _grad_rel(got, want) < BWD_TOL[torch.float32]
+
+
+def test_rwkv6_backward_check_catches_a_dropped_u_term(cuda):
+    """The plain version without u's terms in dr, dk, dv: the check's
+    reading comes out far above its tolerance."""
+    from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
+
+    def no_u(r, k, v, w, u, do, ds):
+        return rwkv6_bwd_ref(r, k, v, w, torch.zeros_like(u), do, ds)
+
+    args = _rwkv_inputs(4, 64, 64, 64, torch.float32, cuda, seed=2)
+    got, bad = _rwkv_bwd_case(args, False, seed=3, plain=no_u)
+    assert _grad_rel(got[:4], bad[:4]) > 100 * BWD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("return_state", [False, True])
+def test_rwkv6_autograd_on_card_runs_both_kernels(cuda, return_state):
+    """``rk.rwkv6`` with grad on: the forward kernel once, the backward
+    kernel once, and the plain version's autograd's gradients (u expanded
+    over the batch, as the model does, so du is summed over it)."""
+    b, h, t, hd = 2, 3, 45, 64
+    base = _rwkv_inputs(b * h, t, hd, hd, torch.float32, cuda, seed=4)
+    u0 = torch.randn((h, hd), device=cuda)
+    grads = []
+    for fn in (rk.rwkv6, rwkv6_ref):
+        xs = [x.clone().requires_grad_() for x in base[:4]]
+        u = u0.clone().requires_grad_()
+        before = dict(rk.launches)
+        out = fn(*xs, u[None].expand(b, h, hd).reshape(b * h, hd), return_state=return_state)
+        loss = (out[0] ** 2).sum() + out[1].sum() if return_state else (out ** 2).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        if fn is rk.rwkv6:
+            assert rk.launches["rwkv6"] == before["rwkv6"] + 1
+            assert rk.launches["rwkv6_bwd"] == before["rwkv6_bwd"] + 1
+        grads.append([x.grad for x in xs] + [u.grad])
+    assert _grad_rel(*grads) < BWD_TOL[torch.float32]
+
+
+def _scan_bwd_case(args, seed, plain=None):
+    """dy and dh_T from ``seed``, the kernel's gradients (its tile states
+    from the forward kernel) and the plain version's (``plain``, else
+    ``ssm_scan_bwd_ref``)."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+
+    dt, h0 = args[0], args[5]
+    g = torch.Generator(device=dt.device).manual_seed(seed)
+    dy = torch.randn(dt.shape, generator=g, device=dt.device)
+    dh = torch.randn(h0.shape, generator=g, device=dt.device)
+    hb = sk._scan(*args, tile_states=True)[2]
+    before = dict(sk.launches)
+    got = sk.ssm_scan_bwd(*args, dy, dh, hb=hb)
+    torch.cuda.synchronize()
+    assert sk.launches == {**before, "ssm_scan_bwd": before["ssm_scan_bwd"] + 1}
+    return got, (plain or ssm_scan_bwd_ref)(*args, dy, dh)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("di,n", [(256, 16), (40, 16), (96, 5)])
+@pytest.mark.parametrize("t", [1, 31, 32, 33, 200])
+def test_ssm_scan_backward_kernel_matches_plain(cuda, t, di, n, dtype):
+    """Tile edges (T = 1, 31, 32, 33), channel counts that leave a block
+    part empty, N < 16, B and C as slices of one projection, non-zero h0
+    and dh_T."""
+    args = _scan_inputs(2, t, di, n, dtype, cuda, seed=t + di + n)
+    got, want = _scan_bwd_case(args, seed=t)
+    assert _grad_rel(got, want) < BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssm_scan_backward_kernel_at_the_training_shape(cuda, dtype):
+    """jamba's Mamba layer in training: B=2, T=4,096, Di=8,192, N=16."""
+    args = _scan_inputs(2, 4096, 8192, 16, dtype, cuda, seed=12)
+    got, want = _scan_bwd_case(args, seed=13)
+    assert _grad_rel(got, want) < BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("edge,t,dt_scale", [("decay underflows to 0", 64, 200.0),
+                                             ("decay about 1", 4096, 1e-5),
+                                             ("zero dt", 33, 0.0)])
+def test_ssm_scan_backward_kernel_at_decay_edges(cuda, edge, t, dt_scale, dtype):
+    args = _scan_inputs(2, t, 64, 16, dtype, cuda, seed=t, dt_scale=dt_scale)
+    got, want = _scan_bwd_case(args, seed=t + 1)
+    assert _grad_rel(got, want) < BWD_TOL[dtype], edge
+
+
+def test_ssm_scan_backward_check_catches_an_ignored_dh_t(cuda):
+    """The plain version with dh_T ignored: the check's reading comes out far
+    above its tolerance."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+
+    def no_dh(dt, x, a, bm, cm, h0, dy, dh):
+        return ssm_scan_bwd_ref(dt, x, a, bm, cm, h0, dy, torch.zeros_like(dh))
+
+    args = _scan_inputs(2, 64, 64, 16, torch.float32, cuda, seed=9, dt_scale=0.05)
+    got, bad = _scan_bwd_case(args, seed=10, plain=no_dh)
+    assert _grad_rel(got, bad) > 100 * BWD_TOL[torch.float32]
+
+
+def test_ssm_scan_backward_kernel_needs_the_tile_states(cuda):
+    """On the card the backward takes h at the tile starts from the forward;
+    without them it raises and launches nothing."""
+    args = _scan_inputs(1, 64, 64, 16, torch.float32, cuda, seed=14)
+    dy = torch.zeros(args[0].shape, device=cuda)
+    before = dict(sk.launches)
+    with pytest.raises(ValueError, match="hb None"):
+        sk.ssm_scan_bwd(*args, dy, torch.zeros_like(args[5]))
+    assert sk.launches == before
+
+
+def test_ssm_scan_autograd_on_card_runs_both_kernels(cuda):
+    """``sk.ssm_scan`` with grad on (B and C as views of one projection, h0
+    without grad, as in training): the forward kernel once (keeping its tile
+    states), the backward kernel once, and the plain version's autograd's
+    gradients; None for h0."""
+    args = _scan_inputs(2, 96, 80, 16, torch.bfloat16, cuda, seed=11)
+    grads = []
+    for fn in (sk.ssm_scan, ssm_scan_ref):
+        proj = torch.cat([args[3], args[4]], -1).detach().requires_grad_()
+        dt, x, a = (v.detach().clone().requires_grad_() for v in args[:3])
+        h0 = torch.zeros_like(args[5])
+        before = dict(sk.launches)
+        y, h = fn(dt, x, a, proj[..., :16], proj[..., 16:], h0)
+        ((y ** 2).sum() + h.sum()).backward()
+        torch.cuda.synchronize()
+        if fn is sk.ssm_scan:
+            assert sk.launches["ssm_scan"] == before["ssm_scan"] + 1
+            assert sk.launches["ssm_scan_bwd"] == before["ssm_scan_bwd"] + 1
+        assert h0.grad is None
+        grads.append([dt.grad, x.grad, a.grad, proj.grad])
+    assert _grad_rel(*grads) < BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-9b", "seamless-m4t-large-v2",
+                                  "rwkv6-7b", "jamba-v0.1-52b"])
 def test_training_step_on_card_matches_cpu(cuda, arch):
-    """A float32 smoke model's loss and gradients on the card (the flash
-    kernel's forward and backward) against the CPU port's (the plain
-    versions): 1e-4 of each leaf's largest gradient (cuBLAS against the
-    CPU's products, the kernels' summation orders)."""
+    """A float32 smoke model's loss and gradients on the card (every kernel's
+    forward and backward: flash attention, RWKV6, the scan) against the CPU
+    port's (the plain versions): 1e-4 of each leaf's largest gradient
+    (cuBLAS against the CPU's products, the kernels' summation orders).
+    Each layer runs its forward twice (the pass and its recompute) and its
+    backward once."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import transformer as T
@@ -1609,13 +1826,19 @@ def test_training_step_on_card_matches_cpu(cuda, arch):
     for dev in ("cpu", cuda):
         lm = T.init_params(cfg, seed=0, device="cpu").to(dev)
         params = [p.requires_grad_(True) for p in lm.parameters()]
-        fa.reset_launches()
+        for mod in (fa, rk, sk):
+            mod.reset_launches()
         loss = _loss(cfg, lm, batch, 0.0)
         grads[str(dev)] = (float(loss.detach()), [g.cpu() for g in torch.autograd.grad(
             loss, params, allow_unused=True, materialize_grads=True)])
-    calls = cfg.num_layers + (cfg.num_layers + cfg.encoder_layers if cfg.encoder_layers else 0)
-    assert fa.launches["flash_attention_bwd"] == calls
-    assert fa.launches["flash_attention"] == 2 * calls  # the forward and its recompute
+    mixers = [cfg.mixer_at(i) for i in range(cfg.num_layers)]
+    attn = sum(m.startswith("attn") for m in mixers)
+    attn += attn + cfg.encoder_layers if cfg.encoder_layers else 0  # cross and encoder
+    seen = {**fa.launches, **rk.launches, **sk.launches}
+    want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+            "rwkv6": 2 * mixers.count("rwkv"), "rwkv6_bwd": mixers.count("rwkv"),
+            "ssm_scan": 2 * mixers.count("mamba"), "ssm_scan_bwd": mixers.count("mamba")}
+    assert {n: seen[n] for n in want} == want
     (l0, g0), (l1, g1) = grads["cpu"], grads["cuda"]
     assert abs(l0 - l1) <= 1e-5 * abs(l0)
     for a, b in zip(g0, g1):

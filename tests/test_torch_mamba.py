@@ -97,7 +97,7 @@ def test_scan_dispatch_cpu_runs_the_plain_version_without_launching():
     got = scan_ops.ssm_scan(dt, xb, a, bs, cs, h0)
     want = ssm_scan_ref(dt, xb, a, bs.contiguous(), cs.contiguous(), h0)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert scan_ops.launches == {"ssm_scan": 0}
+    assert scan_ops.launches == {"ssm_scan": 0, "ssm_scan_bwd": 0}
 
 
 def test_scan_dispatch_rejects_mixed_or_unsupported_devices():

@@ -125,7 +125,7 @@ def test_dispatch_cpu_runs_the_chunked_path_without_launching():
     want_o, want_s = ops.rwkv6_chunked(*arrs, chunk=16, return_state=True)
     assert torch.equal(out, want_o) and torch.equal(state, want_s)
     assert torch.equal(ops.rwkv6(*arrs, chunk=16), want_o)
-    assert ops.launches == {"rwkv6": 0}
+    assert ops.launches == {"rwkv6": 0, "rwkv6_bwd": 0}
 
 
 def test_dispatch_rejects_mixed_or_unsupported_devices():
