@@ -142,7 +142,9 @@ Phases (each prints its results; any failure exits non-zero):
    leaves' gradients on the flash kernels against plain attention's
    autograd, then 3 steps through ``launch.train.train`` (adaptive
    microbatches, AdamW) with tokens/s, step times, peak memory and both
-   kernels' launches, then the comparison in float32 at 2 layers;
+   kernels' launches, one more step under the profiler with its device
+   time by kind (flash forward and backward, GEMMs, AdamW's and the other
+   elementwise kernels), then the comparison in float32 at 2 layers;
 19. the training driver at the smoke size on the card: ``--fail-at`` (exit
    42), then a resume from the latest valid checkpoint to the end;
 20. the backward kernels of RWKV6 and the scan against their plain versions
@@ -388,9 +390,9 @@ DEV = "cuda"
 # |plain| of each of dq, dk, dv. Both sum in float32 from the same inputs
 # and round the results to the inputs' dtype (2^-9 of the largest value in
 # bf16); in bf16 the kernel also rounds P and dS to bf16 for its tensor-core
-# products, as the forward rounds P (3.1e-3 to 5.8e-3 at these shapes on an
-# H100 80GB HBM3). In float32 only the summation orders differ (the
-# kernel's dq by atomic adds; below 1e-5).
+# products, as the forward rounds P (2.9e-3 to 5.8e-3 at these shapes on an
+# H100 80GB HBM3), and sums dq by TMA reduce-adds in L2. In float32 only the
+# summation orders differ (the kernel's dq by atomic adds; below 1e-5).
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
 # No TPU kernel: the JAX package differentiates its plain attention.
 FLASH_BWD_REPLACES = "src/repro/kernels/flash_attention/ref.py:8"
@@ -3465,7 +3467,10 @@ def phase_train_granite(fa):
     want = {"flash_attention": 2 * cfg.num_layers * TRAIN_STEPS,  # forward and its recompute
             "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS}
     assert seen == want, (seen, want)
-    del lm, res
+    del res
+    gc.collect()
+    profiled = profile_train_step(cfg, lm, b, s)
+    del lm
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3479,7 +3484,47 @@ def phase_train_granite(fa):
     gc.collect()
     torch.cuda.empty_cache()
     return seen, dict(bf16=check, float32=check32, steps=dict(
-        losses=losses, step_s=step_s, peak_gb=peak, launches=seen))
+        losses=losses, step_s=step_s, peak_gb=peak, launches=seen), profiled_step=profiled)
+
+
+def profile_train_step(cfg, lm, b, s):
+    """One more training step of ``lm`` through ``launch.train.train`` (the
+    optimizer state made afresh before it, outside the window) under the
+    profiler, from the driver's first step to its end: the step's wall
+    time, device busy time and idle share, and its device ms by kind
+    (``by_category``: the flash forward and backward kernels, the cuBLAS
+    GEMMs, copies and casts, the other elementwise kernels, AdamW's among
+    them). Its flash launches are not counted on the main path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import train
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def log_cb(m):
+        if m.startswith("[train] params"):  # the optimizer state exists; the step comes next
+            torch.cuda.synchronize()
+            prof.start()
+            marks["t0"] = time.perf_counter()
+
+    train(cfg, steps=1, global_batch=b, seq_len=s, log_every=1, device=DEV, lm=lm, log=log_cb)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - marks["t0"]) * 1e3
+    prof.stop()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in rows) / 1e3
+    kinds = by_category([(k, t) for k, t, _ in rows],
+                        {"flash forward": "flash_fwd", "flash backward": "flash_bwd"})
+    log(f"phase 18: profiled training step: wall={wall_ms:.1f} ms device busy={busy:.1f} ms "
+        f"idle share={1 - busy / wall_ms:.3f}")
+    for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"phase 18:   device {t / 1e3:9.2f} ms  x{n:<5d} {key[:90]}")
+    log(f"phase 18:   device ms by kind: {kinds}")
+    assert kinds["flash forward"] > 0 and kinds["flash backward"] > 0, kinds
+    return dict(wall_ms=wall_ms, busy_ms=busy, by_kind=kinds)
 
 
 def phase_train_driver():

@@ -3,15 +3,18 @@
 Each library is one ``csrc/*.cu`` file compiled at first use by ``nvcc``
 into a shared library with a plain C interface and loaded with ``ctypes``;
 no PyTorch headers are involved, so a build takes seconds. A library is keyed
-by a hash of its source and the flags and lives in ``build/kernels/`` at the
-root of the checkout, which ``.gitignore`` lists. Nothing here runs at import
-time; a failed build raises :class:`KernelFault`.
+by a hash of its source, of every local header it includes (``#include
+"..."``, followed through the headers' own includes) and of the flags, and
+lives in ``build/kernels/`` at the root of the checkout, which
+``.gitignore`` lists, so an edited header never loads a stale library.
+Nothing here runs at import time; a failed build raises :class:`KernelFault`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,6 +27,26 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel, into build_log
 )
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_sources(source: Path) -> list[Path]:
+    """``source`` and every file it includes with quotes that lies beside
+    the including file, followed through those files' own includes, in the
+    order first met; a quoted name with no such file is the compiler's
+    business and is left out."""
+    seen: list[Path] = []
+    todo = [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            inc = (path.parent / name.decode()).resolve()
+            if inc.is_file():
+                todo.append(inc)
+    return seen
 
 
 def _fault(message: str):
@@ -61,7 +84,9 @@ class CudaLibrary:
         self.build_seconds = 0.0  # wall time of that build
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for path in local_sources(self.source):
+            h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}_{h.hexdigest()[:16]}.so"
 

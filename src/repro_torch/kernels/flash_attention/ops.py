@@ -48,7 +48,10 @@ runs as an ``autograd.Function``: its forward is the same kernel (or CPU
 path) asked to write each query row's float32 log-sum-exp too (``lse``, an
 optional output every serving call leaves out), and its backward is
 ``attention_bwd``: on the card the hand-written backward kernel
-(``csrc/flash_attention_bwd.cu``, its own library), counted in
+(``csrc/flash_attention_bwd.cu``, its own library; in bf16 a
+warp-specialised wgmma kernel that reads with TMA, so a bf16 operand that
+``aligned16`` refuses reaches it as an aligned, zero-padded copy and the
+gradients are sliced back to Dh), counted in
 ``launches["flash_attention_bwd"]``, on the CPU its plain version
 ``ref.attention_bwd_ref``. There is no fallback: a failed build or launch
 raises :class:`KernelFault`.
@@ -73,6 +76,7 @@ FORMS = ("f32", "prefill", "decode")  # the kernel's codes: csrc's enum Form
 DECODE_ROWS = 64  # the decode form packs a KV head's Sq·group query rows into one tile
 BLOCKS_PER_SM = 4  # the decode and f32 forms' splits aim at this many blocks on each SM
 F32_ROWS = 64  # packed query rows of a KV head an f32-form block takes (csrc's F32Cfg::BQ)
+BWD_QUERY_STEP = 64  # query rows a step of the bf16 backward kernel (csrc's TmaCfg::BQ)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -373,8 +377,17 @@ def attention(q, k, v, *, causal: bool = True, softcap: float | None = None,
 
 def bwd_width(dh: int) -> int:
     """The backward kernel's head width: Dh padded to 64, 128 or 256 (csrc's
-    BwdCfg), the row length of its float32 dQ scratch."""
+    BwdCfg and TmaCfg), the row length of its float32 dQ scratch."""
     return 64 if dh <= 64 else 128 if dh <= 128 else 256
+
+
+def bwd_delta_size(bhq: int, sq: int, dtype: torch.dtype) -> int:
+    """Float32 values of the backward's pass-1 scratch: each row's D in
+    float32; in bf16 two planes, L·log2 e then D, of Sq rounded up to the
+    kernel's query step (``BWD_QUERY_STEP``), which its bulk copies read."""
+    if dtype == torch.float32:
+        return bhq * sq
+    return 2 * bhq * -(-sq // BWD_QUERY_STEP) * BWD_QUERY_STEP
 
 
 def _like_out(x: torch.Tensor) -> torch.Tensor:
@@ -412,6 +425,19 @@ def attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         f"lse be float32, got {q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}, "
                         f"{dout.dtype}, {lse.dtype}")
     first = visible_keys(sq, k.shape[-2], window)
+    bhq = q.shape[:-2].numel()
+    hq, hkv = (1, 1) if q.ndim == 3 else (q.shape[1], k.shape[1])
+    group = q.shape[-3] // k.shape[-3]
+    bf16 = q.dtype == torch.bfloat16
+    if not bf16 and bhq // group > MAX_GRID_Y:
+        raise KernelFault(f"flash_attention_bwd kernel takes at most {MAX_GRID_Y} KV rows in "
+                          f"float32, got {bhq // group}", op="flash_attention_bwd")
+    q, k, v, out, dout = (x if x.stride(-1) == 1 else x.contiguous()
+                          for x in (q, k, v, out, dout))
+    width = dh  # the kernel's Dh: in bf16 a multiple of 8, every operand TMA-readable
+    if bf16:
+        width = -(-dh // 8) * 8
+        q, k, v, out, dout = (_aligned_copy(x, width) for x in (q, k, v, out, dout))
     dq, dk, dv = _like_out(q), _like_out(k), _like_out(v)
     if first:
         dk.zero_()
@@ -419,27 +445,21 @@ def attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     k, v, dk_seen, dv_seen = (x[..., first:, :] for x in (k, v, dk, dv))
     sk = k.shape[-2]
     win = sk + sq if window is None else min(window, sk + sq)
-    bhq = q.shape[:-2].numel()
-    hq, hkv = (1, 1) if q.ndim == 3 else (q.shape[1], k.shape[1])
-    group = q.shape[-3] // k.shape[-3]
-    if bhq // group > MAX_GRID_Y:
-        raise KernelFault(f"flash_attention_bwd kernel takes at most {MAX_GRID_Y} KV rows, "
-                          f"got {bhq // group}", op="flash_attention_bwd")
-    q, k, v, out, dout = (x if x.stride(-1) == 1 else x.contiguous()
-                          for x in (q, k, v, out, dout))
     lse = lse.contiguous()
-    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty((bhq, sq, bwd_width(dh)), dtype=torch.float32, device=q.device)
+    delta = torch.empty(bwd_delta_size(bhq, sq, q.dtype), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((bhq, sq, bwd_width(width)), dtype=torch.float32, device=q.device)
     operands = (q, k, v, out, dout, dq, dk_seen, dv_seen)
     stride_arr = (ctypes.c_int64 * 24)(*[s for x in operands for s in _strides(x)])
     rc = BWD_LIB.load().flash_attention_bwd_launch(
         *(x.data_ptr() for x in operands), ctypes.addressof(stride_arr), lse.data_ptr(),
-        delta.data_ptr(), dq_acc.data_ptr(), bhq, hq, hkv, group, sq, sk, dh,
+        delta.data_ptr(), dq_acc.data_ptr(), bhq, hq, hkv, group, sq, sk, width,
         1.0 / (dh ** 0.5), 0.0 if softcap is None else float(softcap), int(bool(causal)), win,
-        0 if q.dtype == torch.float32 else 1, torch.cuda.current_stream(q.device).cuda_stream,
+        int(bf16), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise KernelFault(f"flash_attention_bwd launch failed: cudaError {rc}",
                           op="flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
+    if width != dh:
+        return dq[..., :dh], dk[..., :dh], dv[..., :dh]
     return dq, dk, dv

@@ -57,10 +57,15 @@ attention_bwd_ref``) in each of dq, dk, dv, relative to the largest plain
 value: both sum in float32 from the same inputs and the forward's
 log-sum-exp, and round to the inputs' dtype (2^-9 of the largest value in
 bfloat16); in bfloat16 the kernel also rounds P and dS to bfloat16 for its
-tensor-core products, and it sums dq by atomic adds in another order. Its cases
+tensor-core products, and it sums dq in another order (TMA reduce-adds in
+bfloat16, atomic adds in float32). Its cases
 cover every variant the training forwards reach (bf16 and float32; Dh 64,
 96, 128, 256; causal and not; window and softcap; GQA groups; Sq != Sk;
-the forward's decode and split forms), the log-sum-exp each forward form
+the forward's decode and split forms), the bf16 kernel's tile edges (Sk
+past a 128-key block, Sq past a 64-row step, the causal diagonal between
+its two consumers' 64-key halves, a window edge inside a tile at Dh 256
+with the softcap), strided views off 16 bytes that reach it as aligned
+copies, dK and dV bit-equal across two calls, the log-sum-exp each forward form
 writes only when asked, a failed launch raising ``KernelFault``, granite's
 smoke training step on the card against the CPU's (``-k training``: the
 attention models, rwkv6-7b and jamba-v0.1-52b). The backward kernels of
@@ -1529,7 +1534,7 @@ def _bwd_case(dev, b, hq, hkv, sq, sk, dh, dtype, causal, cap, window, seed=0):
     (1, 8, 2, 5, 40, 128, True, None, None),      # the decode form's forward
     (2, 16, 16, 33, 300, 64, False, None, None),  # seamless's cross-attention, split keys
     (1, 3, 3, 64, 64, 40, True, None, 7),         # Dh not a power of two, a narrow window
-    (1, 2, 2, 50, 50, 36, True, None, None),      # Dh % 8 != 0: 2-byte copies in bf16
+    (1, 2, 2, 50, 50, 36, True, None, None),      # Dh % 8 != 0: an aligned copy in bf16
     (1, 2, 2, 30, 12, 64, True, None, None),      # rows that see no key: zero gradients
 ])
 def test_flash_attention_backward_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, dh, causal,
@@ -1540,6 +1545,81 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, b, hq, hkv, sq, sk,
         assert x.dtype == dtype and x.shape == w.shape
         err = float((x.float() - w.float()).abs().max() / w.float().abs().max())
         assert err < FLASH_BWD_TOL[dtype], err
+
+
+def _bwd_close(got, want, dtype):
+    for x, w in zip(got, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        err = float((x.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err < FLASH_BWD_TOL[dtype], err
+
+
+# The bf16 kernel's tile edges: blocks of 128 keys (64 at Dh 256), two
+# consumers of 64 keys each, query steps of 64 rows from a multiple of 64:
+# (b, hq, hkv, sq, sk, dh, causal, softcap, window).
+BWD_EDGE_CASES = [
+    (1, 4, 2, 130, 300, 128, False, None, None),  # Sk not a multiple of 128, Sq not of 64
+    (2, 2, 1, 63, 129, 64, True, None, None),     # a 129th key: a block of one key
+    (1, 2, 2, 257, 191, 96, True, None, None),    # Sq > Sk: rows before 66 see no key
+    (1, 8, 2, 200, 264, 128, True, None, None),   # group 4, the diagonal 64 keys on:
+                                                  # between the consumers' halves
+    (1, 8, 2, 192, 192, 64, True, None, None),    # group 4 at Dh 64 (dQ in 32-column halves)
+    (1, 2, 1, 300, 300, 256, True, 50.0, 100),    # a window edge inside a tile, Dh 256, softcap
+    (1, 2, 2, 190, 190, 256, True, None, 70),     # the window at Dh 256 without the softcap
+    (1, 4, 4, 129, 129, 128, True, 30.0, None),   # softcap at Dh 128
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh,causal,cap,window", BWD_EDGE_CASES)
+def test_flash_attention_backward_tile_edges(cuda, b, hq, hkv, sq, sk, dh, causal, cap, window):
+    got, want = _bwd_case(cuda, b, hq, hkv, sq, sk, dh, torch.bfloat16, causal, cap, window,
+                          seed=7 * sq + sk + dh)
+    _bwd_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [128, 36])
+def test_flash_attention_backward_reads_strided_views(cuda, dh):
+    """q, k, v and dO as the models hand them over, [B, H, S, Dh] views of
+    [B, S, H, Dh] projections, here one element (2 bytes) off 16 bytes (and
+    at Dh 36 not a multiple of 8), so that ``aligned16`` refuses them: the
+    kernel gets aligned copies and the gradients come back at Dh."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    b, hq, hkv, sq, sk = 2, 4, 2, 150, 150
+    g = torch.Generator(device=cuda).manual_seed(dh)
+
+    def view(s, h):
+        flat = torch.randn(b * s * h * dh + 1, generator=g, device=cuda).to(torch.bfloat16)
+        return flat[1:].view(b, s, h, dh).transpose(1, 2)
+
+    q, k, v, do = view(sq, hq), view(sk, hkv), view(sk, hkv), view(sq, hq)
+    assert not any(fa.aligned16(x) for x in (q, k, v, do))
+    lse = torch.empty((b, hq, sq), device=cuda)
+    out = fa.attention(q, k, v, causal=True, lse=lse)
+    got = fa.attention_bwd(q, k, v, out, do, lse, causal=True)
+    torch.cuda.synchronize()
+    flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v, out, do)]
+    want = attention_bwd_ref(*flat, lse.reshape(-1, sq), causal=True)
+    _bwd_close(got, [w.view(x.shape) for w, x in zip(want, (q, k, v))], torch.bfloat16)
+
+
+def test_flash_attention_backward_dk_dv_deterministic(cuda):
+    """dK and dV are summed in registers over every query step and written
+    once, with no atomics: two calls give the same bits (dQ, summed by atomic
+    adds, may differ in its last bits)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    q, k, v = _qkv(8, 2, 333, 333, 128, torch.bfloat16, cuda, seed=5)
+    do = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    lse = torch.empty(q.shape[:-1], device=cuda)
+    out = fa.attention(q, k, v, lse=lse)
+    first = fa.attention_bwd(q, k, v, out, do, lse)
+    second = fa.attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    assert float((first[0].float() - second[0].float()).abs().max()) <= \
+        1e-2 * float(first[0].float().abs().max())
 
 
 @pytest.mark.parametrize("sq,sk,hq,hkv,dh,dtype,form", [
