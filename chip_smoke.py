@@ -136,7 +136,9 @@ Phases (each prints its results; any failure exits non-zero):
    heads, 4,096 tokens, Dh 128, causal), gemma2's local and global layers
    (Dh 256, softcap 50, window 4,096, 4,608 tokens), seamless's encoder and
    cross-attention (Dh 64, non-causal, 2,048 and 509 x 2,048), phi-3-vision's
-   Dh 96 and one float32 shape, with times, bound and SDPA's backward;
+   Dh 96 and two float32 shapes (32/8 heads, 2,048 tokens, Dh 128; gemma2's
+   local layer), with times, bound and SDPA's backward (the names of its
+   float32 kernels read in a fresh process);
 18. granite-3-8b training at full width, cut to 20 of its 40 layers
    (4.19 B parameters, B=2 x 4,096): one step's loss, grad norm and five
    leaves' gradients on the flash kernels against plain attention's
@@ -193,6 +195,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 peak outside the tensor cores (data sheet)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense tensor-core peak (data sheet)
+TF32_FLOPS_PER_S = 494.7e12  # H100 SXM tf32 dense tensor-core peak (data sheet)
 SECTOR = 32  # bytes: the unit in which the card fetches a scattered load
 INVALID = 2**31 - 1
 CU_SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
@@ -391,8 +394,14 @@ DEV = "cuda"
 # and round the results to the inputs' dtype (2^-9 of the largest value in
 # bf16); in bf16 the kernel also rounds P and dS to bf16 for its tensor-core
 # products, as the forward rounds P (2.9e-3 to 5.8e-3 at these shapes on an
-# H100 80GB HBM3), and sums dq by TMA reduce-adds in L2. In float32 only the
-# summation orders differ (the kernel's dq by atomic adds; below 1e-5).
+# H100 80GB HBM3), and sums dq by TMA reduce-adds in L2. In float32 the
+# kernel takes each product in split TF32 (3xTF32: big = tf32(x), small =
+# tf32(x - big), three tensor-core products; under a softcap the scores by
+# float32 FMAs), whose representation error is about float32's own
+# rounding, and sums in other orders; below 1e-5. The
+# float32 lines carry two bases of the bound: 3 * 10 * Dh flop a visible
+# pair at the tf32 tensor-core peak (what the kernel does; the JSON line's
+# bound_ms) and 10 * Dh at the float32 FMA peak.
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
 # No TPU kernel: the JAX package differentiates its plain attention.
 FLASH_BWD_REPLACES = "src/repro/kernels/flash_attention/ref.py:8"
@@ -406,6 +415,7 @@ FLASH_BWD_SHAPES = (
      False),
     ("phi-3-vision-4.2b Dh 96", 1, 32, 32, 4096, 4096, 96, None, torch.bfloat16, None, True),
     ("float32", 1, 32, 8, 2048, 2048, 128, None, torch.float32, None, True),
+    ("gemma2-9b local float32", 1, 16, 8, 4608, 4608, 256, 50.0, torch.float32, 4096, True),
 )
 # Phase 18: granite-3-8b training at full width, cut to 20 of its 40 layers
 # (4.19 B parameters: 8.37 GB of bf16 weights, as many of gradients, 33.5 GB
@@ -618,15 +628,81 @@ def device_busy_us(prof) -> float:
                if e.device_type == DeviceType.CUDA)
 
 
-def _profiled(fn, n):
-    """(kernels recorded, device busy µs) of ``n`` calls of ``fn`` under the profiler."""
+def _profile(fn, n, pad_s: float = 0.0):
+    """The profile of ``n`` calls of ``fn``, its window widened by ``pad_s``
+    seconds of host sleep on each side of the calls."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad_s)
+    return prof
+
+
+def _profiled(fn, n):
+    """(kernels recorded, device busy µs) of ``n`` calls of ``fn`` under the profiler."""
+    prof = _profile(fn, n)
     return device_kernels(prof), device_busy_us(prof)
+
+
+def sdpa_bwd_kernels(b, hq, hkv, sq, sk, dh, causal) -> list:
+    """(name cut to 120 characters, device ms a call) of the two kernels that
+    take most of the device time of SDPA's float32 backward at this shape,
+    from a profiler window in a fresh process (``python3 chip_smoke.py --sdpa-bwd-kernels``): late in
+    the whole smoke, a short profiler window recorded no device rows even
+    padded by a second each side, while the same window in a fresh process
+    does. The names are a note on the library, not a check of the port, so
+    a child that records none gives an empty list and a log line."""
+    spec = json.dumps([b, hq, hkv, sq, sk, dh, causal])
+    try:  # run() kills the child at the timeout
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--sdpa-bwd-kernels",
+                            spec], capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        log("phase 17: SDPA's kernels not recorded (the child outlived 300 s)")
+        return []
+    last = r.stdout.strip().splitlines()[-1:] if r.returncode == 0 else []
+    rows = [tuple(row) for row in json.loads(last[0])] if last else []
+    if not rows:
+        log(f"phase 17: SDPA's kernels not recorded (child exit {r.returncode}: "
+            f"{r.stderr.strip()[-300:]!r})")
+    return rows
+
+
+def sdpa_bwd_kernels_child(spec: str) -> int:
+    """The child of ``sdpa_bwd_kernels``: prints the two kernels of SDPA's
+    float32 backward at the shape ``spec`` (JSON: b, hq, hkv, sq, sk, dh,
+    causal) as one JSON line, from 10 calls under the profiler. The window
+    is widened by a second each side (the profiler drops device records
+    stamped outside its window)."""
+    from torch.autograd import DeviceType
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    b, hq, hkv, sq, sk, dh, causal = json.loads(spec)
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    q, k, v = (torch.randn(b, h, s, dh, generator=gen, device=DEV).requires_grad_()
+               for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    do = torch.randn(b, hq, sq, dh, generator=gen, device=DEV)
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                           enable_gqa=True)
+    calls = 10
+
+    def lib():
+        return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+
+    lib()
+    torch.cuda.synchronize()
+    prof = _profile(lib, calls, pad_s=1.0)
+    rows = sorted(((e.key[:120], e.self_device_time_total / 1e3 / calls)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    print(json.dumps(rows[:2]))
+    return 0
 
 
 def plain_device_ms(fn, iters: int = 20, repeats: int = 5):
@@ -3261,11 +3337,14 @@ def phase_flash_backward(fa):
     reading of a fault put into the plain version (every P halved: the
     log-sum-exp off by log 2) to show the check can fail; the kernel's
     device time (``queued_ms``) and call time, the plain version's call
-    time, the bound (10 * Dh flop a visible pair at the dtype's peak, or the
+    time, the bound (10 * Dh flop a visible pair at the bf16 peak, in float32
+    three times that at the tf32 peak beside 10 * Dh at the FMA peak, or the
     bytes of q, k, v, o, dO read and dq, dk, dv written, whichever is
     larger) and SDPA's backward where one SDPA call computes the same
     function (no softcap or window), timed by ``queued_ms`` of
-    ``torch.autograd.grad`` on a kept graph."""
+    ``torch.autograd.grad`` on a kept graph, with the names of the kernels
+    that take most of its time on the float32 lines (``sdpa_bwd_kernels``,
+    read in a fresh process)."""
     from repro_torch.kernels.flash_attention import ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3296,6 +3375,7 @@ def phase_flash_backward(fa):
         pcall = call_ms(lambda: attention_bwd_plain(ref, q, k, v, o, do, lse, cap, window,
                                                     causal), iters=1, repeats=3, warmup=1)
         lib_ms = lib_call = None
+        lib_kernels = []
         if cap is None and window is None:
             assert not causal or sq == sk  # SDPA's causal diagonal is top-left
             qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -3306,13 +3386,19 @@ def phase_flash_backward(fa):
 
             lib_call, lib_ms = call_ms(lib, iters=3, repeats=3, warmup=2), queued_ms(
                 lib, iters=3, repeats=3)
+            if dtype == torch.float32:
+                lib_kernels = sdpa_bwd_kernels(b, hq, hkv, sq, sk, dh, causal)
             del lib_out, qs, ks, vs
         _, _, fwd_bytes, _, pairs = attention_bound(q.flatten(0, 1), k.flatten(0, 1),
                                                     v.flatten(0, 1), causal, window)
         nbytes = 2 * fwd_bytes + lse.numel() * 4  # q, o, dO, dq; k, v, dk, dv; the lse
         flops = 10 * pairs * dh
-        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        fma_ms = None
+        if dtype == torch.bfloat16:
+            ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        else:  # the kernel's three tf32 products for each; the FMA basis beside it
+            ops_ms, fma_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
         bound, by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
         shape = (f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} "
                  f"{'causal' if causal else 'non-causal'} {str(dtype)[6:]}" +
@@ -3324,7 +3410,8 @@ def phase_flash_backward(fa):
             tflops=flops / (ms * 1e-3) / 1e12, max_abs_err=max(e for e, _ in errs),
             rel_errs=[r for _, r in errs], fault_rel_errs=[r for _, r in fault],
             library="SDPA backward" if lib_ms else None, library_ms=lib_ms and lib_ms[0],
-            library_call_ms=lib_call and lib_call[0], seconds=time.perf_counter() - t_shape))
+            library_call_ms=lib_call and lib_call[0], library_kernels=lib_kernels,
+            bound_fma_ms=fma_ms, seconds=time.perf_counter() - t_shape))
         out["max_abs_err"] = max(out["max_abs_err"], max(e for e, _ in errs))
         out["max_rel_err"] = max(out["max_rel_err"], max(r for _, r in errs))
         log(f"  flash_attention_bwd [{what}: {shape}] max |kernel - plain| / max |plain| "
@@ -3332,11 +3419,15 @@ def phase_flash_backward(fa):
             f"halved in the plain version {', '.join(f'{r:.3e}' for _, r in fault)}) | kernel "
             f"queued={ms:.3f} ms (min {lo:.3f}, max {hi:.3f}) call={call[0]:.3f} ms | plain "
             f"call={pcall[0]:.3f} ms | bound={bound:.4f} ms by {by} ({nbytes} B; {pairs} visible "
-            f"pairs, {flops} flop) | achieved {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"pairs, {flops} flop" + (
+                f"; as 3 tf32 products at 494.7 TFLOP/s {ops_ms:.4f} ms, as float32 FMA at 67 "
+                f"TFLOP/s {fma_ms:.4f} ms, {fma_ms / ms:.4f} of that basis" if fma_ms else "")
+            + f") | achieved {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
             f"{bound / ms:.4f} of the bound | " + (
                 f"SDPA backward queued={lib_ms[0]:.3f} ms (min {lib_ms[1]:.3f}, max "
                 f"{lib_ms[2]:.3f}) call={lib_call[0]:.3f} ms; kernel / SDPA = "
                 f"{ms / lib_ms[0]:.2f}" if lib_ms else "no library call computes this function")
+            + "".join(f" | SDPA kernel {name} {kms:.3f} ms" for name, kms in lib_kernels)
             + f" | {time.perf_counter() - t_shape:.1f} s")
         del q, k, v, do, o, lse, got, want, fault
         torch.cuda.empty_cache()
@@ -3580,7 +3671,9 @@ def rwkv_bwd_bound(args, do, ds):
     w, u, dout (and dS_T) read once, dr, dk, dv, dw, du written once, at
     3.35 TB/s; against 14 float32 operations an element of the state a step
     (S recomputed: 3; S do, G v, G^T k, G.S: 2 each; G's update: 3) at 67
-    TFLOP/s. The kernel does 17: it walks S forward twice."""
+    TFLOP/s. The kernel does about 23: the boundary states (4: S and G,
+    a multiply-add each), and S walked to each 4-step sub-chunk from its
+    16-step half's start (2.75 updates a step on average, 3 flop each)."""
     r, v = args[0], args[2]
     bh, t, kd = r.shape
     vd = v.shape[-1]
@@ -3624,6 +3717,15 @@ def bwd_timings(kernel, plain):
     return call, queued, pcall
 
 
+def rwkv_bwd_pass_ms(rk, args, do, ds):
+    """Queued ms of each of the RWKV6 backward kernel's passes launched
+    alone, each on the buffers the passes before it filled."""
+    launch, _ = rk._bwd_launcher(*args, do, ds)
+    launch(rk.BWD_PASSES["all"])
+    return {name: queued_ms(lambda bit=bit: launch(bit), iters=5, repeats=3)[0]
+            for name, bit in rk.BWD_PASSES.items() if name != "all"}
+
+
 def phase_rwkv6_backward(rk):
     """The RWKV6 backward kernel against ``rwkv6_bwd_ref`` at the training
     shapes with times and bound, then untimed at the decay edges, and
@@ -3651,11 +3753,12 @@ def phase_rwkv6_backward(rk):
         call, (ms, lo, hi), pcall = bwd_timings(lambda: rk.rwkv6_bwd(*args, do, ds),
                                                 lambda: rwkv6_bwd_ref(*args, do, ds))
         bound, by, nbytes, flops, bytes_ms, ops_ms = rwkv_bwd_bound(args, do, ds)
+        passes = rwkv_bwd_pass_ms(rk, args, do, ds)
         shape = f"BH={bh} T={t} K=V=64 {str(dtype)[6:]}" + (" +dS_T" if with_ds else "")
         out["configs"].append(dict(
             shape=shape, ms=ms, ms_min=lo, ms_max=hi, call_ms=call[0], plain_ms=pcall[0],
             bound_ms=bound, bound_by=by, bound_bytes=nbytes, bound_flops=flops,
-            max_abs_err=err, rel_errs=rels, library_ms=None,
+            max_abs_err=err, rel_errs=rels, library_ms=None, pass_ms=passes,
             seconds=time.perf_counter() - t_shape))
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["max_rel_err"] = max(out["max_rel_err"], max(rels))
@@ -3664,8 +3767,10 @@ def phase_rwkv6_backward(rk):
             f"{ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) call={call[0]:.4f} ms | plain call="
             f"{pcall[0]:.2f} ms | bound={bound:.4f} ms by {by} (bytes {nbytes} -> "
             f"{bytes_ms:.4f} ms at 3.35 TB/s; {flops} flop -> {ops_ms:.4f} ms at 67 TFLOP/s "
-            f"f32), {bound / ms:.3f} of the bound | library: none | "
-            f"{time.perf_counter() - t_shape:.1f} s")
+            f"f32), {bound / ms:.3f} of the bound | passes alone (queued ms): "
+            + ", ".join(f"{n} {v:.4f}" for n, v in passes.items())
+            + f", their sum {sum(passes.values()):.4f}"
+            + f" | library: none | {time.perf_counter() - t_shape:.1f} s")
         del args, do, ds
     levels = torch.tensor([x for x in RWKV_BWD_EDGES.values() if x is not None], device=DEV)
     for edge, value in RWKV_BWD_EDGES.items():
@@ -4337,4 +4442,8 @@ def profile_window(graph, flow, cfg, engine_cls, run_wall, run_steps, steps: int
 
 
 if __name__ == "__main__":
-    sys.exit(rwkv_depth_witness() if sys.argv[1:] == ["--rwkv-depth-witness"] else main())
+    if sys.argv[1:] == ["--rwkv-depth-witness"]:
+        sys.exit(rwkv_depth_witness())
+    if sys.argv[1:2] == ["--sdpa-bwd-kernels"] and len(sys.argv) == 3:
+        sys.exit(sdpa_bwd_kernels_child(sys.argv[2]))
+    sys.exit(main())

@@ -28,10 +28,11 @@
 // layout.
 //
 // Bound: 10 * Dh flop a visible (query, key) pair (five products of 2 * Dh),
-// at the tensor cores' 989 TFLOP/s in bf16 and the CUDA cores' 67 TFLOP/s
-// in float32; the bytes (each operand read once, each gradient written once)
-// take less time at the models' shapes (a seventh of it at granite's). Two
-// forms of pass 2:
+// at the tensor cores' 989 TFLOP/s in bf16; in float32 three TF32 products
+// for each (3xTF32, below) at 494.7 TFLOP/s, or 10 * Dh FMA flop at the CUDA
+// cores' 67 TFLOP/s; the bytes (each operand read once, each gradient written
+// once) take less time at the models' shapes (a seventh of it at granite's).
+// Two forms of pass 2:
 //
 // * bf16 -> flash_bwd_tma_kernel, the design FlashAttention-3 uses for its
 //   backward, to feed the tensor cores as Hopper wants. Three warpgroups.
@@ -82,9 +83,41 @@
 //   zeros), Dh 64 at BK = 128 with dQ in 32-column halves. Blocks go first
 //   key tiles first across all KV rows: under a causal mask those see the
 //   most query rows.
-// * float32 -> flash_bwd_kernel: the CUDA cores in float32 FMA (the tensor
-//   cores would round to tf32), register tiles over shared-memory tiles of
-//   K, V, Q, dO, P and dS. A plain kernel.
+// * float32 -> flash_bwd_f32_kernel: the five products on the tensor cores
+//   in split TF32 (3xTF32), mma.sync m16n8k8 with float32 sums. Each float32
+//   operand x is split into big = tf32(x) and small = tf32(x - big), both
+//   rounded to nearest with ties away from zero as cvt.rna.tf32.f32 rounds
+//   (an add and a mask), when its fragment is loaded; a product is
+//   a_small b_big + a_big b_small + a_big b_big (a_small b_small, 2^-22 of
+//   it, left out): about 1.5e-6 of the plain float32 gradients at phase 17's
+//   shape, where one TF32 product reads 4e-4 to 9e-4 (ref.py:
+//   attention_bwd_tf32x3_ref). mma.sync and not wgmma: wgmma takes tf32
+//   only K-major from shared memory, and dV = P^T dO, dK = dS^T Q, dQ = dS K
+//   would each need a transposed copy of dO, Q or K; mma.sync's fragments
+//   come from registers, loaded in whatever order a product needs. A block
+//   of eight warps takes BK = 64 keys (Dh 256: 32) of one KV row and walks
+//   query steps of BQ = 64 rows (Dh 256: 32). Warp (key group, query half,
+//   column half) computes S^T = K Q^T and dP^T = V dO^T for its 16 keys by
+//   BQ / 2 rows, P^T and dS^T in those registers, then dV += P^T dO and dK
+//   += dS^T Q with P^T, dS^T as A fragments straight from the accumulators
+//   (k positions t, t+4 read as query rows 2t, 2t+1: the B rows of dO and Q
+//   are loaded to match), over its columns of dK, dV (Dh 256: half of them,
+//   both halves computing the same S^T, dP^T). K and V stay in shared memory
+//   (row stride Dh + 4 floats: every fragment load is conflict-free); the
+//   next step's Q and dO tiles (and its rows' L, D) arrive by cp.async into
+//   the other of two stages while this step computes. dS^T goes to shared
+//   memory once; all eight warps then compute dQ = dS K (16 rows by Dh / 2
+//   or Dh / 4 columns each), stage it over the step's spent Q tile (128-byte
+//   swizzled boxes of 32 columns) and one thread adds it to the float32
+//   scratch by TMA reduce-adds, as the bf16 form does. The two query halves'
+//   dK, dV are summed in shared memory at the end and written once, with no
+//   atomics. P = exp(x - L) and the softcap's tanh are the accurate expf and
+//   tanhf. The tensor cores truncate as they accumulate, so every sum is
+//   taken in short partials added by float32 adds (add_partial). Under a
+//   softcap S^T alone is taken by float32 FMAs in Dh order, as the plain
+//   version's float32 product rounds it (scores_fma). Operand rows must be
+//   16-byte aligned (ops.py hands over aligned copies, zero-padded to a Dh
+//   that is a multiple of 4).
 //
 // Times against the bound and against SDPA's backward are in PERF.md
 // (chip_smoke.py phase 17, H100 80GB HBM3 at 700 W).
@@ -120,14 +153,14 @@ struct Operand {  // element (b, h, s, d) at ptr + b*sb + h*sh + s*ss + d
 struct Params {
   Operand q, k, v, o, dout, dq, dk, dv;
   const float* lse;  // [bhq, sq]: the forward's log-sum-exp of each row
-  float* delta;      // pass 1's output. float32: D = rowsum(dO * O) [bhq, sq]; bf16: two
-                     // planes [bhq, sq_pad], L * log2 e (+inf past sq) then D (0 past sq)
+  float* delta;      // pass 1's output: two planes [bhq, sq_pad], L (bf16: L * log2 e; +inf
+                     // past sq) then D = rowsum(dO * O) (0 past sq)
   float* dq_acc;     // [bhq, sq, DH] float32: dQ, summed over the key tiles
   int bhq;           // query rows: batch * hq
   int hq, hkv;       // heads per batch entry of q (and o, dO, dq) and of k (and v, dk, dv)
   int group;         // query heads per KV head
   int sq, sk, dh;
-  int sq_pad;        // bf16: sq rounded up to a query step (TmaCfg::BQ); float32: 0
+  int sq_pad;        // sq rounded up to 64, a multiple of every query step (TmaCfg::BQ, F32Cfg::BQ)
   float scale;
   float softcap;     // <= 0: none
   int causal;
@@ -144,12 +177,12 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat1
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// Pass 1, a warp a row. float32: D[bh, i] = sum_d dO[bh, i, d] * O[bh, i, d].
-// bf16: rows [0, sq_pad) of each bh into the two planes, L * log2 e and D,
-// +inf and 0 past sq: what the bf16 kernel's steps read by bulk copies.
+// Pass 1, a warp a row: rows [0, sq_pad) of each bh into two planes, L (bf16:
+// L * log2 e) and D = sum_d dO * O, +inf and 0 past sq: what pass 2's steps
+// read whole (bulk copies in bf16, cp.async in float32).
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(Params p) {
-  const int rows = p.sq_pad ? p.sq_pad : p.sq;
+  const int rows = p.sq_pad;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= static_cast<int64_t>(p.bhq) * rows) return;
@@ -163,208 +196,429 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(Params p) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane != 0) return;
-  if (p.sq_pad) {
-    const float lse = i < p.sq ? p.lse[static_cast<int64_t>(bh) * p.sq + i] : INFINITY;
-    p.delta[row] = lse * kLog2e;
-    p.delta[static_cast<int64_t>(p.bhq) * p.sq_pad + row] = acc;
-  } else {
-    p.delta[row] = acc;
-  }
+  const float lse = i < p.sq ? p.lse[static_cast<int64_t>(bh) * p.sq + i] : INFINITY;
+  p.delta[row] = std::is_same<T, float>::value ? lse : lse * kLog2e;
+  p.delta[static_cast<int64_t>(p.bhq) * p.sq_pad + row] = acc;
 }
+
+// ---------------------------------------------------------------------------
+// float32: split TF32 (3xTF32) on mma.sync
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_f2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" :: "r"(addr), "f"(x), "f"(y) : "memory");
+}
+
+constexpr size_t up1k(size_t bytes) { return (bytes + 1023) / 1024 * 1024; }
 
 template <int DH>  // head width padded to 64, 128 or 256
-struct BwdCfg {
-  static constexpr int BK = DH == 256 ? 32 : 64;  // keys a block
-  static constexpr int BQ = DH == 256 ? 32 : 64;  // query rows a step
+struct F32Cfg {
+  // Warps: KG key groups of 16 keys x QS query splits x CS column splits of
+  // dK and dV (Dh 256: 16 keys x 256 columns of each would be 256 registers).
+  static constexpr int KG = DH == 256 ? 2 : 4;
+  static constexpr int QS = 2;
+  static constexpr int CS = DH == 256 ? 2 : 1;
+  static constexpr int BK = 16 * KG;                  // keys a block
+  static constexpr int BQ = DH == 256 ? 32 : 64;      // query rows a step
+  static constexpr int WQ = BQ / QS;                  // query rows of a warp's S^T, dP^T
+  static constexpr int NT = WQ / 8;                   // ... as n8 tiles
+  static constexpr int WC = DH / CS;                  // dK, dV columns a warp
+  static constexpr int MT = BQ / 16;                  // dQ: m16 tiles of a step
+  static constexpr int QC = DH * MT / 8;              // dQ columns a warp (8 / MT warps a tile)
+  static constexpr int LD = DH + 4;  // row stride (floats) of K, V, Q, dO: each fragment load conflict-free
+  static constexpr int LS = BQ + 4;  // row stride of dS^T
   static constexpr int kThreads = 256;
-  static constexpr int LD = DH + 1;  // row stride (floats) of the K, V, Q and dO tiles: conflict-free
-  static constexpr int LS = BK + 1;  // row stride of P and dS
-  static constexpr int RI = BQ / 16, RJ = BK / 16;  // S and dP: rows ty + 16i, keys tx + 16j
-  static constexpr int KR = BK / 8, QR = BQ / 8;    // dK, dV: keys ly + 8r; dQ: rows ly + 8r
-  static constexpr int DC = DH / 32;                // ... and columns lx + 32c
-  static constexpr size_t kSmem =
-      static_cast<size_t>(2 * BK * LD + 2 * BQ * LD + 2 * BQ * LS + 2 * BQ) * sizeof(float);
+  static constexpr size_t KV_BYTES = up1k(static_cast<size_t>(BK) * LD * 4);
+  static constexpr size_t TILE_BYTES = up1k(static_cast<size_t>(BQ) * LD * 4);  // a Q or dO tile
+  static constexpr size_t DS_BYTES = up1k(static_cast<size_t>(BK) * LS * 4);
+  static constexpr size_t PLANE_BYTES = 2 * 2 * BQ * 4;  // L and D of each of two steps
+  // + 1024: the stages start on the 1024-byte period of dQ's 128-byte swizzle.
+  static constexpr size_t kSmem = 2 * KV_BYTES + 4 * TILE_BYTES + DS_BYTES + PLANE_BYTES + 1024;
+  static_assert(KG * QS * CS * 32 == kThreads && (8 / MT) * MT == 8, "eight warps");
+  static_assert(kSmem <= 232448, "fits an SM");
+  static_assert(TILE_BYTES >= static_cast<size_t>(BQ) * DH * 4, "dQ is staged in a spent Q tile");
 };
 
-// Rows r of a tile of ``rows`` x DH from src(r) + c into dst[r * ld + c] as
-// float32, zero where !ok(r) and past dh.
-template <int DH, typename T, typename RowPtr, typename RowOk>
-__device__ __forceinline__ void stage(float* dst, int ld, int rows, int dh, RowPtr src, RowOk ok) {
-  for (int i = threadIdx.x; i < rows * DH; i += blockDim.x) {
-    const int r = i / DH, c = i - r * DH;
-    dst[r * ld + c] = ok(r) && c < dh ? load(static_cast<const T*>(src(r)) + c) : 0.f;
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from zero:
+// the bits cvt.rna.tf32.f32 gives, by an add and a mask.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both tf32: big = rna(x), small = rna(x - big).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// c (16 x 8, float32) += a (16 x 8) b (8 x 8), all tf32: one mma.sync.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// An A fragment (rows g, g+8; k positions t, t+4) split into big and small.
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float x0, float x1, float x2, float x3) {
+    split_tf32(x0, hi[0], lo[0]);
+    split_tf32(x1, hi[1], lo[1]);
+    split_tf32(x2, hi[2], lo[2]);
+    split_tf32(x3, hi[3], lo[3]);
+  }
+};
+
+// c += a_small b_big + a_big b_small: the split's two small terms.
+__device__ __forceinline__ void mma_small(float (&c)[4], const FragA& a, uint32_t bh0,
+                                          uint32_t bl0, uint32_t bh1, uint32_t bl1) {
+  mma_tf32(c, a.lo[0], a.lo[1], a.lo[2], a.lo[3], bh0, bh1);
+  mma_tf32(c, a.hi[0], a.hi[1], a.hi[2], a.hi[3], bl0, bl1);
+}
+
+// c += a b in split TF32: a_small b_big + a_big b_small + a_big b_big, the
+// small terms first, float32 sums (a_small b_small, 2^-22 of the product, is
+// left out).
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float x0, float x1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(x0, bh0, bl0);
+  split_tf32(x1, bh1, bl1);
+  mma_small(c, a, bh0, bl0, bh1, bl1);
+  mma_tf32(c, a.hi[0], a.hi[1], a.hi[2], a.hi[3], bh0, bh1);
+}
+
+__device__ __forceinline__ float4 ld4f(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// One tile of ``rows`` rows of a strided float32 operand into shared memory
+// (row stride LD floats) by 16-byte cp.async, zero-filled past ``valid``
+// rows and past dh. The caller commits the group.
+template <int DH, int LD>
+__device__ __forceinline__ void load_rows_f32(uint32_t dst, const float* src, int64_t ss,
+                                              int rows, int valid, int dh) {
+  constexpr int kChunks = DH / 4;  // 16-byte chunks of a row
+  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = i - r * kChunks;
+    const bool ok = r < valid && 4 * c < dh;
+    cp_async16(dst + (r * LD + 4 * c) * 4, ok ? src + r * ss + 4 * c : src, ok);
   }
 }
 
-// Pass 2: one block per (key tile, KV row f).
-template <typename T, int DH, bool SOFTCAP>
-__global__ void __launch_bounds__(BwdCfg<DH>::kThreads, 1) flash_bwd_kernel(Params p) {
-  using C = BwdCfg<DH>;
-  extern __shared__ float smem[];
-  float* ks = smem;                   // K tile [BK][LD]
-  float* vs = ks + C::BK * C::LD;     // V tile [BK][LD]
-  float* qs = vs + C::BK * C::LD;     // Q tile [BQ][LD]
-  float* gs = qs + C::BQ * C::LD;     // dO tile [BQ][LD]
-  float* ps = gs + C::BQ * C::LD;     // P [BQ][LS]
-  float* dss = ps + C::BQ * C::LS;    // dS * scale [BQ][LS]
-  float* lse_s = dss + C::BQ * C::LS; // [BQ]
-  float* del_s = lse_s + C::BQ;       // [BQ]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // S and dP
-  const int lx = tid & 31, ly = tid >> 5;  // dK, dV, dQ
-  const int f = blockIdx.y, k0 = blockIdx.x * C::BK;
-  const int offset = p.sk - p.sq;
-
-  const T* kg = static_cast<const T*>(p.k.ptr) + row_base(p.k, f, p.hkv);
-  const T* vg = static_cast<const T*>(p.v.ptr) + row_base(p.v, f, p.hkv);
-  const auto key_ok = [&](int r) { return k0 + r < p.sk; };
-  stage<DH, T>(ks, C::LD, C::BK, p.dh, [&](int r) { return kg + static_cast<int64_t>(k0 + r) * p.k.ss; }, key_ok);
-  stage<DH, T>(vs, C::LD, C::BK, p.dh, [&](int r) { return vg + static_cast<int64_t>(k0 + r) * p.v.ss; }, key_ok);
-
-  float dk[C::KR][C::DC], dv[C::KR][C::DC];
+// The tensor cores add each product into the float32 accumulator with
+// truncation, not rounding to nearest: a sum carried through thousands of
+// mma.sync (dK, dV over every query row of a KV head) drifts (3e-5 of the
+// plain gradients at phase 17's float32 shape). So every sum is taken in
+// partials of at most 12 mma.sync, each started from zero and added to its
+// float32 total by an ordinary (rounded) add; S^T's big products in
+// partials of one (with 32-column partials gemma2's float32 shape, q x 20
+// and a softcap, read 1.3e-5).
+template <int N>
+__device__ __forceinline__ void add_partial(float (&acc)[N][4], const float (&c)[N][4]) {
 #pragma unroll
-  for (int r = 0; r < C::KR; ++r)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
-    for (int c = 0; c < C::DC; ++c) dk[r][c] = dv[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] += c[j][e];
+}
 
-  // Rows that see some key of the tile: from the causal diagonal of its first
-  // key to the window's far edge of its last.
-  const int q_lo = p.causal ? max(0, k0 - offset) : 0;
+// S^T (or dP^T) of a warp: 16 keys (A: rows ``a`` and a + 8 LD of K or V) by
+// the warp's WQ query rows (B: rows ``b`` + 8 j LD of Q or dO), over Dh in
+// partials of 32 columns. FINE (S^T, whose error exp amplifies): each 8
+// columns' a_big b_big is its own partial, the small terms the 32 columns'.
+template <int DH, int LD, int NT, bool FINE>
+__device__ __forceinline__ void scores_t(float (&s)[NT][4], const float* a, const float* b, int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 1
+  for (int d0 = 0; d0 < DH; d0 += 32) {
+    float c[NT][4] = {};
+#pragma unroll
+    for (int d = d0; d < d0 + 32; d += 8) {
+      FragA fa;
+      fa.set(a[d + t], a[8 * LD + d + t], a[d + t + 4], a[8 * LD + d + t + 4]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float* bj = b + j * 8 * LD + d + t;
+        if (FINE) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(bj[0], bh0, bl0);
+          split_tf32(bj[4], bh1, bl1);
+          mma_small(c[j], fa, bh0, bl0, bh1, bl1);
+          float hh[4] = {};
+          mma_tf32(hh, fa.hi[0], fa.hi[1], fa.hi[2], fa.hi[3], bh0, bh1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += hh[e];
+        } else {
+          mma3(c[j], fa, bj[0], bj[4]);
+        }
+      }
+    }
+    add_partial(s, c);
+  }
+}
+
+// S^T of a warp by float32 FMAs over Dh in ascending order, each score one
+// chain from zero, as the plain version's float32 product takes it. The
+// softcap form uses it: there the scores reach the cap, where P = exp(s - L)
+// carries a score's error into P whole. With 3xTF32 scores (the tensor cores
+// truncate as they add) the gradients at Dh 256, q x 20, softcap 50 read up
+// to 1.4e-5 from the plain version's (tolerance 1e-5), farther from float64
+// gradients than the plain version's; with these, 1.5e-6 to 3.3e-6 (H100
+// 80GB HBM3, PERF.md; tests/test_torch_gpu.py holds both to float64).
+// krow: key g's row of K (key g + 8's 8 LD on); qrow: the warp's first query
+// row of Q.
+template <int DH, int LD, int NT>
+__device__ __forceinline__ void scores_fma(float (&s)[NT][4], const float* krow,
+                                           const float* qrow, int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < DH; d += 4) {
+    const float4 k0 = ld4f(krow + d), k1 = ld4f(krow + 8 * LD + d);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float4 q0 = ld4f(qrow + (8 * j + 2 * t) * LD + d);
+      const float4 q1 = ld4f(qrow + (8 * j + 2 * t + 1) * LD + d);
+      s[j][0] = fmaf(k0.w, q0.w, fmaf(k0.z, q0.z, fmaf(k0.y, q0.y, fmaf(k0.x, q0.x, s[j][0]))));
+      s[j][1] = fmaf(k0.w, q1.w, fmaf(k0.z, q1.z, fmaf(k0.y, q1.y, fmaf(k0.x, q1.x, s[j][1]))));
+      s[j][2] = fmaf(k1.w, q0.w, fmaf(k1.z, q0.z, fmaf(k1.y, q0.y, fmaf(k1.x, q0.x, s[j][2]))));
+      s[j][3] = fmaf(k1.w, q1.w, fmaf(k1.z, q1.z, fmaf(k1.y, q1.y, fmaf(k1.x, q1.x, s[j][3]))));
+    }
+  }
+}
+
+// acc (16 keys x WC columns) += X^T Y over the warp's WQ query rows: X^T's
+// fragments are the accumulator tiles of S^T (P^T or dS^T), tile j being k
+// step j with k positions t, t+4 read as query rows 8 j + 2 t, 8 j + 2 t + 1;
+// Y's rows ``y`` + (8 j + 2 t) LD (dO or Q), columns from ``col``. Each
+// 16 x 8 tile of the step is one partial (3 NT mma.sync).
+template <int LD, int NT, int WC>
+__device__ __forceinline__ void grad_kv(float (&acc)[WC / 8][4], const float (&x)[NT][4],
+                                        const float* y, int t, int g) {
+  FragA fa[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) fa[j].set(x[j][0], x[j][2], x[j][1], x[j][3]);
+  const float* y0 = y + 2 * t * LD + g;
+#pragma unroll
+  for (int n = 0; n < WC / 8; ++n) {  // whole: acc must stay in registers
+    float c[4] = {};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma3(c, fa[j], y0[8 * j * LD + 8 * n], y0[(8 * j + 1) * LD + 8 * n]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += c[e];
+  }
+}
+
+// Pass 2, float32: one block per (key tile, KV row f), the first key tiles
+// (the most query rows under a causal mask) of every KV row first.
+template <int DH, bool SOFTCAP>
+__global__ void __launch_bounds__(F32Cfg<DH>::kThreads, 1)
+flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap tdq, Params p) {
+  using C = F32Cfg<DH>;
+  constexpr int LD = C::LD, LS = C::LS, NT = C::NT, WC = C::WC, QN = C::QC / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* ks = reinterpret_cast<float*>(base);                      // K [BK][LD]
+  float* vs = reinterpret_cast<float*>(base + C::KV_BYTES);        // V [BK][LD]
+  unsigned char* stages = base + 2 * C::KV_BYTES;                  // step s: Q, dO at s * 2 TILE
+  float* dst = reinterpret_cast<float*>(stages + 4 * C::TILE_BYTES);  // dS^T [BK][LS]
+  float* planes = reinterpret_cast<float*>(stages + 4 * C::TILE_BYTES + C::DS_BYTES);  // [2][2][BQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kg = warp % C::KG, qh = (warp / C::KG) % C::QS, ch = warp / (C::KG * C::QS);
+  const int kw = 16 * kg, qw = qh * C::WQ, cw = ch * WC;  // the warp's keys, rows, dK/dV columns
+  const int mt = warp % C::MT, qc = (warp / C::MT) * C::QC;  // its dQ rows (16 mt) and columns
+
+  const int nf = p.bhq / p.group;
+  const int kt = blockIdx.x / nf, f = blockIdx.x - kt * nf;
+  const int k0 = kt * C::BK, offset = p.sk - p.sq;
+  // Query rows that see some key of the tile: from the causal diagonal of its
+  // first key (rounded down to a step) to the window's far edge of its last.
+  const int q_lo = p.causal ? max(0, k0 - offset) / C::BQ * C::BQ : 0;
   const int q_hi = static_cast<int>(min(static_cast<int64_t>(p.sq),
                                         static_cast<int64_t>(k0) + C::BK - 1 - offset + p.window));
+  const int per_head = q_hi > q_lo ? (q_hi - q_lo + C::BQ - 1) / C::BQ : 0;
+  const int n_steps = per_head * p.group;
+  const int64_t plane = static_cast<int64_t>(p.bhq) * p.sq_pad;  // L, then D
 
-  for (int j = 0; j < p.group; ++j) {
+  const auto load_step = [&](int n) {  // step n's Q, dO, L and D into stage n & 1
+    const int j = n / per_head, q0 = q_lo + (n - j * per_head) * C::BQ;
     const int bh = f * p.group + j;
-    const T* qg = static_cast<const T*>(p.q.ptr) + row_base(p.q, bh, p.hq);
-    const T* gg = static_cast<const T*>(p.dout.ptr) + row_base(p.dout, bh, p.hq);
-    float* dqa = p.dq_acc + static_cast<int64_t>(bh) * p.sq * DH;
-    for (int q0 = q_lo; q0 < q_hi; q0 += C::BQ) {
-      __syncthreads();  // every thread is done with the previous tile's Q, dO, P and dS
-      const auto row_ok = [&](int r) { return q0 + r < p.sq; };
-      stage<DH, T>(qs, C::LD, C::BQ, p.dh, [&](int r) { return qg + static_cast<int64_t>(q0 + r) * p.q.ss; }, row_ok);
-      stage<DH, T>(gs, C::LD, C::BQ, p.dh, [&](int r) { return gg + static_cast<int64_t>(q0 + r) * p.dout.ss; }, row_ok);
-      if (tid < C::BQ) {
-        const bool on = q0 + tid < p.sq;
-        const int64_t at = static_cast<int64_t>(bh) * p.sq + q0 + tid;
-        lse_s[tid] = on ? p.lse[at] : INFINITY;
-        del_s[tid] = on ? p.delta[at] : 0.f;
-      }
-      __syncthreads();
+    const uint32_t q_t = smem_u32(stages + (n & 1) * 2 * C::TILE_BYTES);
+    load_rows_f32<DH, LD>(q_t, static_cast<const float*>(p.q.ptr) + row_base(p.q, bh, p.hq) +
+                                   q0 * p.q.ss, p.q.ss, C::BQ, p.sq - q0, p.dh);
+    load_rows_f32<DH, LD>(q_t + C::TILE_BYTES, static_cast<const float*>(p.dout.ptr) +
+                                                   row_base(p.dout, bh, p.hq) + q0 * p.dout.ss,
+                          p.dout.ss, C::BQ, p.sq - q0, p.dh);
+    if (tid < C::BQ / 2) {  // BQ / 4 chunks of L, then of D
+      const int pl = tid / (C::BQ / 4), c = tid - pl * (C::BQ / 4);
+      cp_async16(smem_u32(planes + ((n & 1) * 2 + pl) * C::BQ + 4 * c),
+                 p.delta + pl * plane + static_cast<int64_t>(bh) * p.sq_pad + q0 + 4 * c, true);
+    }
+  };
 
-      float s[C::RI][C::RJ], dp[C::RI][C::RJ];
-#pragma unroll
-      for (int i = 0; i < C::RI; ++i)
-#pragma unroll
-        for (int jj = 0; jj < C::RJ; ++jj) s[i][jj] = dp[i][jj] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DH; ++d) {
-        float a[C::RI], g[C::RI], kk[C::RJ], vv[C::RJ];
-#pragma unroll
-        for (int i = 0; i < C::RI; ++i) {
-          a[i] = qs[(ty + 16 * i) * C::LD + d];
-          g[i] = gs[(ty + 16 * i) * C::LD + d];
-        }
-#pragma unroll
-        for (int jj = 0; jj < C::RJ; ++jj) {
-          kk[jj] = ks[(tx + 16 * jj) * C::LD + d];
-          vv[jj] = vs[(tx + 16 * jj) * C::LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < C::RI; ++i)
-#pragma unroll
-          for (int jj = 0; jj < C::RJ; ++jj) {
-            s[i][jj] = fmaf(a[i], kk[jj], s[i][jj]);
-            dp[i][jj] = fmaf(g[i], vv[jj], dp[i][jj]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < C::RI; ++i) {
-        const int r = ty + 16 * i, row = q0 + r;
-#pragma unroll
-        for (int jj = 0; jj < C::RJ; ++jj) {
-          const int c = tx + 16 * jj, key = k0 + c;
-          float x = s[i][jj] * p.scale, cap = 0.f;
-          if (SOFTCAP) {
-            cap = tanhf(x / p.softcap);
-            x = p.softcap * cap;
-          }
-          const int ahead = row + offset - key;
-          const bool seen = row < p.sq && key < p.sk && (!p.causal || ahead >= 0) && ahead < p.window;
-          const float pr = seen ? expf(x - lse_s[r]) : 0.f;
-          float ds = pr * (dp[i][jj] - del_s[r]);
-          if (SOFTCAP) ds *= 1.f - cap * cap;
-          ps[r * C::LS + c] = pr;
-          dss[r * C::LS + c] = ds * p.scale;
-        }
-      }
-      __syncthreads();
+  const float* kg_ptr = static_cast<const float*>(p.k.ptr) + row_base(p.k, f, p.hkv);
+  const float* vg_ptr = static_cast<const float*>(p.v.ptr) + row_base(p.v, f, p.hkv);
+  if (n_steps > 0) {
+    load_rows_f32<DH, LD>(smem_u32(ks), kg_ptr + k0 * p.k.ss, p.k.ss, C::BK, p.sk - k0, p.dh);
+    load_rows_f32<DH, LD>(smem_u32(vs), vg_ptr + k0 * p.v.ss, p.v.ss, C::BK, p.sk - k0, p.dh);
+    load_step(0);
+  }
+  cp_async_commit();
 
-      // dV += P^T dO and dK += dS^T Q over the tile's rows.
-#pragma unroll 2
-      for (int r = 0; r < C::BQ; ++r) {
-        float g[C::DC], a[C::DC];
+  float dk[WC / 8][4], dv[WC / 8][4];
 #pragma unroll
-        for (int c = 0; c < C::DC; ++c) {
-          g[c] = gs[r * C::LD + lx + 32 * c];
-          a[c] = qs[r * C::LD + lx + 32 * c];
+  for (int n = 0; n < WC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  const int ka = k0 + kw;  // the warp's first key
+  for (int n = 0; n < n_steps; ++n) {
+    const int j = n / per_head, q0 = q_lo + (n - j * per_head) * C::BQ;
+    const int st = n & 1;
+    const float* qs = reinterpret_cast<const float*>(stages + st * 2 * C::TILE_BYTES);
+    const float* gs = reinterpret_cast<const float*>(stages + st * 2 * C::TILE_BYTES + C::TILE_BYTES);
+    const float* lp = planes + st * 2 * C::BQ;  // L, then D, of the step's rows
+    cp_async_wait<0>();                          // this step's tiles (and K, V) have landed
+    if (tid == 0) bulk_wait_read<0>();           // the last step's dQ has left the other stage
+    __syncthreads();
+    if (n + 1 < n_steps) load_step(n + 1);       // the next step's tiles, under this one's products
+    cp_async_commit();
+
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys by its WQ rows.
+    float s[NT][4], dp[NT][4];
+    if (SOFTCAP) {
+      scores_fma<DH, LD, NT>(s, ks + (kw + g) * LD, qs + qw * LD, t);
+    } else {
+      scores_t<DH, LD, NT, true>(s, ks + (kw + g) * LD, qs + (qw + g) * LD, t);
+    }
+    scores_t<DH, LD, NT, false>(dp, vs + (kw + g) * LD, gs + (qw + g) * LD, t);
+
+    // P^T = exp(x - L), dS^T = P^T (dP^T - D) (1 - t^2) scale, in place of
+    // S^T and dP^T; the mask only where the warp's tile is cut.
+    const int qa = q0 + qw;
+    const bool whole = ka + 16 <= p.sk && (!p.causal || qa + offset >= ka + 15) &&
+                       qa + C::WQ - 1 + offset - ka < p.window;
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = qw + 8 * jj + 2 * t + (e & 1), key = ka + g + 8 * (e >> 1);
+        float x = s[jj][e] * p.scale, cap = 0.f;
+        if (SOFTCAP) {
+          cap = tanhf(x / p.softcap);
+          x = p.softcap * cap;
         }
-#pragma unroll
-        for (int kr = 0; kr < C::KR; ++kr) {
-          const float pv = ps[r * C::LS + ly + 8 * kr], dsv = dss[r * C::LS + ly + 8 * kr];
-#pragma unroll
-          for (int c = 0; c < C::DC; ++c) {
-            dv[kr][c] = fmaf(pv, g[c], dv[kr][c]);
-            dk[kr][c] = fmaf(dsv, a[c], dk[kr][c]);
-          }
+        float pr = expf(x - lp[r]);  // 0 past Sq: L is +inf there
+        if (!whole) {
+          const int ahead = q0 + r + offset - key;
+          if (key >= p.sk || (p.causal && ahead < 0) || ahead >= p.window) pr = 0.f;
         }
+        float ds = pr * (dp[jj][e] - lp[C::BQ + r]);
+        if (SOFTCAP) ds *= 1.f - cap * cap;
+        s[jj][e] = pr;
+        dp[jj][e] = ds * p.scale;
       }
-      // dQ of the tile = dS K, added to the float32 scratch.
-      float dq[C::QR][C::DC];
+
+    // dV += P^T dO, dK += dS^T Q over the warp's rows; dS^T to shared memory.
+    grad_kv<LD, NT, WC>(dv, s, gs + qw * LD + cw, t, g);
+    grad_kv<LD, NT, WC>(dk, dp, qs + qw * LD + cw, t, g);
 #pragma unroll
-      for (int r = 0; r < C::QR; ++r)
+    for (int jj = 0; jj < NT; ++jj) {
+      float* at = dst + (kw + g) * LS + qw + 8 * jj + 2 * t;
+      *reinterpret_cast<float2*>(at) = make_float2(dp[jj][0], dp[jj][1]);
+      *reinterpret_cast<float2*>(at + 8 * LS) = make_float2(dp[jj][2], dp[jj][3]);
+    }
+    __syncthreads();  // dS^T whole; no product reads the step's Q or dO any more
+
+    // dQ = dS K: the warp's 16 rows (16 mt) by QC columns (from qc), over the
+    // block's keys; k positions t, t+4 read as keys 2 t, 2 t + 1 of each 8.
+    float dq[QN][4];
 #pragma unroll
-        for (int c = 0; c < C::DC; ++c) dq[r][c] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < C::BK; ++kk) {
-        float kv[C::DC];
+    for (int nn = 0; nn < QN; ++nn) dq[nn][0] = dq[nn][1] = dq[nn][2] = dq[nn][3] = 0.f;
+#pragma unroll 1
+    for (int k0p = 0; k0p < C::BK; k0p += 32) {  // partials of 32 keys
+      float c[QN][4] = {};
 #pragma unroll
-        for (int c = 0; c < C::DC; ++c) kv[c] = ks[kk * C::LD + lx + 32 * c];
+      for (int kk = k0p; kk < k0p + 32; kk += 8) {
+        const float* a = dst + (kk + 2 * t) * LS + 16 * mt + g;
+        FragA fa;
+        fa.set(a[0], a[8], a[LS], a[LS + 8]);
+        const float* b = ks + (kk + 2 * t) * LD + qc + g;
 #pragma unroll
-        for (int r = 0; r < C::QR; ++r) {
-          const float dsv = dss[(ly + 8 * r) * C::LS + kk];
-#pragma unroll
-          for (int c = 0; c < C::DC; ++c) dq[r][c] = fmaf(dsv, kv[c], dq[r][c]);
-        }
+        for (int nn = 0; nn < QN; ++nn) mma3(c[nn], fa, b[8 * nn], b[LD + 8 * nn]);
       }
+      add_partial(dq, c);
+    }
+    // dQ staged over the step's Q tile in boxes of 32 columns by BQ rows,
+    // 128-byte swizzled, and added to the float32 scratch by TMA reduce-adds.
+    const uint32_t stage = smem_u32(qs);
 #pragma unroll
-      for (int r = 0; r < C::QR; ++r) {
-        const int row = q0 + ly + 8 * r;
-        if (row >= p.sq) continue;
-#pragma unroll
-        for (int c = 0; c < C::DC; ++c) {
-          const int col = lx + 32 * c;
-          if (col < p.dh) atomicAdd(dqa + static_cast<int64_t>(row) * DH + col, dq[r][c]);
-        }
-      }
+    for (int nn = 0; nn < QN; ++nn) {
+      const int col = qc + 8 * nn;
+      const uint32_t at = stage + (col >> 5) * (C::BQ * 128) + (16 * mt + g) * 128 +
+                          ((((col & 31) >> 2) + (t >> 1)) ^ g) * 16 + 8 * (t & 1);
+      st_shared_f2(at, dq[nn][0], dq[nn][1]);
+      st_shared_f2(at + 8 * 128, dq[nn][2], dq[nn][3]);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      for (int b = 0; b < DH / 32; ++b)
+        tma_reduce_add(&tdq, stage + b * (C::BQ * 128), 32 * b, q0, f * p.group + j);
+      bulk_commit();
     }
   }
 
-  T* dkg = static_cast<T*>(p.dk.ptr) + row_base(p.dk, f, p.hkv);
-  T* dvg = static_cast<T*>(p.dv.ptr) + row_base(p.dv, f, p.hkv);
+  // The QS warps of a key group hold dK, dV over their own rows: those of
+  // query split 1 leave theirs in the stage no step used last, split 0's add
+  // them and write.
+  float* xs = reinterpret_cast<float*>(stages + (n_steps & 1) * 2 * C::TILE_BYTES);
+  float* mine = xs + (kg + C::KG * ch) * (2 * 16 * WC);
+  if (qh == 1) {
 #pragma unroll
-  for (int kr = 0; kr < C::KR; ++kr) {
-    const int key = k0 + ly + 8 * kr;
-    if (key >= p.sk) continue;
+    for (int n = 0; n < WC / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < C::DC; ++c) {
-      const int col = lx + 32 * c;
-      if (col < p.dh) {
-        store(dkg + static_cast<int64_t>(key) * p.dk.ss + col, dk[kr][c]);
-        store(dvg + static_cast<int64_t>(key) * p.dv.ss + col, dv[kr][c]);
+      for (int e = 0; e < 4; ++e) {
+        mine[(n * 4 + e) * 32 + lane] = dk[n][e];
+        mine[16 * WC + (n * 4 + e) * 32 + lane] = dv[n][e];
+      }
+  }
+  __syncthreads();
+  if (qh == 0) {
+    float* dkg = static_cast<float*>(p.dk.ptr) + row_base(p.dk, f, p.hkv);
+    float* dvg = static_cast<float*>(p.dv.ptr) + row_base(p.dv, f, p.hkv);
+#pragma unroll
+    for (int n = 0; n < WC / 8; ++n) {
+      float a[4], b[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a[e] = dk[n][e] + mine[(n * 4 + e) * 32 + lane];
+        b[e] = dv[n][e] + mine[16 * WC + (n * 4 + e) * 32 + lane];
+      }
+      const int col = cw + 8 * n + 2 * t;
+      if (col >= p.dh) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = ka + g + 8 * r;
+        if (key >= p.sk) continue;
+        *reinterpret_cast<float2*>(dkg + static_cast<int64_t>(key) * p.dk.ss + col) =
+            make_float2(a[2 * r], a[2 * r + 1]);
+        *reinterpret_cast<float2*>(dvg + static_cast<int64_t>(key) * p.dv.ss + col) =
+            make_float2(b[2 * r], b[2 * r + 1]);
       }
     }
   }
+  if (tid == 0) bulk_wait<0>();  // the last reduce-adds have read their stage
 }
 
 // ---------------------------------------------------------------------------
@@ -402,14 +656,6 @@ struct TmaBars {
   uint64_t dq_full[STAGES];   // every consumer warp has staged its dQ over them
   uint64_t empty[STAGES];     // the reducer has read the staged dQ: the stage is free
 };
-
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_shared_f2(uint32_t addr, float x, float y) {
-  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" :: "r"(addr), "f"(x), "f"(y) : "memory");
-}
 
 // P^T of one step from S^T: 64 keys (rows: key_a + 8 (i >> 1) for element
 // 4j + i) by 64 query rows from q0 (column 8j + 2t + (i & 1)). l2: the
@@ -771,25 +1017,38 @@ cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int DH, bool SOFTCAP>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  using C = F32Cfg<DH>;
+  const int nf = p.bhq / p.group;
+  // dK and dV are written as float pairs: 8-byte aligned rows.
+  for (const Operand* op : {&p.dk, &p.dv})
+    if (reinterpret_cast<uintptr_t>(op->ptr) % 8 || op->sb % 2 || op->sh % 2 || op->ss % 2)
+      return cudaErrorInvalidValue;
+  CUtensorMap tdq;
+  if (!encode_f32_planes(&tdq, p.dq_acc, DH, p.sq, p.bhq, C::BQ)) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(flash_bwd_f32_kernel<DH, SOFTCAP>, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = static_cast<int64_t>((p.sk + C::BK - 1) / C::BK) * nf;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  flash_bwd_f32_kernel<DH, SOFTCAP><<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem,
+                                      stream>>>(tdq, p);
+  return cudaGetLastError();
+}
+
 template <typename T, int DH, bool SOFTCAP>
 cudaError_t launch_main(const Params& p, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return launch_tma<DH, SOFTCAP>(p, stream);
   } else {
-    using C = BwdCfg<DH>;
-    if (p.bhq / p.group > 65535) return cudaErrorInvalidValue;
-    const cudaError_t err = allow_smem(flash_bwd_kernel<T, DH, SOFTCAP>, C::kSmem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.sk + C::BK - 1) / C::BK, p.bhq / p.group);
-    flash_bwd_kernel<T, DH, SOFTCAP><<<grid, C::kThreads, C::kSmem, stream>>>(p);
-    return cudaGetLastError();
+    return launch_f32<DH, SOFTCAP>(p, stream);
   }
 }
 
 template <typename T, int DH>
 cudaError_t launch_all(const Params& p, cudaStream_t stream) {
   const int64_t rows = static_cast<int64_t>(p.bhq) * p.sq;
-  const int64_t d_rows = static_cast<int64_t>(p.bhq) * (p.sq_pad ? p.sq_pad : p.sq);
+  const int64_t d_rows = static_cast<int64_t>(p.bhq) * p.sq_pad;
   flash_bwd_delta_kernel<T><<<static_cast<unsigned>((d_rows + 7) / 8), 256, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -813,13 +1072,14 @@ cudaError_t launch_width(const Params& p, cudaStream_t stream) {
 
 // q, k, v, o, dout, dq, dk, dv: device pointers; strides: 24 host int64
 // values, (sb, sh, ss) of each in that order, in elements. lse: the
-// forward's float32 [bhq, sq]; delta: float32 scratch, [bhq, sq] for
-// float32 and [2, bhq, sq_pad] for bf16, sq_pad = sq rounded up to 64
-// (ops.py: bwd_delta_size); dq_acc: float32 scratch [bhq, sq, width], width =
-// Dh padded to 64, 128 or 256 (ops.py: bwd_width). window as the forward's.
-// dtype: 0 float32, 1 bf16; bf16 takes dh % 8 == 0 and q, k, v, dout at
-// 16-byte aligned pointers and strides (TMA; ops.py hands over aligned
-// copies). Returns a cudaError_t (0 on success).
+// forward's float32 [bhq, sq]; delta: float32 scratch [2, bhq, sq_pad],
+// sq_pad = sq rounded up to 64 (ops.py: bwd_delta_size); dq_acc: float32
+// scratch [bhq, sq, width], width = Dh padded to 64, 128 or 256 (ops.py:
+// bwd_width). window as the forward's. dtype: 0 float32, 1 bf16; both take q,
+// k, v, dout at 16-byte aligned pointers and strides and dh a multiple of 16
+// bytes (4 float32, 8 bf16 values: cp.async and TMA; ops.py hands over
+// aligned copies), and dk, dv at 8-byte (float32) or 4-byte (bf16) aligned
+// rows. Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, void* dq, void* dk,
                                           void* dv, const int64_t* strides, const void* lse,
@@ -843,13 +1103,13 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   p.sq = sq;
   p.sk = sk;
   p.dh = dh;
-  p.sq_pad = dtype == 1 ? (sq + TmaCfg<64>::BQ - 1) / TmaCfg<64>::BQ * TmaCfg<64>::BQ : 0;
+  p.sq_pad = (sq + 63) / 64 * 64;
   p.scale = scale;
   p.softcap = softcap;
   p.causal = causal;
   p.window = window;
   if (dh < 1 || dh > 256 || window < 1 || sq < 1 || sk < 1 || group < 1 || bhq % group ||
-      (dtype == 1 && dh % 8))
+      dh % (dtype == 1 ? 8 : 4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(launch_width<float>(p, st));

@@ -49,9 +49,10 @@ path) asked to write each query row's float32 log-sum-exp too (``lse``, an
 optional output every serving call leaves out), and its backward is
 ``attention_bwd``: on the card the hand-written backward kernel
 (``csrc/flash_attention_bwd.cu``, its own library; in bf16 a
-warp-specialised wgmma kernel that reads with TMA, so a bf16 operand that
-``aligned16`` refuses reaches it as an aligned, zero-padded copy and the
-gradients are sliced back to Dh), counted in
+warp-specialised wgmma kernel that reads with TMA, in float32 a kernel of
+split-TF32 (3xTF32) ``mma.sync`` products that reads with cp.async; an
+operand that ``aligned16`` refuses reaches either as an aligned, zero-padded
+copy and the gradients are sliced back to Dh), counted in
 ``launches["flash_attention_bwd"]``, on the CPU its plain version
 ``ref.attention_bwd_ref``. There is no fallback: a failed build or launch
 raises :class:`KernelFault`.
@@ -76,7 +77,7 @@ FORMS = ("f32", "prefill", "decode")  # the kernel's codes: csrc's enum Form
 DECODE_ROWS = 64  # the decode form packs a KV head's Sq·group query rows into one tile
 BLOCKS_PER_SM = 4  # the decode and f32 forms' splits aim at this many blocks on each SM
 F32_ROWS = 64  # packed query rows of a KV head an f32-form block takes (csrc's F32Cfg::BQ)
-BWD_QUERY_STEP = 64  # query rows a step of the bf16 backward kernel (csrc's TmaCfg::BQ)
+BWD_PLANE_ROWS = 64  # the backward's L and D planes pad Sq to this (csrc's sq_pad)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -232,19 +233,24 @@ def _check_shapes(q, k, v) -> None:
                          f"v={tuple(v.shape)}")
 
 
+def _per16(x: torch.Tensor) -> int:
+    """Values of x's dtype in 16 bytes: 8 bf16, 4 float32."""
+    return 16 // x.element_size()
+
+
 def aligned16(*operands: torch.Tensor) -> bool:
-    """Whether 16-byte copies and TMA can read the bf16 operands: Dh % 8 == 0
-    and every pointer and (batch, head, sequence) stride a multiple of 16
-    bytes (of 8 bf16 values)."""
-    return all(x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0
-               and all(s % 8 == 0 for s in _strides(x)) for x in operands)
+    """Whether 16-byte copies and TMA can read the operands: Dh, every
+    pointer and every (batch, head, sequence) stride a multiple of 16 bytes
+    (of 8 bf16 or 4 float32 values)."""
+    return all(x.shape[-1] % _per16(x) == 0 and x.data_ptr() % 16 == 0
+               and all(s % _per16(x) == 0 for s in _strides(x)) for x in operands)
 
 
 def _aligned_copy(x: torch.Tensor, dh: int) -> torch.Tensor:
-    """``x`` as the bf16 forms can read it: itself if ``aligned16`` and
-    ``dh`` wide, else a new dense copy zero-padded to ``dh`` columns (zero
-    columns of q and k add nothing to a score; those of v give output columns
-    that are sliced off)."""
+    """``x`` as the kernels that read 16-byte rows can read it: itself if
+    ``aligned16`` and ``dh`` wide, else a new dense copy zero-padded to
+    ``dh`` columns (zero columns of q and k add nothing to a score; those of
+    v give output columns that are sliced off)."""
     if x.shape[-1] == dh and aligned16(x):
         return x
     out = x.new_zeros((*x.shape[:-1], dh))
@@ -377,17 +383,16 @@ def attention(q, k, v, *, causal: bool = True, softcap: float | None = None,
 
 def bwd_width(dh: int) -> int:
     """The backward kernel's head width: Dh padded to 64, 128 or 256 (csrc's
-    BwdCfg and TmaCfg), the row length of its float32 dQ scratch."""
+    F32Cfg and TmaCfg), the row length of its float32 dQ scratch."""
     return 64 if dh <= 64 else 128 if dh <= 128 else 256
 
 
-def bwd_delta_size(bhq: int, sq: int, dtype: torch.dtype) -> int:
-    """Float32 values of the backward's pass-1 scratch: each row's D in
-    float32; in bf16 two planes, L·log2 e then D, of Sq rounded up to the
-    kernel's query step (``BWD_QUERY_STEP``), which its bulk copies read."""
-    if dtype == torch.float32:
-        return bhq * sq
-    return 2 * bhq * -(-sq // BWD_QUERY_STEP) * BWD_QUERY_STEP
+def bwd_delta_size(bhq: int, sq: int) -> int:
+    """Float32 values of the backward's pass-1 scratch: two planes, each
+    row's L (in bf16 L·log2 e) then D, of Sq rounded up to
+    ``BWD_PLANE_ROWS``, a multiple of every query step, which pass 2 reads
+    a step at a time."""
+    return 2 * bhq * -(-sq // BWD_PLANE_ROWS) * BWD_PLANE_ROWS
 
 
 def _like_out(x: torch.Tensor) -> torch.Tensor:
@@ -429,15 +434,12 @@ def attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     hq, hkv = (1, 1) if q.ndim == 3 else (q.shape[1], k.shape[1])
     group = q.shape[-3] // k.shape[-3]
     bf16 = q.dtype == torch.bfloat16
-    if not bf16 and bhq // group > MAX_GRID_Y:
-        raise KernelFault(f"flash_attention_bwd kernel takes at most {MAX_GRID_Y} KV rows in "
-                          f"float32, got {bhq // group}", op="flash_attention_bwd")
     q, k, v, out, dout = (x if x.stride(-1) == 1 else x.contiguous()
                           for x in (q, k, v, out, dout))
-    width = dh  # the kernel's Dh: in bf16 a multiple of 8, every operand TMA-readable
-    if bf16:
-        width = -(-dh // 8) * 8
-        q, k, v, out, dout = (_aligned_copy(x, width) for x in (q, k, v, out, dout))
+    # The kernel's Dh: a multiple of 16 bytes, every operand's rows 16-byte
+    # aligned (TMA in bf16, cp.async in float32).
+    width = -(-dh // _per16(q)) * _per16(q)
+    q, k, v, out, dout = (_aligned_copy(x, width) for x in (q, k, v, out, dout))
     dq, dk, dv = _like_out(q), _like_out(k), _like_out(v)
     if first:
         dk.zero_()
@@ -446,7 +448,7 @@ def attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     sk = k.shape[-2]
     win = sk + sq if window is None else min(window, sk + sq)
     lse = lse.contiguous()
-    delta = torch.empty(bwd_delta_size(bhq, sq, q.dtype), dtype=torch.float32, device=q.device)
+    delta = torch.empty(bwd_delta_size(bhq, sq), dtype=torch.float32, device=q.device)
     dq_acc = torch.empty((bhq, sq, bwd_width(width)), dtype=torch.float32, device=q.device)
     operands = (q, k, v, out, dout, dq, dk_seen, dv_seen)
     stride_arr = (ctypes.c_int64 * 24)(*[s for x in operands for s in _strides(x)])

@@ -17,7 +17,9 @@ on a row that sees no key, as the kernel does.
 ``attention_bwd_ref`` is the plain version of the backward kernel
 (``csrc/flash_attention_bwd.cu``): the gradients of q, k and v from the
 forward's output, its log-sum-exp per row and the output's gradient, written
-out rather than taken through autograd.
+out rather than taken through autograd. ``attention_bwd_tf32x3_ref`` is the
+same with the float32 kernel's arithmetic: each of its five products taken
+in split TF32 on the tensor cores.
 """
 from __future__ import annotations
 
@@ -139,3 +141,69 @@ def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     dk = dk.view(bhkv, group, sk, dh).sum(1)
     dv = dv.view(bhkv, group, sk, dh).sum(1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to tf32 (10 mantissa bits), to nearest with ties
+    away from zero: the bits ``cvt.rna.tf32.f32`` gives (the kernel's add
+    and mask)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the float32 backward kernel takes it on the
+    tensor cores: a = a_big + a_small with a_big = tf32(a), a_small =
+    tf32(a - a_big) (likewise b), then a_small·b_big + a_big·b_small +
+    a_big·b_big in float32 sums (``terms`` = 3, 3xTF32), or a_big·b_big alone
+    (``terms`` = 1, one TF32 product)."""
+    a_big, b_big = tf32_rna(a), tf32_rna(b)
+    out = torch.einsum(eq, a_big, b_big)
+    if terms == 1:
+        return out
+    if terms != 3:
+        raise ValueError(f"tf32_product: terms must be 1 or 3, got {terms}")
+    a_small, b_small = tf32_rna(a - a_big), tf32_rna(b - b_big)
+    return torch.einsum(eq, a_small, b_big) + torch.einsum(eq, a_big, b_small) + out
+
+
+def attention_bwd_tf32x3_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                             softcap: float | None = None, window: int | None = None,
+                             terms: int = 3):
+    """``attention_bwd_ref`` with the float32 backward kernel's arithmetic:
+    each of the five products (S = Q Kᵀ, dP = dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q,
+    dQ = dS K) is ``tf32_product`` of its two float32 operands, split when
+    the kernel loads them, but S under a softcap, which the kernel takes in
+    plain float32 (its scores reach the cap, where P carries their rounding
+    whole); the softmax and dS in float32 between them, as
+    ``attention_bwd_ref`` takes them. ``terms`` = 1 takes each product in one
+    TF32 product instead (what the tensor cores give without the split).
+    The sums are plain float32 ones: the kernel takes them in short partials
+    (the tensor cores truncate as they accumulate) added in float32. Float32
+    operands only; same signature and result otherwise."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"attention_bwd_tf32x3_ref: float32 only, got {q.dtype}")
+    dh = q.shape[-1]
+    bhq, bhkv = q.shape[0], k.shape[0]
+    ke, ve = expand_kv(q, k, v)
+    scale = dh ** -0.5
+    x = (torch.einsum("bqd,bkd->bqk", q, ke) if softcap is not None
+         else tf32_product("bqd,bkd->bqk", q, ke, terms)) * scale
+    if softcap is not None:
+        t = torch.tanh(x / softcap)
+        x = softcap * t
+    sq, sk = x.shape[-2:]
+    mask = visible(sq, sk, torch.arange(sk, device=q.device), causal, window)
+    p = torch.where(mask, torch.exp(x - lse[..., None]), 0.0)
+    dv = tf32_product("bqk,bqd->bkd", p, do, terms)
+    dp = tf32_product("bqd,bkd->bqk", do, ve, terms)
+    ds = p * (dp - torch.sum(do * o, dim=-1, keepdim=True))
+    if softcap is not None:
+        ds = ds * (1 - t * t)
+    ds = ds * scale
+    dq = tf32_product("bqk,bkd->bqd", ds, ke, terms)
+    dk = tf32_product("bqk,bqd->bkd", ds, q, terms)
+    group = bhq // bhkv
+    dk = dk.view(bhkv, group, sk, dh).sum(1)
+    dv = dv.view(bhkv, group, sk, dh).sum(1)
+    return dq, dk, dv

@@ -12,7 +12,10 @@ that is its CPU path, and the one-token step of the decode path.
 
 Where grad mode is on and an input requires grad, ``rwkv6`` is ``_RWKV6``:
 the same forward, and ``rwkv6_bwd`` as its backward (on the CPU
-``ref.rwkv6_bwd_ref``, on the card ``csrc/rwkv6_bwd.cu``).
+``ref.rwkv6_bwd_ref``, on the card ``csrc/rwkv6_bwd.cu``: three kernels,
+the states at every ``BWD_CHUNK``-step boundary, then a block per (bh,
+chunk) for the chunk's gradients, then du summed over the chunks in order;
+``ref.rwkv6_bwd_split_ref`` is that arithmetic in plain PyTorch).
 
 ``launches["rwkv6"]`` and ``launches["rwkv6_bwd"]`` count the kernels'
 launches (``reset_launches`` zeroes them), so a run can show that it went
@@ -28,7 +31,7 @@ import torch
 
 from repro_torch.core.faults import KernelFault
 from repro_torch.kernels.build import CudaLibrary
-from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
+from repro_torch.kernels.rwkv6.ref import BWD_CHUNK, rwkv6_bwd_ref
 
 MAX_DIM = 64  # the kernel keeps K x V <= 64 x 64 of state per head
 
@@ -41,14 +44,13 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.rwkv6_bwd_launch.argtypes = [p] * 13 + [i64, i64, i32, i32, i32, p]
+    lib.rwkv6_bwd_launch.argtypes = [p] * 14 + [i64, i64, i32, i32, i32, i32, p]
     lib.rwkv6_bwd_launch.restype = ctypes.c_int
 
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIB = CudaLibrary("rwkv6", _CSRC / "rwkv6.cu", _declare)
 BWD_LIB = CudaLibrary("rwkv6_bwd", _CSRC / "rwkv6_bwd.cu", _declare_bwd)
-BWD_CHUNK = 8  # steps between the backward kernel's saved states (csrc: kChunk)
 
 launches: Dict[str, int] = {"rwkv6": 0, "rwkv6_bwd": 0}
 
@@ -207,6 +209,23 @@ def rwkv6_bwd(r, k, v, w, u, dout, ds=None):
     :class:`KernelFault`."""
     if not _on_cuda(r, k, v, w, u, dout, *(() if ds is None else (ds,))):
         return rwkv6_bwd_ref(r, k, v, w, u, dout, ds)
+    launch, grads = _bwd_launcher(r, k, v, w, u, dout, ds)
+    launch(BWD_PASSES["all"])
+    launches["rwkv6_bwd"] += 1
+    return grads
+
+
+# The backward kernel's passes, as bits of its launcher's ``passes``.
+BWD_PASSES = {"boundary states": 1, "chunk gradients": 2, "du": 4, "all": 7}
+
+
+def _bwd_launcher(r, k, v, w, u, dout, ds=None):
+    """The backward kernel's buffers for CUDA inputs as ``rwkv6_bwd`` takes
+    them: ``(launch, (dr, dk, dv, dw, du))``, where ``launch(passes)``
+    launches the passes named by the bits of ``passes`` (``BWD_PASSES``) on
+    the current stream, or raises :class:`KernelFault`. ``rwkv6_bwd`` launches
+    all of them; one pass alone reads what the earlier ones left in the
+    buffers, so a pass can be timed by itself."""
     _check(r, k, v, w, u)
     bh, t, kd = r.shape
     vd = v.shape[-1]
@@ -221,18 +240,23 @@ def rwkv6_bwd(r, k, v, w, u, dout, ds=None):
     dr, dk, dw = (torch.empty_like(r) for _ in range(3))
     dv = torch.empty_like(v)
     du = torch.empty((bh, kd), dtype=f32, device=r.device)
-    # The state before every chunk of BWD_CHUNK steps but the first, written
-    # by the kernel's forward walk and read back by its backward walk.
+    # S at the start and G at the end of every chunk of BWD_CHUNK steps,
+    # written by the kernel's first pass and read by its second; each chunk's
+    # partial du, summed in order by its third.
     chunks = -(-t // BWD_CHUNK)
-    scratch = torch.empty((bh, max(chunks - 1, 1), MAX_DIM * MAX_DIM), dtype=f32,
-                          device=r.device)
-    rc = BWD_LIB.load().rwkv6_bwd_launch(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), dout.data_ptr(),
-        0 if ds is None else ds.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dw.data_ptr(), du.data_ptr(), scratch.data_ptr(), bh, t, kd, vd,
-        _DTYPE_CODE[r.dtype], torch.cuda.current_stream(r.device).cuda_stream,
-    )
-    if rc != 0:
-        raise KernelFault(f"rwkv6_bwd launch failed: cudaError {rc}", op="rwkv6_bwd")
-    launches["rwkv6_bwd"] += 1
-    return dr, dk, dv, dw, du
+    scratch = torch.empty((2, bh, chunks, MAX_DIM * MAX_DIM), dtype=f32, device=r.device)
+    du_part = torch.empty((bh, chunks, MAX_DIM), dtype=f32, device=r.device)
+    lib = BWD_LIB.load()
+
+    def launch(passes: int) -> None:
+        rc = lib.rwkv6_bwd_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            dout.data_ptr(), 0 if ds is None else ds.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), scratch.data_ptr(), du_part.data_ptr(),
+            bh, t, kd, vd, _DTYPE_CODE[r.dtype], passes,
+            torch.cuda.current_stream(r.device).cuda_stream,
+        )
+        if rc != 0:
+            raise KernelFault(f"rwkv6_bwd launch failed: cudaError {rc}", op="rwkv6_bwd")
+
+    return launch, (dr, dk, dv, dw, du)

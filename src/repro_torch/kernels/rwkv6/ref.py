@@ -12,6 +12,10 @@ with data-dependent decay w_t ∈ (0, 1) and per-head bonus u. Shapes: r/k/w
 runs the chunked form in ``ops.py`` instead, as the JAX package does off
 the TPU.
 
+``rwkv6_bwd_split_ref`` is the plain version of the backward kernel's
+arithmetic (``csrc/rwkv6_bwd.cu``): boundary states a chunk at a time, then
+a step-by-step walk per chunk from them.
+
 ``rwkv6_chunk_ref`` is the plain version of the kernel's own arithmetic: the
 TPU kernel's chunked matrix form, per chunk of ``CHUNK`` steps
 
@@ -32,6 +36,8 @@ kernel's blocks take them.
 from __future__ import annotations
 
 import torch
+
+BWD_CHUNK = 32  # steps a chunk of the backward kernel: its boundary states (rwkv6_bwd.cu: kChunk)
 
 
 def rwkv6_ref(r, k, v, w, u, *, return_state: bool = False):
@@ -96,6 +102,70 @@ def rwkv6_bwd_ref(r, k, v, w, u, dout, ds=None, *, chunk: int = 64):
             G = weff[:, i, :, None] * G + r[:, i, :, None] * do[:, i, None, :]
     dw = torch.where(w >= W_MIN, dw, 0.0)
     du = (r * k * vdo[..., None]).sum(1)
+    return (*(g.to(dt) for g, dt in zip((dr, dk, dv, dw), dtypes)), du)
+
+
+def rwkv6_bwd_split_ref(r, k, v, w, u, dout, ds=None, *, chunk: int = BWD_CHUNK):
+    """``rwkv6_bwd_ref``'s gradients by the backward kernel's arithmetic
+    (``csrc/rwkv6_bwd.cu``), T split into chunks of ``chunk`` steps:
+
+    1. the boundary states, a chunk at a time in matrix form: S at each
+       chunk's start c0, ``S_{c1} = D S_{c0} + Σ_s (k_s ⊙ Π_{s<u<c1} w_u)
+       v_sᵀ``, and G at each chunk's end c1, ``G_{c0} = D G_{c1} + Σ_s (r_s ⊙
+       Π_{c0≤u<s} w_u) do_sᵀ`` from G_T = ds, with D = Π w over the chunk:
+       every decay product anchored at the chunk's end or start, none above
+       1, nothing divided by w;
+    2. each chunk's gradients, walked step by step from its own S_{c0} and
+       G_{c1} as ``rwkv6_bwd_ref`` walks them;
+    3. du as each chunk's partial sum, then their sum over the chunks in
+       order.
+
+    Same signature and result as ``rwkv6_bwd_ref``."""
+    f32 = torch.float32
+    dtypes = (r.dtype, k.dtype, v.dtype, w.dtype)
+    r, k, v, w, u, do = (x.to(f32) for x in (r, k, v, w, u, dout))
+    bh, t, kd = r.shape
+    vd = v.shape[-1]
+    weff = w.clamp_min(W_MIN)
+    bounds = [(c0, min(c0 + chunk, t)) for c0 in range(0, t, chunk)]
+    one = torch.ones((bh, 1, kd), dtype=f32, device=r.device)
+    S = torch.zeros((bh, kd, vd), dtype=f32, device=r.device)
+    starts = []
+    for c0, c1 in bounds:
+        starts.append(S)
+        wc = weff[:, c0:c1]
+        suffix = torch.flip(torch.cumprod(torch.flip(wc, [1]), 1), [1])   # Π_{u≥s} w_u
+        after = torch.cat([suffix[:, 1:], one], 1)                          # Π_{u>s} w_u
+        S = suffix[:, 0, :, None] * S + torch.einsum("bsi,bsj->bij", k[:, c0:c1] * after,
+                                                     v[:, c0:c1])
+    G = torch.zeros_like(S) if ds is None else ds.to(f32).clone()
+    ends = [G] * len(bounds)
+    for c in reversed(range(len(bounds))):
+        c0, c1 = bounds[c]
+        ends[c] = G
+        prefix = torch.cumprod(weff[:, c0:c1], 1)                           # Π_{u≤s} w_u
+        before = torch.cat([one, prefix[:, :-1]], 1)                        # Π_{u<s} w_u
+        G = prefix[:, -1, :, None] * G + torch.einsum("bsi,bsj->bij", r[:, c0:c1] * before,
+                                                      do[:, c0:c1])
+    vdo = (v * do).sum(-1)                                          # [BH, T]
+    ruk = (r * u[:, None] * k).sum(-1)                              # [BH, T]
+    dr, dk, dw = (torch.empty((bh, t, kd), dtype=f32, device=r.device) for _ in range(3))
+    dv = torch.empty((bh, t, vd), dtype=f32, device=r.device)
+    du = torch.zeros((bh, kd), dtype=f32, device=r.device)
+    for (c0, c1), S, G in zip(bounds, starts, ends):
+        prev = []
+        for i in range(c0, c1):
+            prev.append(S)                                          # S_i, the state before step i
+            S = weff[:, i, :, None] * S + k[:, i, :, None] * v[:, i, None, :]
+        for i in reversed(range(c0, c1)):
+            sp = prev[i - c0]
+            dr[:, i] = torch.einsum("bkv,bv->bk", sp, do[:, i]) + u * k[:, i] * vdo[:, i, None]
+            dk[:, i] = torch.einsum("bkv,bv->bk", G, v[:, i]) + u * r[:, i] * vdo[:, i, None]
+            dv[:, i] = torch.einsum("bkv,bk->bv", G, k[:, i]) + ruk[:, i, None] * do[:, i]
+            dw[:, i] = (G * sp).sum(-1)
+            G = weff[:, i, :, None] * G + r[:, i, :, None] * do[:, i, None, :]
+        du = du + (r[:, c0:c1] * k[:, c0:c1] * vdo[:, c0:c1, None]).sum(1)
+    dw = torch.where(w >= W_MIN, dw, 0.0)
     return (*(g.to(dt) for g, dt in zip((dr, dk, dv, dw), dtypes)), du)
 
 

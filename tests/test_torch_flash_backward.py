@@ -10,6 +10,8 @@ Tolerance: 2e-5 of the largest gradient. The two compute the same float32
 expression in other orders (the port from the saved log-sum-exp, JAX
 through the softmax's own gradient), about 1e-6 of the largest value at
 these sizes."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,3 +144,86 @@ def test_grad_free_calls_take_the_plain_path():
         assert ops.attention(tq, tk, tv).grad_fn is None
     assert ops.attention(tq.detach(), tk.detach(), tv.detach()).grad_fn is None
     assert type(ops.attention(tq, tk, tv).grad_fn).__name__ == "_AttentionBackward"
+
+
+# The float32 backward kernel's arithmetic (``ref.attention_bwd_tf32x3_ref``):
+# each of the five products in split TF32 (3xTF32). Held to the plain
+# float32 version and to JAX's gradient within 1e-5 of the largest gradient,
+# the card's tolerance for the kernel (the split's representation error is
+# about 2^-24 of each operand, as float32's rounding is); a single TF32
+# product (10 mantissa bits) reads far above it.
+TF32X3_TOL = 1e-5
+
+
+@functools.cache
+def _jax_ref_grads(group, causal, cap):
+    """jax.grad of sum(attention_ref(q, k, v) * do) at (q, k, v), each KV row
+    repeated for its group, jitted once per mask."""
+    def f(q, k, v, do):
+        ke, ve = (jnp.repeat(x, group, axis=0) for x in (k, v))
+        return jnp.sum(jax_attention_ref(q, ke, ve, causal=causal, softcap=cap) * do)
+
+    return jax.jit(jax.grad(f, argnums=(0, 1, 2)))
+
+
+@pytest.mark.parametrize("h,kv,sq,sk,dh,causal,cap,window", [
+    (4, 2, 48, 48, 64, True, None, None), (2, 2, 40, 40, 96, True, None, None),
+    (4, 1, 33, 33, 128, False, None, None), (2, 2, 24, 24, 256, True, 20.0, None),
+    (2, 2, 17, 50, 64, True, None, None), (2, 2, 50, 17, 128, False, 30.0, None),
+    (2, 2, 40, 40, 256, True, 50.0, 9), (6, 3, 36, 36, 40, True, None, 13),
+])
+def test_tf32x3_bwd_ref_matches_plain_and_jax_grad(h, kv, sq, sk, dh, causal, cap, window):
+    """3xTF32 against ``attention_bwd_ref`` (the same forward and lse) and
+    against ``jax.grad`` of the reference's ``attention_ref`` (grouped heads
+    expanded, as the kernel sums dK and dV over each group; the window
+    through ``_sdpa``'s mask as the port's ``visible``)."""
+    q, k, v, do = _inputs(10 + sq + dh, h, kv, sq, sk, dh, cap)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    mask = dict(causal=causal, softcap=cap, window=window)
+    lse = torch.empty(tq.shape[:-1])
+    out = ops.attention(tq, tk, tv, lse=lse, chunk=16, **mask)
+    got = ref.attention_bwd_tf32x3_ref(tq, tk, tv, out, tdo, lse, **mask)
+    plain = ref.attention_bwd_ref(tq, tk, tv, out, tdo, lse, **mask)
+    for g, p in zip(got, plain):
+        assert g.dtype == torch.float32 and g.shape == p.shape
+        assert _rel(g, p) < TF32X3_TOL
+    if window is not None:
+        return  # the reference's attention_ref has no window; plain is held to _sdpa above
+    want = _jax_ref_grads(h // kv, causal, cap)(q, k, v, do)
+    for g, w in zip(got, want):
+        assert _rel(g, w) < TF32X3_TOL
+
+
+def test_single_tf32_product_breaks_the_tolerance():
+    """Without the split (each product one TF32 product) the same gradients
+    read far above the float32 tolerance: the tensor cores carry the float32
+    backward only split."""
+    q, k, v, do = _inputs(21, 4, 2, 64, 64, 128, None)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    lse = torch.empty(tq.shape[:-1])
+    out = ops.attention(tq, tk, tv, lse=lse)
+    plain = ref.attention_bwd_ref(tq, tk, tv, out, tdo, lse)
+    one = ref.attention_bwd_tf32x3_ref(tq, tk, tv, out, tdo, lse, terms=1)
+    three = ref.attention_bwd_tf32x3_ref(tq, tk, tv, out, tdo, lse)
+    assert min(_rel(g, p) for g, p in zip(one, plain)) > 10 * TF32X3_TOL
+    assert max(_rel(g, p) for g, p in zip(three, plain)) < TF32X3_TOL
+
+
+def test_tf32_rna_rounds_as_cvt_rna():
+    """``ref.tf32_rna``: the 13 low bits rounded off to nearest, ties away
+    from zero (both signs), a carry into the exponent, tf32 values kept."""
+    bits = np.array([0x3F800000, 0x3F800FFF, 0x3F801000, 0x3F802FFF, 0x3F803000,
+                     0xBF801000, 0xBF800FFF, 0x3FFFF000, 0x00001000], np.uint32)
+    want = np.array([0x3F800000, 0x3F800000, 0x3F802000, 0x3F802000, 0x3F804000,
+                     0xBF802000, 0xBF800000, 0x40000000, 0x00002000], np.uint32)
+    x = torch.from_numpy(bits.view(np.float32).copy())
+    got = ref.tf32_rna(x).numpy().view(np.uint32)
+    assert np.array_equal(got, want), [hex(g) for g in got]
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    big = ref.tf32_rna(y)
+    assert torch.equal(ref.tf32_rna(big), big)
+    assert not bool((big.view(torch.int32) & 0x1FFF).any())
+    assert float(((y - big).abs() / y.abs()).max()) <= 2.0 ** -11
+    with pytest.raises(TypeError, match="float32"):
+        ref.attention_bwd_tf32x3_ref(*(torch.zeros(1, 2, 8, dtype=torch.bfloat16),) * 5,
+                                     torch.zeros(1, 2))

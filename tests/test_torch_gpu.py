@@ -57,15 +57,18 @@ attention_bwd_ref``) in each of dq, dk, dv, relative to the largest plain
 value: both sum in float32 from the same inputs and the forward's
 log-sum-exp, and round to the inputs' dtype (2^-9 of the largest value in
 bfloat16); in bfloat16 the kernel also rounds P and dS to bfloat16 for its
-tensor-core products, and it sums dq in another order (TMA reduce-adds in
-bfloat16, atomic adds in float32). Its cases
+tensor-core products, in float32 it takes each product in split TF32
+(3xTF32, whose representation error is about float32's rounding), and it
+sums dq in another order (TMA reduce-adds). Its cases
 cover every variant the training forwards reach (bf16 and float32; Dh 64,
 96, 128, 256; causal and not; window and softcap; GQA groups; Sq != Sk;
 the forward's decode and split forms), the bf16 kernel's tile edges (Sk
 past a 128-key block, Sq past a 64-row step, the causal diagonal between
 its two consumers' 64-key halves, a window edge inside a tile at Dh 256
-with the softcap), strided views off 16 bytes that reach it as aligned
-copies, dK and dV bit-equal across two calls, the log-sum-exp each forward form
+with the softcap) and the float32 kernel's (64-key blocks and 64-row
+steps, 32 of each at Dh 256), strided views off 16 bytes that reach it as
+aligned copies (float32 too, at a Dh not a multiple of 4), dK and dV
+bit-equal across two calls, the log-sum-exp each forward form
 writes only when asked, a failed launch raising ``KernelFault``, granite's
 smoke training step on the card against the CPU's (``-k training``: the
 attention models, rwkv6-7b and jamba-v0.1-52b). The backward kernels of
@@ -75,7 +78,9 @@ RWKV6 and the scan (``-k backward``) must be within 1e-2 (bfloat16) and
 value, at their chunk and tile edges, the decay edges and odd widths; a
 fault put into each plain version (u's terms dropped, dh_T ignored) reads
 far above that, and ``rwkv6``/``ssm_scan`` with grad on run both kernels of
-each (``-k autograd``). The graph
+each (``-k autograd``); the RWKV6 backward's T on both sides of its 32-step
+chunks at many blocks, and its du (and every gradient) bit-equal across two
+calls. The graph
 service at full width (``-k full_width``), cut from ``chip_smoke.py``'s
 phase 5c for time, runs that leg here (minutes: a 16 GB adjacency).
 """
@@ -1501,16 +1506,21 @@ def test_jamba_smoke_on_card_equals_cpu(cuda):
 FLASH_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 
+def _bwd_inputs(dev, b, hq, hkv, sq, sk, dh, dtype, cap, seed=0):
+    """q, k, v, dO [B, H, S, Dh] from ``seed`` (q scaled under a softcap)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    q = r(b, hq, sq, dh) * (SOFTCAP_Q_SCALE if cap else 1.0)
+    return [x.to(dtype) for x in (q, r(b, hkv, sk, dh), r(b, hkv, sk, dh), r(b, hq, sq, dh))]
+
+
 def _bwd_case(dev, b, hq, hkv, sq, sk, dh, dtype, causal, cap, window, seed=0):
     """Inputs [B, H, S, Dh], the kernel's forward (with its log-sum-exp) and
     both backwards."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
-    g = torch.Generator(device=dev).manual_seed(seed)
-    r = lambda *s: torch.randn(s, generator=g, device=dev)
-    q = r(b, hq, sq, dh) * (SOFTCAP_Q_SCALE if cap else 1.0)
-    q, k, v, do = (x.to(dtype) for x in (q, r(b, hkv, sk, dh), r(b, hkv, sk, dh), r(b, hq, sq, dh)))
+    q, k, v, do = _bwd_inputs(dev, b, hq, hkv, sq, sk, dh, dtype, cap, seed)
     lse = torch.empty((b, hq, sq), device=dev)
     out = fa.attention(q, k, v, causal=causal, softcap=cap, window=window, lse=lse)
     before = fa.launches["flash_attention_bwd"]
@@ -1567,14 +1577,78 @@ BWD_EDGE_CASES = [
     (1, 2, 1, 300, 300, 256, True, 50.0, 100),    # a window edge inside a tile, Dh 256, softcap
     (1, 2, 2, 190, 190, 256, True, None, 70),     # the window at Dh 256 without the softcap
     (1, 4, 4, 129, 129, 128, True, 30.0, None),   # softcap at Dh 128
+    # The float32 kernel's tile edges: blocks of 64 keys (32 at Dh 256), query
+    # steps of 64 rows (32) split between two warps of each key group.
+    (1, 4, 2, 65, 65, 128, True, None, None),     # one row past a step, one key past a block
+    (1, 2, 1, 97, 33, 256, True, 50.0, None),     # Dh 256: a 33rd key, Sq > Sk, softcap
+    (2, 4, 4, 31, 200, 64, False, None, None),    # a step shorter than one warp's rows
+    (1, 2, 2, 160, 160, 256, True, None, 40),     # Dh 256 column halves under a window
 ]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,dh,causal,cap,window", BWD_EDGE_CASES)
-def test_flash_attention_backward_tile_edges(cuda, b, hq, hkv, sq, sk, dh, causal, cap, window):
-    got, want = _bwd_case(cuda, b, hq, hkv, sq, sk, dh, torch.bfloat16, causal, cap, window,
-                          seed=7 * sq + sk + dh)
-    _bwd_close(got, want, torch.bfloat16)
+def test_flash_attention_backward_tile_edges(cuda, b, hq, hkv, sq, sk, dh, causal, cap, window,
+                                             dtype):
+    """Both kernels' edges in both dtypes: the bf16 kernel's blocks and
+    consumers, the split-TF32 kernel's blocks and steps."""
+    mult = 7 if dtype == torch.bfloat16 else 5
+    got, want = _bwd_case(cuda, b, hq, hkv, sq, sk, dh, dtype, causal, cap, window,
+                          seed=mult * sq + sk + dh)
+    _bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("sq,hkv,window", [(200, 2, None), (300, 1, 100)])
+def test_flash_attention_backward_f32_softcap_near_float64(cuda, sq, hkv, window):
+    """At Dh 256 with the softcap and q x 20 the float32 plain version is
+    itself a few 1e-6 from the exact gradients: the kernel's (its scores by
+    float32 FMAs there) must be no farther from float64 ones than 1.5 times
+    the plain version's."""
+    from repro_torch.kernels.flash_attention.ref import expand_kv, visible
+
+    got, want = _bwd_case(cuda, 1, 2, hkv, sq, sq, 256, torch.float32, True, 50.0, window,
+                          seed=sq)
+    q, k, v, do = _bwd_inputs(cuda, 1, 2, hkv, sq, sq, 256, torch.float32, 50.0, seed=sq)
+    q, k, v = (x.flatten(0, 1).double().requires_grad_() for x in (q, k, v))
+    ke, ve = expand_kv(q, k, v)
+    s = 50.0 * torch.tanh(torch.einsum("bqd,bkd->bqk", q, ke) / 16.0 / 50.0)
+    s = torch.where(visible(sq, sq, torch.arange(sq, device=cuda), True, window), s, -1e300)
+    o = torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), ve)
+    exact = torch.autograd.grad((o * do.flatten(0, 1).double()).sum(), (q, k, v))
+
+    def far(x, e):
+        return float((x.double().flatten(0, 1) - e).abs().max() / e.abs().max())
+
+    for x, w, e in zip(got, want, exact):
+        assert far(x, e) < 1.5 * far(w, e) + 1e-7, (far(x, e), far(w, e))
+
+
+@pytest.mark.parametrize("dh", [128, 37])
+def test_flash_attention_backward_f32_reads_unaligned_views(cuda, dh):
+    """float32 q, k, v and dO as [B, H, S, Dh] views one element (4 bytes)
+    off 16 bytes (at Dh 37 not a multiple of 4 either): ``aligned16``
+    refuses them, the kernel reads aligned, zero-padded copies with
+    cp.async and the gradients come back at Dh."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    b, hq, hkv, sq, sk = 1, 4, 2, 90, 90
+    g = torch.Generator(device=cuda).manual_seed(dh)
+
+    def view(s, h):
+        flat = torch.randn(b * s * h * dh + 1, generator=g, device=cuda)
+        return flat[1:].view(b, s, h, dh).transpose(1, 2)
+
+    q, k, v, do = view(sq, hq), view(sk, hkv), view(sk, hkv), view(sq, hq)
+    assert not any(fa.aligned16(x) for x in (q, k, v, do))
+    lse = torch.empty((b, hq, sq), device=cuda)
+    out = fa.attention(q, k, v, causal=True, lse=lse)
+    got = fa.attention_bwd(q, k, v, out, do, lse, causal=True)
+    torch.cuda.synchronize()
+    assert all(x.shape[-1] == dh for x in got)
+    flat = [x.reshape(-1, *x.shape[-2:]) for x in (q, k, v, out, do)]
+    want = attention_bwd_ref(*flat, lse.reshape(-1, sq), causal=True)
+    _bwd_close(got, [w.view(x.shape) for w, x in zip(want, (q, k, v))], torch.float32)
 
 
 @pytest.mark.parametrize("dh", [128, 36])
@@ -1701,12 +1775,44 @@ def _rwkv_bwd_case(args, with_ds, seed, plain=None):
 @pytest.mark.parametrize("with_ds", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kv", [16, 64])
-@pytest.mark.parametrize("t", [1, 8, 9, 37, 512])
-def test_rwkv6_backward_kernel_matches_plain(cuda, t, kv, dtype, with_ds):
-    """T below, at and past one 8-step chunk of saved states, and over many."""
-    args = _rwkv_inputs(6, t, kv, kv, dtype, cuda, seed=t + kv)
-    got, want = _rwkv_bwd_case(args, with_ds, seed=t)
+@pytest.mark.parametrize("t,bh", [(1, 6), (8, 6), (9, 6), (37, 6), (512, 6), (31, 96),
+                                  (32, 96), (33, 96), (64, 96), (65, 96), (100, 96)])
+def test_rwkv6_backward_kernel_matches_plain(cuda, t, bh, kv, dtype, with_ds):
+    """T of one step, below and past a 16-step half of a chunk, and over many
+    chunks; at BH = 96, T on both sides of the 32-step chunks and their
+    halves: hundreds of (bh, chunk) blocks, two an SM."""
+    args = _rwkv_inputs(bh, t, kv, kv, dtype, cuda, seed=t + kv if bh == 6 else 3 * t + kv)
+    got, want = _rwkv_bwd_case(args, with_ds, seed=t if bh == 6 else t + 2)
     assert _grad_rel(got, want) < BWD_TOL[dtype]
+
+
+def test_rwkv6_backward_passes_alone_equal_all_at_once(cuda):
+    """The launcher's passes launched one at a time, in order, leave the same
+    bits as all three in one launch (what ``chip_smoke.py`` times pass by
+    pass)."""
+    args = _rwkv_inputs(16, 200, 64, 64, torch.bfloat16, cuda, seed=13)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    do = torch.randn((16, 200, 64), generator=g, device=cuda)
+    ds = torch.randn((16, 64, 64), generator=g, device=cuda)
+    launch, grads = rk._bwd_launcher(*args, do, ds)
+    for name in ("boundary states", "chunk gradients", "du"):
+        launch(rk.BWD_PASSES[name])
+    want = rk.rwkv6_bwd(*args, do, ds)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
+def test_rwkv6_backward_du_is_bit_equal_across_calls(cuda):
+    """du sums each chunk's partial in a fixed order (no atomics): two calls
+    give the same bits, and so do every other gradient."""
+    args = _rwkv_inputs(64, 1000, 64, 64, torch.bfloat16, cuda, seed=11)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    do = torch.randn((64, 1000, 64), generator=g, device=cuda)
+    ds = torch.randn((64, 64, 64), generator=g, device=cuda)
+    first = rk.rwkv6_bwd(*args, do, ds)
+    second = rk.rwkv6_bwd(*args, do, ds)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -28,6 +28,7 @@ from repro.kernels.rwkv6.ops import rwkv6_chunked as jax_rwkv6_chunked
 from repro.kernels.rwkv6.ref import rwkv6_ref as jax_rwkv6_ref
 from repro.models.ssm import _ssm_scan_chunked
 from repro_torch.kernels.rwkv6 import ops as rk
+from repro_torch.kernels.rwkv6 import ref as rk_ref
 from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref, rwkv6_ref
 from repro_torch.kernels.ssm_scan import ops as sk
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
@@ -163,6 +164,65 @@ def test_rwkv6_function_dispatch_on_cpu():
         plain = rk.rwkv6(tr, tk, tv, tw, ub, chunk=16)
     assert torch.equal(plain, rk.rwkv6_chunked(tr.detach(), tk, tv, tw.detach(),
                                                ub.detach(), chunk=16))
+
+
+# The backward kernel's arithmetic (``rwkv6_bwd_split_ref``): boundary
+# states every BWD_CHUNK steps in matrix form, then a walk per chunk. T on
+# both sides of a chunk and past several, with dS_T, at phase 20's decay
+# edges; held within 1e-5 of the straight plain backward and of jax.grad of
+# the reference's chunked scan taken a step a chunk (chunk 1: no factored
+# decays to overflow at the clamp, for any T).
+SPLIT_C = rk.BWD_CHUNK
+SPLIT_T = [1, SPLIT_C - 1, SPLIT_C, SPLIT_C + 1, 3 * SPLIT_C + 5]
+SPLIT_EDGES = {"model": None, "w 1.0": 1.0, "logdecay 1.2 (the clamp)": CLAMP_W,
+               "mixed": "mixed"}
+
+
+def _split_inputs(t, edge):
+    inputs = list(_rwkv_inputs(300 + t, t, None if edge == "mixed" else SPLIT_EDGES[edge],
+                               bh=2, kd=8, vd=8))
+    if edge == "mixed":  # w = 1, the clamp and the model's decays, channel by channel
+        rng = np.random.default_rng(t)
+        pick = rng.integers(0, 3, inputs[3].shape)
+        inputs[3] = np.where(pick == 0, 1.0, np.where(pick == 1, CLAMP_W, inputs[3])).astype(
+            np.float32)
+    return inputs
+
+
+def _rel0(got, want) -> float:
+    """_rel, where an all-zero gradient (dw at T = 1: S_0 = 0) must be matched exactly."""
+    if not np.abs(np.asarray(want, np.float32)).max():
+        return float(np.abs(np.asarray(got.detach().float())).max())
+    return _rel(got, want)
+
+
+@pytest.mark.parametrize("edge", list(SPLIT_EDGES))
+@pytest.mark.parametrize("t", SPLIT_T)
+def test_rwkv6_bwd_split_ref_matches_plain_and_jax_grad(t, edge):
+    inputs = _split_inputs(t, edge)
+    r, k, v, w, u, do, ds = (torch.from_numpy(x) for x in inputs)
+    got = rk_ref.rwkv6_bwd_split_ref(r, k, v, w, u, do, ds)
+    for g, p in zip(got, rwkv6_bwd_ref(r, k, v, w, u, do, ds), strict=True):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert _rel0(g, p) < SEQ_TOL
+    for g, want in zip(got, _jax_rwkv_grads(1)(*inputs), strict=True):
+        assert _rel0(g, want) < SEQ_TOL
+
+
+def test_rwkv6_bwd_split_ref_bf16_and_chunk_lengths():
+    """bf16 inputs give bf16 gradients (the float32 ones, rounded once), and
+    the result does not hang on where the chunks fall."""
+    inputs = _split_inputs(70, "model")
+    r, k, v, w, u, do, ds = (torch.from_numpy(x) for x in inputs)
+    base = rk_ref.rwkv6_bwd_split_ref(r, k, v, w, u, do, ds)
+    for chunk in (1, 7, 70):
+        for g, b in zip(rk_ref.rwkv6_bwd_split_ref(r, k, v, w, u, do, ds, chunk=chunk), base):
+            assert _rel(g, b) < SEQ_TOL
+    half = [x.to(torch.bfloat16) for x in (r, k, v, w)]
+    got = rk_ref.rwkv6_bwd_split_ref(*half, u, do, ds)
+    want = rk_ref.rwkv6_bwd_split_ref(*(x.float() for x in half), u, do, ds)
+    for g, x, wv in zip(got, half + [u], want):
+        assert g.dtype == x.dtype and torch.equal(g, wv.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
